@@ -2,32 +2,48 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure exits nonzero:
+Phases, each printing JSON lines; any failure exits nonzero:
   1. device: the card's name and its nvidia-smi name and power limit;
-  2. build: compile every kernel of the serving path from the checkout's sources;
-  3. kernel: each kernel against its plain PyTorch version on the card, at the
-     serving shape and at two more (stated tolerance), with its time, the plain
-     version's time, the time of one PyTorch library call for the same
-     function, and the least time the card could take (bound);
-  4. main path: NOVICModel serving SigLIP-B/16 (random weights from a seed) +
-     the FT0 decoder with beam k=10, unguided and guided over all 42,919
+  2. build: compile every kernel (attention.cu, dropout.cu) from the checkout's
+     sources, one nvcc each, started together;
+  3. kernel: the attention kernel against its plain PyTorch version on the
+     card, at the serving shape and at two more (stated tolerance), with its
+     time, the plain version's time, the time of one PyTorch library call for
+     the same function, and the least time the card could take (bound);
+  3b. dropout kernel: bit-identical to its plain version at the three FT0
+     site shapes and a ragged size, rates 0.1 and 0.5; its backward mask is
+     the forward's; the keep share is within 5 sigma of 1 - rate; times;
+  4. serving path: NOVICModel serving SigLIP-B/16 (random weights from a seed)
+     + the FT0 decoder with beam k=10, unguided and guided over all 42,919
      nouns, 2 batches of 64 seeded 224x224 frames; checks the outputs and that
      every kernel launched on this path (12 attention launches per tower forward);
   5. card vs CPU: 2 images through the same port on device="cpu" (plain
      versions) and on the card (kernels): embedding cosine and top-1 labels;
   6. timings at B=64, and a profile of one served batch (device busy share);
+  7. training path: `novic_tpu_torch.cli.train action=train` at the FT0
+     asset's recipe and full width (hidden 512, 6 layers, batch 1024 x accum
+     8, dropout 0.1/0.1, GaussElemUniformAngle noise) for one epoch (8
+     optimizer steps) of a seeded 65,536-row cache; checks finite losses, the
+     loss drop, 50 dropout launches per microbatch, and that the checkpoint
+     serves 64 frames on the card; then ms per step, samples/s, peak memory
+     and a profile of one step;
+  8. card vs CPU for one training step (64 rows, dropout on, noise off):
+     loss, pre-clip grad norm and the updated params;
 then the kernels line and, last, {"ok": true, "device": {...}}.
 Exits nonzero without printing a result when CUDA is not available.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -50,6 +66,14 @@ KERNEL_REL_FRO = 1e-4
 COSINE_MIN = 0.9999     # card (kernel) vs CPU (plain) embeddings, bf16 compute
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak
+# Training (phases 7-8): the FT0 asset's recipe (its cfg_flat) at full width
+TRAIN_ROWS = 65_536         # one epoch = 64 loader batches = 8 optimizer steps
+TRAIN_BATCH, TRAIN_ACCUM = 1024, 8
+DROPOUT_SITES = 1 + 4 * 6   # input dropout + 4 per layer x 6 layers
+# Card vs CPU for one step: float32 GEMMs sum in another order on each side;
+# with the restored AdamW moments an update moves by lr * (1 - beta1) * dg /
+# (sqrt(v) + eps), far below these bounds for a grad error of ~1e-5 relative
+STEP_LOSS_RTOL, STEP_NORM_RTOL, STEP_PARAM_ATOL = 1e-4, 1e-3, 1e-6
 
 
 def emit(obj: dict) -> None:
@@ -68,6 +92,25 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms: the summed duration of the device
+    kernels (and copies) it ran, from torch.profiler, over `iters` calls. Unlike
+    cuda_ms, host launch overhead between calls does not count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+             and not e.key.startswith("Activity Buffer"))
+    return us / 1e3 / iters
 
 
 def wall_ms(fn, repeats: int = 5) -> list[float]:
@@ -129,6 +172,89 @@ def phase_kernel(attention) -> dict:
     return result
 
 
+def dropout_bound_ms(n: int, itemsize: int) -> tuple[float, str]:
+    """Least time: x read once and y written once over the HBM rate (the Philox
+    and compare work is integer arithmetic, far under any peak rate)."""
+    return 2 * n * itemsize / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_dropout(dropout) -> dict:
+    """Phase 3b: the dropout kernel against dropout_reference (plain) on the card."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    seeds = torch.Generator().manual_seed(SEED)
+    result = None
+    B, S, E, H, FF = TRAIN_BATCH, 11, 512, 8, 128
+    for shape in [(B, S, E), (B, H, S, S), (B, S, FF), (1_000_003,)]:
+        for rate in (0.1, 0.5):
+            x = torch.randn(shape, device="cuda", generator=gen, requires_grad=True)
+            g = torch.randn(shape, device="cuda", generator=gen)
+            seed = dropout.draw_seed(seeds)
+            y = dropout.dropout(x, seed, rate)
+            (y * g).sum().backward()
+            torch.cuda.synchronize()
+            ref = dropout.dropout_reference(x.detach(), seed, rate)
+            err = (y.detach() - ref).abs().max().item()
+            # The mask itself, from the plain version's bits (randn can return an
+            # exact 0, so the mask is not read off the values)
+            n = x.numel()
+            keep = (dropout.philox_bits(seed, 0, n, "cuda") < dropout.keep_threshold(rate))
+            keep = keep.reshape(shape)
+            inv = dropout.inv_keep(rate, torch.float32)
+            zero = torch.zeros((), device="cuda")
+            bwd_ok = (torch.equal(y.detach(), torch.where(keep, x.detach() * inv, zero))
+                      and torch.equal(x.grad, torch.where(keep, g * inv, zero)))
+            keep = keep.float().mean().item()
+            sigma = math.sqrt(rate * (1 - rate) / n)
+            xd = x.detach()
+            # Device time per call (the small sites' kernels are shorter than a
+            # Python launch, so back-to-back event timing would time the host);
+            # call_ms is the event-timed cost per call, host launch included
+            ms = device_ms(lambda: dropout.dropout_apply(xd, seed, rate))
+            plain_ms = device_ms(lambda: dropout.dropout_reference(xd, seed, rate), iters=5)
+            library_ms = device_ms(lambda: F.dropout(xd, p=rate, training=True))
+            call_ms = cuda_ms(lambda: dropout.dropout_apply(xd, seed, rate))
+            bound_ms, bound_by = dropout_bound_ms(n, xd.element_size())
+            ok = err == 0.0 and bwd_ok and abs(keep - (1 - rate)) <= 5 * sigma
+            line = {"phase": "kernel", "name": "dropout", "shape": list(shape), "rate": rate,
+                    "max_abs_err": err, "tol": "bit-identical (0)", "backward_mask_ok": bwd_ok,
+                    "keep_share": keep, "keep_5sigma": 5 * sigma, "ok": ok, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "call_ms": call_ms}
+            emit(line)
+            if not ok:
+                raise SystemExit(f"dropout disagrees with its plain version at {shape}, rate {rate}")
+            if result is None:
+                result = line  # the largest FT0 site, rate 0.1
+    return result
+
+
+def device_profile(fn) -> dict:
+    """Wall time, device busy time and the largest device ops of one call of fn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    # Device-side events only (kernels, copies): host ops also carry the
+    # device time of what they launched, which would count it twice
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0 and not e.key.startswith("Activity Buffer")]
+    device_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    return {"wall_ms": wall / 1e3, "device_busy_ms": device_us / 1e3,
+            "device_idle_share": 1.0 - device_us / wall,
+            "top_device_kernels_ms": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                                      for e in top],
+            "dropout_kernels": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                                for e in events if "dropout_f32" in e.key
+                                or "dropout_bf16" in e.key]}
+
+
 def check_output(out, n: int, guide: set | None) -> None:
     lp = np.asarray(out.logprobs, dtype=np.float64)
     if lp.shape != (n, 10) or len(out.preds) != n or any(len(r) != 10 for r in out.preds):
@@ -143,13 +269,201 @@ def check_output(out, n: int, guide: set | None) -> None:
             raise SystemExit(f"guided preds outside the guide set: {bad[:5]}")
 
 
+def write_train_cache(path: str, nouns: list) -> None:
+    """A prototype-structured cache of TRAIN_ROWS seeded rows (as
+    exp/train_bench_ckpt.py builds the FT0 asset's): per-noun unit prototypes
+    plus 0.15 Gaussian jitter, renormalised, one target noun per row."""
+    from novic_tpu_torch.data.cache import EmbeddingCacheWriter
+    from novic_tpu_torch.text.simple import make_test_tokenizer
+    from novic_tpu_torch.text.target import TargetTokenizer, create_target_config
+
+    tok = make_test_tokenizer(nouns)
+    tc = create_target_config(tok, nouns, with_start_token=False, with_end_token=True,
+                              compact_ids=True, fixed_token_length=True,
+                              auto_fixed_token_length=True, use_masks=True)
+    F = 768
+    rng = np.random.default_rng(SEED)
+    protos = rng.standard_normal(size=(len(nouns), F), dtype=np.float32)
+    protos /= np.linalg.norm(protos, axis=1, keepdims=True)
+    with EmbeddingCacheWriter(path, num_embed=TRAIN_ROWS, embed_dim=F,
+                              target_tokenizer=TargetTokenizer(tok, tc), target_nouns=nouns,
+                              num_embed_targets=1, shuffle=True, full_targets=False,
+                              unit_weights=True, embedder_strict=False, default_weights=True,
+                              seed=SEED) as writer:
+        for start in range(0, TRAIN_ROWS, 32768):
+            n = min(32768, TRAIN_ROWS - start)
+            ids = rng.integers(1, len(nouns) + 1, size=(n, 1)).astype(np.int32)
+            e = protos[ids[:, 0] - 1] + 0.15 * rng.standard_normal(size=(n, F), dtype=np.float32)
+            e /= np.linalg.norm(e, axis=1, keepdims=True)
+            writer.write(e, ids)
+
+
+def step_batch(ckpt: dict, rows: int, seed: int):
+    """(embed, target, mask, None) numpy batch of `rows` random nouns of the
+    checkpoint's vocabulary, tokenized with its target config."""
+    from novic_tpu_torch.text.simple import make_test_tokenizer
+    from novic_tpu_torch.text.target import TargetTokenizer
+
+    nouns = ckpt["target_nouns"][ckpt["num_invalid_target_nouns"]:]
+    rng = np.random.default_rng(seed)
+    picks = [nouns[i] for i in rng.integers(0, len(nouns), size=rows)]
+    target, mask = TargetTokenizer(make_test_tokenizer(nouns), ckpt["target_config"]).tokenize_target(picks)
+    embed = rng.standard_normal(size=(rows, ckpt["model_config"].embed_dim), dtype=np.float32)
+    embed /= np.linalg.norm(embed, axis=1, keepdims=True)
+    return embed, target.astype(np.int32), mask, None
+
+
+def to_device(batch, device: str):
+    return tuple(None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                 for x in batch)
+
+
+def phase_train(workdir: str, nouns: list, ft0: dict, name: str, smi: str) -> dict:
+    """Phase 7: action=train at the FT0 recipe and width, through the CLI on the card."""
+    from novic_tpu_torch.cli.train import main as train_main
+    from novic_tpu_torch.data.noise import EmbeddingNoise
+    from novic_tpu_torch.infer import NOVICModel
+    from novic_tpu_torch.ops import attention, dropout
+    from novic_tpu_torch.text.simple import make_test_tokenizer
+    from novic_tpu_torch.train.checkpoint import load_checkpoint
+    from novic_tpu_torch.train.step import TrainRng, make_train_step
+
+    vocab, cache = os.path.join(workdir, "vocab.json"), os.path.join(workdir, "cache.bin")
+    t0 = time.perf_counter()
+    with open(vocab, "w") as f:
+        json.dump([{"target_noun": n} for n in nouns], f)
+    write_train_cache(cache, list(nouns))
+    cache_s = time.perf_counter() - t0
+    recipe = ["hidden_dim=512", "num_layers=6", "num_heads=8", "mlp_seq_len=4",
+              "feedfwd_scale=1/4", f"batch_size={TRAIN_BATCH}", f"accum_factor={TRAIN_ACCUM}",
+              "input_dropout=0.1", "layer_dropout=0.1", "noise_scheme=GaussElemUniformAngle",
+              "noise_vec_norm=0.5", "noise_angle_min=10", "noise_angle_max=30",
+              "noise_mix_ratio=0.15", "init_lr=1.5e-3", "lr_warmup=4"]
+    asset = {k: ft0["cfg_flat"].get(k) for k in ("hidden_dim", "num_layers", "batch_size",
+                                                 "accum_factor", "input_dropout", "noise_scheme",
+                                                 "init_lr", "lr_warmup")}
+    args = (["action=train", f"embedding_dataset={cache}", "embedder=test:768",
+             f"vocab_path={vocab}", "prompt_path=", f"seed={SEED}", f"output_dir={workdir}/outputs",
+             "chunk_scale=0.38", "max_chunks=4", "save_every_max=1000000", "save_top1_min=200",
+             "--device=cuda"] + recipe)
+    torch.cuda.reset_peak_memory_stats()
+    attention.LAUNCHES = dropout.LAUNCHES = 0
+    t0 = time.perf_counter()
+    state, S, ewa = train_main(args)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    drop_launches, att_launches = dropout.LAUNCHES, attention.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ckpts = sorted(glob.glob(os.path.join(workdir, "outputs", "ovod_*", "*.npz")))
+    if not ckpts:
+        raise SystemExit("training saved no checkpoint")
+    with open(os.path.join(os.path.dirname(ckpts[-1]), "metrics.jsonl")) as f:
+        chunks = [json.loads(line) for line in f]
+    losses = [c["chunk_loss"] for c in chunks]
+    microbatches = state.step * TRAIN_ACCUM
+    line = {"phase": "train", "device": name, "nvidia_smi": smi, "asset_recipe": asset,
+            "recipe": recipe, "rows": TRAIN_ROWS, "chunks": len(chunks), "steps": state.step,
+            "microbatches": microbatches, "chunk_mean_loss": losses,
+            "ewa_loss": [c["loss"] for c in chunks], "top1": [c["top1"] for c in chunks],
+            "grad_norm_max": [c["grad_norm_max"] for c in chunks],
+            "dropout_launches": drop_launches, "expected_dropout_launches":
+            DROPOUT_SITES * 2 * microbatches, "attention_launches": att_launches,
+            "cache_write_s": cache_s, "train_wall_s": train_s,
+            "train_samples_per_s_incl_setup": TRAIN_ROWS / train_s, "peak_memory_gb": peak_gb,
+            "checkpoint": os.path.basename(ckpts[-1])}
+    emit(line)
+    if state.step != TRAIN_ROWS // (TRAIN_BATCH * TRAIN_ACCUM) or len(chunks) != 4:
+        raise SystemExit(f"training ran {state.step} steps over {len(chunks)} chunks")
+    if not all(math.isfinite(v) for c in chunks for v in (c["chunk_loss"], c["loss"],
+                                                           c["grad_norm_max"])):
+        raise SystemExit("non-finite training loss or grad norm")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"loss did not drop: {losses}")
+    if drop_launches != DROPOUT_SITES * 2 * microbatches:
+        raise SystemExit(f"dropout kernel launched {drop_launches} times, expected "
+                         f"{DROPOUT_SITES * 2 * microbatches} (25 sites x fwd+bwd per microbatch)")
+
+    # The checkpoint serves on the card
+    served = NOVICModel(ckpts[-1], embedder_spec=SPEC,
+                        embedder_kwargs={"tokenizer": make_test_tokenizer(nouns), "seed": SEED},
+                        gencfg="beam_k10_vnone_gn_t1_a0", batch_size=BATCH, device="cuda")
+    rng = np.random.default_rng(SEED + 1)
+    frames = [rng.integers(0, 256, size=(224, 224, 3), dtype=np.uint8) for _ in range(BATCH)]
+    with served:
+        out = served.classify_images(frames)
+    # After 8 steps the best beams may decode to "" (the end token first) on these
+    # random-tower embeddings, as novic_tpu's checkpoint does after the same training
+    check_output(out, BATCH, None)
+    emit({"phase": "train_checkpoint_serves", "images": BATCH, "labels": [r[:3] for r in out.preds[:2]]})
+
+    # Step timing at the recipe's shape (B=1024 x 8 microbatches), and a profile of one step
+    ck = load_checkpoint(ckpts[-1])
+    batch = to_device(step_batch(ck, TRAIN_BATCH * TRAIN_ACCUM, SEED + 2), "cuda")
+    noise = EmbeddingNoise.create("GaussElemUniformAngle", vec_norm=0.5, angle_min=10.0,
+                                  angle_max=30.0, mix_ratio=0.15)
+    step = make_train_step(state, noise=noise, gradient_clip=1.0, accum_steps=TRAIN_ACCUM)
+    rng_t = TrainRng.create(SEED, "cuda")
+    step(batch, 1e-4, rng_t).fetch()  # warm
+    step_ms = wall_ms(lambda: step(batch, 1e-4, rng_t), repeats=5)
+    med = statistics.median(step_ms)
+    emit({"phase": "train_timing", "device": name, "nvidia_smi": smi,
+          "batch": TRAIN_BATCH, "accum": TRAIN_ACCUM, "target_len": int(batch[1].shape[1]),
+          "ms_per_step": med, "repeats_ms": step_ms,
+          "samples_per_s": TRAIN_BATCH * TRAIN_ACCUM / (med / 1e3), "peak_memory_gb": peak_gb})
+    prof = device_profile(lambda: step(batch, 1e-4, rng_t))
+    drop = prof.pop("dropout_kernels")
+    emit({"phase": "train_profile", "device": name, "steps": 1, **prof,
+          # The profiler slows the host; against the unprofiled step time:
+          "device_idle_share_unprofiled": 1.0 - prof["device_busy_ms"] / med,
+          "dropout_kernel_ms_per_step": sum(d[1] for d in drop),
+          "dropout_launches_per_step": sum(d[2] for d in drop)})
+    return line
+
+
+def phase_train_card_vs_cpu(workdir: str) -> None:
+    """Phase 8: one step (64 rows, accum 1, dropout on, noise off) on the card
+    (kernels) and on the CPU (plain versions), from the same checkpoint, its
+    AdamW state and the same dropout seeds."""
+    from novic_tpu_torch.bridge import adamw_state_from_leaves, decoder_from_numpy
+    from novic_tpu_torch.train.checkpoint import load_checkpoint
+    from novic_tpu_torch.train.optim import create_optimizer
+    from novic_tpu_torch.train.step import TrainRng, TrainState, make_train_step
+
+    path = sorted(glob.glob(os.path.join(workdir, "outputs", "ovod_*", "*.npz")))[-1]
+    ck = load_checkpoint(path)
+    batch = step_batch(ck, 64, SEED + 3)
+    lr = float(ck["cfg_flat"]["init_lr"])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = decoder_from_numpy(ck["model_config"], ck["params"]).to(dev)
+        opt = create_optimizer(model.named_parameters(), weight_decay=ck["cfg_flat"]["weight_decay"])
+        adamw_state_from_leaves(model, opt, ck["opt_arrays"])
+        step = make_train_step(TrainState(model=model, optimizer=opt), gradient_clip=1.0)
+        m = step(to_device(batch, dev), lr, TrainRng.create(SEED, dev)).fetch()
+        out[dev] = (m, {n: p.detach().cpu() for n, p in model.named_parameters()})
+    (mg, pg), (mc, pc) = out["cuda"], out["cpu"]
+    loss_g, loss_c = float(mg["loss_sum"] / mg["loss_basis"]), float(mc["loss_sum"] / mc["loss_basis"])
+    norm_g, norm_c = float(mg["grad_norm"]), float(mc["grad_norm"])
+    param_err = max((pg[n] - pc[n]).abs().max().item() for n in pg)
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    norm_rel = abs(norm_g - norm_c) / norm_c
+    ok = loss_rel <= STEP_LOSS_RTOL and norm_rel <= STEP_NORM_RTOL and param_err <= STEP_PARAM_ATOL
+    emit({"phase": "train_card_vs_cpu", "rows": 64, "loss_cuda": loss_g, "loss_cpu": loss_c,
+          "loss_rel": loss_rel, "grad_norm_cuda": norm_g, "grad_norm_cpu": norm_c,
+          "grad_norm_rel": norm_rel, "param_max_abs_diff": param_err,
+          "tol": {"loss_rel": STEP_LOSS_RTOL, "grad_norm_rel": STEP_NORM_RTOL,
+                  "param_abs": STEP_PARAM_ATOL}, "ok": ok})
+    if not ok:
+        raise SystemExit("card and CPU disagree on the training step")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs a GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     from novic_tpu_torch.infer import NOVICModel
-    from novic_tpu_torch.ops import attention
+    from novic_tpu_torch.ops import attention, build, dropout
     from novic_tpu_torch.text.simple import make_test_tokenizer
     from novic_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -164,15 +478,19 @@ def main() -> int:
     emit({"phase": "device", "name": name, "nvidia_smi": smi, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # 2. build (every kernel of the path; one source so far)
+    # 2. build every kernel of both paths, one nvcc per source, started together
     t0 = time.perf_counter()
-    lib = attention.build(force=True)
-    emit({"phase": "build", "kernels": [os.path.relpath(str(attention.SOURCE), REPO)],
-          "library": os.path.relpath(str(lib), REPO), "seconds": time.perf_counter() - t0,
-          "ptxas": (attention.BUILD_DIR / "attention.ptxas.txt").read_text().strip().splitlines()[-3:]})
+    sources = [attention.SOURCE, dropout.SOURCE]
+    libs = build.build_all(sources, force=True)
+    emit({"phase": "build", "kernels": [os.path.relpath(str(s), REPO) for s in sources],
+          "libraries": [os.path.relpath(str(lib), REPO) for lib in libs],
+          "seconds": time.perf_counter() - t0,
+          "ptxas": {s.name: [line for line in build.ptxas_path(s).read_text().splitlines()
+                             if "registers" in line or "spill" in line] for s in sources}})
 
-    # 3. kernel vs plain
+    # 3. kernels vs plain
     k1 = phase_kernel(attention)
+    k3 = phase_dropout(dropout)
 
     # 4. main path
     ck = load_checkpoint(FT0)
@@ -190,12 +508,14 @@ def main() -> int:
         tower_forwards = math.ceil(len(frames) / BATCH)
         runs = {}
         for label, gencfg in (("unguided", None), ("guided", guided_cfg)):
-            attention.LAUNCHES = 0
+            attention.LAUNCHES = dropout.LAUNCHES = 0
             t0 = time.perf_counter()
             out = model.classify_images(frames, gencfg=gencfg)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             got = attention.LAUNCHES
+            if dropout.LAUNCHES:
+                raise SystemExit(f"{label}: serving launched the dropout kernel")
             launches += got
             check_output(out, len(frames), guide if gencfg else None)
             if got != 12 * tower_forwards:
@@ -242,26 +562,19 @@ def main() -> int:
                              "decode_guided": decode_guided_ms, "e2e": e2e_ms}})
 
         # 6b. device busy share and the largest device ops over one served batch
-        from torch.profiler import ProfilerActivity, profile
+        prof = device_profile(lambda: model.classify_images(batch))
+        prof.pop("dropout_kernels")
+        emit({"phase": "profile", "device": name, "batch": BATCH, **prof})
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model.classify_images(batch)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e6
-        # Device-side events only (kernels, copies): host ops also carry the
-        # device time of what they launched, which would count it twice
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.self_device_time_total > 0 and not e.key.startswith("Activity Buffer")]
-        device_us = sum(e.self_device_time_total for e in events)
-        top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]
-        emit({"phase": "profile", "device": name, "batch": BATCH, "wall_ms": wall / 1e3,
-              "device_busy_ms": device_us / 1e3, "device_idle_share": 1.0 - device_us / wall,
-              "top_device_kernels_ms": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
-                                    for e in top]})
+    # 7. training path, 8. card vs CPU for one step
+    workdir = tempfile.mkdtemp(prefix="novic_chip_smoke_")
+    try:
+        train_line = phase_train(workdir, nouns, ck, name, smi)
+        phase_train_card_vs_cpu(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
-    # 7. kernels line, then the result
+    # Kernels line, then the result
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "fused_attention", "route": "cuda",
@@ -269,7 +582,13 @@ def main() -> int:
         "replaces": "novic_tpu/ops/attention.py:71",
         "launches": launches, "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"]}]})
+        "library_ms": k1["library_ms"]}, {
+        "name": "dropout", "route": "cuda",
+        "source": "novic_tpu_torch/ops/csrc/dropout.cu",
+        "replaces": "novic_tpu/ops/dropout.py:103",
+        "launches": train_line["dropout_launches"], "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

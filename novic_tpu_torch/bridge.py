@@ -1,9 +1,21 @@
-"""Parameters between the JAX package's numpy trees and the port's modules.
+"""Parameters and optimizer state between the JAX package's numpy trees and
+the port's modules.
 
 A flax param tree (after `jax.tree.map(np.asarray, ...)`) or the flat
 `params.*` keys of a novic_tpu `.npz` checkpoint hold the same names as the
-port's state dicts once flattened with dots, so the bridge is a flatten, a
-float32 cast (the FT0 asset stores float16) and a strict `load_state_dict`.
+port's state dicts once flattened with dots, so the param bridge is a flatten,
+a float32 cast (the FT0 asset stores float16) and a strict `load_state_dict`.
+
+The optimizer bridge converts torch AdamW state (per parameter: step,
+exp_avg, exp_avg_sq) to and from the leaf list of the JAX package's
+`optax.inject_hyperparams(optax.adamw)` state, in its tree-flatten order:
+
+  count, b1, b2, eps, eps_root, learning_rate, mask, weight_decay,
+  mask schedule count, adam count, mu (one per param), nu (one per param)
+
+with the params in flax order (nested dict keys sorted at every level). Both
+packages write and read `opt.*` checkpoint arrays in that order, so a
+checkpoint from either resumes in the other.
 """
 
 from __future__ import annotations
@@ -41,3 +53,62 @@ def decoder_from_numpy(cfg: DecoderModelConfig, tree: dict) -> PrefixedIterDecod
 def decoder_to_numpy(module: PrefixedIterDecoder) -> dict:
     """Nested dict of float32 numpy arrays with the JAX package's param names."""
     return unflatten_dict({k: v.detach().cpu().numpy() for k, v in module.state_dict().items()})
+
+
+ADAMW_HEAD = 10  # leaves before the moments
+
+
+def flax_order(names) -> list[str]:
+    """Dotted param names in the order jax.tree.leaves visits the nested dict."""
+    return sorted(names, key=lambda n: tuple(n.split(".")))
+
+
+def adamw_state_to_leaves(model: torch.nn.Module, optimizer: torch.optim.Optimizer, *,
+                          weight_decay_1d: bool) -> list[np.ndarray]:
+    """Torch AdamW state → the optax leaf list (see the module docstring). The
+    mask leaf is what the JAX package's inject_hyperparams evaluates its mask
+    callable to: weight_decay_1d."""
+    named = dict(model.named_parameters())
+    order = flax_order(named)
+    first = optimizer.param_groups[0]
+    b1, b2 = first["betas"]
+    wd = max(g["weight_decay"] for g in optimizer.param_groups)
+    states = [optimizer.state.get(named[n], {}) for n in order]
+    step = int(max((float(st["step"]) for st in states if "step" in st), default=0))
+    f32 = lambda v: np.asarray(v, dtype=np.float32)
+    count = np.asarray(step, dtype=np.int32)
+    head = [count, f32(b1), f32(b2), f32(first["eps"]), f32(0.0), f32(first["lr"]),
+            np.asarray(bool(weight_decay_1d)), f32(wd), count.copy(), count.copy()]
+
+    def moment(name, key):
+        st = optimizer.state.get(named[name], {})
+        if key in st:
+            return st[key].detach().cpu().numpy().astype(np.float32)
+        return np.zeros(tuple(named[name].shape), np.float32)
+
+    return (head + [moment(n, "exp_avg") for n in order]
+            + [moment(n, "exp_avg_sq") for n in order])
+
+
+def adamw_state_from_leaves(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                            leaves: list) -> int:
+    """Load an optax leaf list into torch AdamW state; return the step count."""
+    named = dict(model.named_parameters())
+    order = flax_order(named)
+    if len(leaves) != ADAMW_HEAD + 2 * len(order):
+        raise ValueError(f"Optimizer state has {len(leaves)} arrays; AdamW over "
+                         f"{len(order)} params needs {ADAMW_HEAD + 2 * len(order)}")
+    step = int(np.asarray(leaves[ADAMW_HEAD - 1]))
+    mu = leaves[ADAMW_HEAD:ADAMW_HEAD + len(order)]
+    nu = leaves[ADAMW_HEAD + len(order):]
+    for name, m, v in zip(order, mu, nu):
+        p = named[name]
+        if tuple(np.shape(m)) != tuple(p.shape) or tuple(np.shape(v)) != tuple(p.shape):
+            raise ValueError(f"Optimizer moment shape mismatch for {name}: {np.shape(m)} "
+                             f"vs {tuple(p.shape)}")
+        optimizer.state[p] = {
+            "step": torch.tensor(float(step), dtype=torch.float32),
+            "exp_avg": torch.as_tensor(np.asarray(m, np.float32)).to(p.device).clone(),
+            "exp_avg_sq": torch.as_tensor(np.asarray(v, np.float32)).to(p.device).clone(),
+        }
+    return step

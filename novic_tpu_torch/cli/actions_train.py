@@ -1,0 +1,149 @@
+"""action=train (the counterpart of novic_tpu.cli.actions_train.action_train;
+reference train.py:977-1479): chunk math, mean shift + noise, training on one
+device, EWA metrics, the checkpoint policy and resume from a native .npz
+checkpoint written by either package.
+
+Not ported yet: reference torch checkpoints (load and save_torch_checkpoints),
+orbax checkpoints, data-parallel training over several cards.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import torch
+
+from novic_tpu_torch.bridge import adamw_state_to_leaves, decoder_from_numpy
+from novic_tpu_torch.cli.common import (
+    check_loaded_config,
+    find_checkpoints,
+    gen_data_config,
+    load_embedder,
+    load_embedding_dataset,
+    load_mean_shift,
+    make_run_dir,
+    model_config_from_cfg,
+)
+from novic_tpu_torch.data.grad_accum import GradAccum
+from novic_tpu_torch.data.noise import EmbeddingNoise
+from novic_tpu_torch.device import resolve
+from novic_tpu_torch.models.base import count_params, create_decoder, verify_unused
+from novic_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from novic_tpu_torch.train.loop import TrainLoopConfig, TrainLoopState, compute_chunk_batches, train
+from novic_tpu_torch.utils.config import config_to_flat
+from novic_tpu_torch.utils.logger import log
+from novic_tpu_torch.utils.metrics import MetricsLogger
+
+
+def action_train(cfg, device="cuda"):
+    dev = resolve(device)
+    embedder = load_embedder(cfg, load_model=False, device=dev)
+    dataset = load_embedding_dataset(cfg, embedder, training=True)
+    dc = gen_data_config(cfg, dataset)
+    loader, info = dataset.create_loader(batch_size=cfg.batch_size, training=True, seed=cfg.seed,
+                                         prefetch=cfg.loader_prefetch, device=dev,
+                                         num_threads=int(cfg.get("dataset_workers", 4)))
+    grad_accum = GradAccum(loader, info, accum_size=cfg.accum_factor)
+
+    # Chunk math (ref train.py:990): chunk = num_valid_targets * chunk_scale samples
+    chunk_batches = compute_chunk_batches(dataset.num_valid_targets, cfg.chunk_scale,
+                                          cfg.batch_size)
+    epoch_batches = grad_accum.loader_batches
+    if cfg.max_chunks > 0:
+        max_chunks = cfg.max_chunks
+    else:
+        max_chunks = max(int(math.floor(cfg.max_epochs * epoch_batches / chunk_batches)), 1)
+    log.info(f"Chunks of {chunk_batches} batches; training {max_chunks} chunks "
+             f"(~{max_chunks * chunk_batches / max(epoch_batches, 1):.1f} epochs)")
+
+    if cfg.data_parallel and dev.type == "cuda" and torch.cuda.device_count() > 1:
+        log.warning("Data-parallel training is not ported yet => training on one card")
+
+    model_cfg = model_config_from_cfg(cfg, embedder)
+    if cfg.optimizer.lower() == "adamp":
+        raise NotImplementedError("optimizer=AdamP is not ported yet (AdamW only)")
+
+    # Resume (ref train.py:1057-1101)
+    S = TrainLoopState(rng_seed=cfg.seed)
+    opt_arrays = None
+    lr_params = dict(init_lr=cfg.init_lr, final_lr=cfg.final_lr,
+                     lr_scheduler=cfg.lr_scheduler, lr_warmup=cfg.lr_warmup)
+    lr_resume_fresh = False
+    ckpts = find_checkpoints(cfg)
+    if ckpts:
+        if ckpts[-1].endswith((".model", ".train")) or os.path.isdir(ckpts[-1]):
+            raise NotImplementedError("Resuming from reference torch or orbax checkpoints is not "
+                                      "ported yet (.npz only)")
+        ckpt = load_checkpoint(ckpts[-1])
+        check_loaded_config(ckpt["cfg_flat"], config_to_flat(cfg))
+        model = decoder_from_numpy(model_cfg, ckpt["params"]).to(dev)
+        verify_unused(model, model_cfg)
+        if cfg.load_train_state and ckpt["train_meta"].get("loop_state"):
+            S = TrainLoopState.from_dict(ckpt["train_meta"]["loop_state"])
+            opt_arrays = ckpt["opt_arrays"]
+            log.info(f"Resumed training state at chunk {S.chunk_id}")
+            if cfg.load_lr_state:
+                ck = ckpt["cfg_flat"]
+                lr_params = {k: ck.get(k, lr_params[k]) for k in lr_params}
+                log.info(f"Resuming checkpoint LR schedule: {lr_params}")
+            else:
+                lr_resume_fresh = True
+                log.info("load_lr_state=false => restarting LR schedule at the resumed chunk")
+    else:
+        model = create_decoder(model_cfg, generator=torch.Generator().manual_seed(cfg.seed),
+                               device=dev)
+    pc = count_params(model, model_cfg)
+    unused_str = f" + {pc['unused']} unused" if pc["unused"] else ""
+    log.info(f"Decoder {model_cfg.model}: {pc['used']} params{unused_str} on {dev}")
+
+    noise = EmbeddingNoise.create(cfg.noise_scheme, embed_dim=embedder.embed_dim,
+                                  vec_norm=cfg.noise_vec_norm, angle_min=cfg.noise_angle_min,
+                                  angle_max=cfg.noise_angle_max, angle_std=cfg.noise_angle_std,
+                                  mix_ratio=cfg.noise_mix_ratio)
+    mean_shift = load_mean_shift(cfg, embedder)
+
+    run_dir = make_run_dir(cfg)
+    stamp = os.path.basename(run_dir)[len("ovod_"):]
+    metrics = MetricsLogger(run_dir=run_dir, use_wandb=cfg.use_wandb, config=config_to_flat(cfg))
+
+    C = TrainLoopConfig(
+        chunk_batches=chunk_batches, chunk_samples=chunk_batches * cfg.batch_size,
+        epoch_batches=epoch_batches, max_chunks=max_chunks, accum_size=cfg.accum_factor, gradient_clip=cfg.gradient_clip,
+        steps_per_dispatch=int(cfg.get("steps_per_dispatch", 1) or 1),
+        loss_ewa_halflife=cfg.loss_ewa_halflife, save_every_min=cfg.save_every_min,
+        save_every_max=cfg.save_every_max, save_top1_min=cfg.save_top1_min / 100.0,
+        save_top1_delta=cfg.save_top1_delta / 100.0, **lr_params,
+        last_dropout_chunks=cfg.last_dropout_chunks,
+        last_dropout_factor=cfg.last_dropout_factor, lr_resume_fresh=lr_resume_fresh)
+
+    def save_fn(chunk_id, state, loop_state):
+        ckpt_fmt = str(cfg.get("checkpoint_format", "npz") or "npz").lower()
+        if ckpt_fmt != "npz":
+            raise NotImplementedError(f"checkpoint_format={ckpt_fmt} is not ported yet (npz only)")
+        if cfg.save_torch_checkpoints:
+            raise NotImplementedError("save_torch_checkpoints is not ported yet")
+        verify_unused(state.model, model_cfg)
+        path = os.path.join(run_dir, f"ovod_chunk{chunk_id:04d}_{stamp}.npz")
+        save_checkpoint(
+            path, params={k: v.detach().cpu().numpy() for k, v in state.model.state_dict().items()},
+            cfg_flat=config_to_flat(cfg), model_config=model_cfg,
+            target_config=embedder.target_config, data_config=dc.as_dict(),
+            target_nouns=dataset.targets, num_invalid_target_nouns=dataset.num_invalid_targets,
+            opt_state_arrays=adamw_state_to_leaves(state.model, state.optimizer,
+                                                   weight_decay_1d=cfg.weight_decay_1d),
+            train_meta={"loop_state": loop_state.as_dict(), "chunk_id": chunk_id})
+        return path
+
+    with dataset.loaded():
+        state, S, ewa = train(
+            model=model, loader=grad_accum.loader(), C=C, S=S, noise=noise, mean_shift=mean_shift,
+            multi_first=dc.multi_first, beta1=cfg.beta1, beta2=cfg.beta2,
+            weight_decay=cfg.weight_decay, weight_decay_1d=cfg.weight_decay_1d,
+            optimizer=cfg.optimizer, nesterov=cfg.nesterov,
+            opt_state_arrays=opt_arrays, metrics=metrics, save_fn=save_fn,
+            profile_dir=(cfg.get("profile_dir", "") or None))
+    metrics.finish()
+    log.info(f"Training finished: loss {ewa.loss:.4e}, top1 {ewa.top1:.3%} "
+             f"(max {ewa.top1_max:.3%}); run dir {run_dir}")
+    return state, S, ewa

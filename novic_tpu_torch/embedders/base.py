@@ -1,11 +1,12 @@
 """Embedder: the frozen dual-encoder abstraction (the counterpart of
 novic_tpu.embedders.base), image side.
 
-'TYPE:NAME' factory, lazy model load/unload, target-config management,
+'TYPE:NAME' factory, lazy model load/unload, target-config creation and
+management, configuration hashing for cache compatibility (the same
+configuration dicts, hence the same hashes, as the JAX package's embedders),
 unit-norm float32 image embeddings. The towers are PyTorch modules on an
 explicit device (CUDA by default). Embeddings come back as numpy float32 unit
-vectors, as in the JAX package. Configuration hashing and the text side wait
-for the slices that use them.
+vectors, as in the JAX package. The text tower is not ported yet.
 
 Also provides the 'test:<dim>' embedder, whose BLAKE2-derived vectors are
 byte-identical to the JAX package's.
@@ -15,7 +16,9 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Callable, Optional, Sequence, Union
+import json
+import os
+from typing import Any, Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -29,7 +32,7 @@ from novic_tpu_torch.embedders.preprocess import (
 )
 from novic_tpu_torch.embedders.registry import EmbedderArch, lookup
 from novic_tpu_torch.text.simple import SimpleWordTokenizer
-from novic_tpu_torch.text.target import TargetConfig, TargetTokenizer
+from novic_tpu_torch.text.target import TargetConfig, TargetTokenizer, create_target_config
 from novic_tpu_torch.text.tokenizer import TextTokenizer
 from novic_tpu_torch.utils.logger import log
 
@@ -41,6 +44,9 @@ class Embedder:
     def create(
         spec: str,                          # 'TYPE:NAME' (openai:/openclip:/transformers:/test:)
         *,
+        tokenizer_batch_size: int = 1024,
+        inference_batch_size: int = 256,
+        image_batch_size: int = 128,
         load_model: bool = True,
         check: bool = False,
         weights_path: Optional[str] = None,    # converted .npz tower weights
@@ -52,18 +58,32 @@ class Embedder:
         if ":" not in spec:
             raise ValueError(f"Embedder spec must be of the format 'TYPE:NAME': {spec}")
         kind, name = spec.split(":", maxsplit=1)
+        sizes = dict(tokenizer_batch_size=tokenizer_batch_size,
+                     inference_batch_size=inference_batch_size, image_batch_size=image_batch_size)
         if kind == "test":
-            return HashEmbedder(spec=spec, embed_dim=int(name), check=check, tokenizer=tokenizer)
+            return HashEmbedder(spec=spec, embed_dim=int(name), check=check, tokenizer=tokenizer,
+                                **sizes)
         if kind not in ("openai", "openclip", "transformers"):
             raise ValueError(f"Unsupported embedder type: {kind}")
-        return TorchEmbedder(spec=spec, arch=lookup(spec), load_model=load_model, check=check, weights_path=weights_path, tokenizer=tokenizer,
-                             compute_dtype=compute_dtype, seed=seed, device=device)
+        return TorchEmbedder(spec=spec, arch=lookup(spec), load_model=load_model, check=check,
+                             weights_path=weights_path, tokenizer=tokenizer,
+                             compute_dtype=compute_dtype, seed=seed, device=device, **sizes)
 
-    def __init__(self, *, spec: str, tokenizer: TextTokenizer, embed_dim: int, check: bool):
+    def __init__(self, *, spec: str, configuration: dict[str, Any], tokenizer: TextTokenizer,
+                 embed_dim: int, check: bool, config_class: str, tokenizer_batch_size: int = 1024,
+                 inference_batch_size: int = 256, image_batch_size: int = 128):
         self.spec = spec
         self.tokenizer = tokenizer
         self.embed_dim = embed_dim
+        self.embed_dtype = np.dtype(np.float32)
+        self.tokenizer_batch_size = tokenizer_batch_size
+        self.inference_batch_size = inference_batch_size
+        self.image_batch_size = image_batch_size
         self.check = check
+        # `config_class` is the class name the JAX package records for this kind
+        # of embedder: caches check the hash of this dict, so both packages write it alike
+        self.configuration = dict(configuration)
+        self.configuration["class"] = config_class
         self.target_tokenizer: Optional[TargetTokenizer] = None
         self.target_vocab: Optional[tuple[str, ...]] = None
         log.info(f"Created embedder {spec}: dim {embed_dim}, "
@@ -71,9 +91,50 @@ class Embedder:
 
     # -- target config ------------------------------------------------------------
 
+    def create_target_config(self, targets: Sequence[str], **kwargs) -> TargetConfig:
+        return create_target_config(self.tokenizer, targets,
+                                    batch_size=self.tokenizer_batch_size, **kwargs)
+
     def configure_target(self, target_config: TargetConfig, target_vocab: Sequence[str]):
         self.target_tokenizer = TargetTokenizer(self.tokenizer, target_config, check=self.check)
         self.target_vocab = tuple(target_vocab)
+
+    @property
+    def target_config(self) -> Optional[TargetConfig]:
+        return self.target_tokenizer.target_config if self.target_tokenizer else None
+
+    def tokenize_target(self, text, max_tokens=None):
+        if not self.target_tokenizer:
+            raise ValueError("Tokenizing a target noun requires a target configuration to be set")
+        return self.target_tokenizer.tokenize_target(text, max_tokens=max_tokens)
+
+    # -- configuration hashing (cache compatibility, ref embedders.py:262-278) -----
+
+    def get_configuration(self, main_config: bool, target_config: bool,
+                          target_exclude: Optional[set] = None,
+                          target_override: Optional[dict] = None) -> dict:
+        configuration = self.configuration.copy() if main_config else {}
+        if target_config:
+            if self.target_tokenizer is None:
+                raise ValueError("Cannot get configuration including target config: none set")
+            tc = self.target_tokenizer.target_config.as_jsonable()
+            if target_exclude is not None:
+                tc = {k: v for k, v in tc.items() if k not in target_exclude}
+            if target_override is not None:
+                tc.update(target_override)
+            configuration["target_config"] = tc
+        return configuration
+
+    def get_configuration_hash(self, main_config: bool, target_config: bool,
+                               target_exclude: Optional[set] = None,
+                               target_override: Optional[dict] = None,
+                               hexdigest: bool = False, algorithm: str = "sha256"
+                               ) -> Union[bytes, str]:
+        configuration = self.get_configuration(main_config, target_config,
+                                               target_exclude, target_override)
+        h = hashlib.new(algorithm,
+                        json.dumps(configuration, separators=(",", ":"), sort_keys=True).encode())
+        return h.hexdigest() if hexdigest else h.digest()
 
     # -- inference ---------------------------------------------------------------
 
@@ -100,7 +161,8 @@ class TorchEmbedder(Embedder):
 
     def __init__(self, *, spec: str, arch: EmbedderArch, load_model: bool, check: bool,
                  weights_path: Optional[str], tokenizer: Optional[TextTokenizer],
-                 compute_dtype: str, seed: int, device: Union[str, torch.device] = "cuda"):
+                 compute_dtype: str, seed: int, device: Union[str, torch.device] = "cuda",
+                 **sizes):
         if compute_dtype != arch.vision.compute_dtype:
             arch = dataclasses.replace(
                 arch, vision=dataclasses.replace(arch.vision, compute_dtype=compute_dtype),
@@ -114,8 +176,17 @@ class TorchEmbedder(Embedder):
             log.warning("No tokenizer given => word-level test tokenizer (the BPE/"
                         "SentencePiece tokenizers are not ported yet)")
             tokenizer = SimpleWordTokenizer(words=(), context_length=arch.text.context_length)
-        super().__init__(spec=spec, tokenizer=tokenizer, embed_dim=arch.vision.embed_dim,
-                         check=check)
+        configuration = {
+            "spec": spec,
+            "family": arch.family,
+            "vision": dataclasses.asdict(arch.vision),
+            "text": dataclasses.asdict(arch.text),
+            "preprocess": dataclasses.asdict(arch.preprocess),
+            "weights": os.path.basename(weights_path) if weights_path else "random",
+        }
+        super().__init__(spec=spec, configuration=configuration, tokenizer=tokenizer,
+                         embed_dim=arch.vision.embed_dim, check=check,
+                         config_class="JaxEmbedder", **sizes)
         if load_model:
             self.load_model()
 
@@ -189,9 +260,12 @@ class HashEmbedder(Embedder):
     """Deterministic test embedder ('test:<dim>'): unit vectors derived from a
     BLAKE2 hash of the text / image bytes (the same bytes as the JAX package's)."""
 
-    def __init__(self, *, spec: str, embed_dim: int, check: bool = False, tokenizer=None):
+    def __init__(self, *, spec: str, embed_dim: int, check: bool = False, tokenizer=None,
+                 **sizes):
         tok = tokenizer if tokenizer is not None else SimpleWordTokenizer(words=(), context_length=77)
-        super().__init__(spec=spec, tokenizer=tok, embed_dim=embed_dim, check=check)
+        super().__init__(spec=spec, configuration={"spec": spec, "embed_dim": embed_dim},
+                         tokenizer=tok, embed_dim=embed_dim, check=check,
+                         config_class="HashEmbedder", **sizes)
         self._loaded = True
 
     def load_model(self) -> bool:

@@ -60,8 +60,9 @@ class DecoderModelConfig:
 
     # Compute options of the JAX package, kept so checkpoints round-trip. The
     # port reads compute_dtype (KV-cache dtype); its matmuls are always exact
-    # float32 (TF32 off), whatever matmul_precision says; dropout_impl and
-    # attn_impl select JAX-side formulations and are not read here.
+    # float32 (TF32 off), whatever matmul_precision says. dropout_impl is only
+    # validated: every value draws its mask from the dropout kernel on CUDA
+    # (ops/dropout.py). attn_impl selects a JAX-side formulation and is not read.
     compute_dtype: str = "float32"
     dropout_impl: str = "auto"
     matmul_precision: str = "default"
@@ -108,6 +109,17 @@ class DecoderModelConfig:
 
     def replace(self, **kwargs) -> "DecoderModelConfig":
         return dataclasses.replace(self, **kwargs)
+
+
+def activation_gain(name: str, unit_std: bool) -> float:
+    """Gain of an activation for balanced init (ref utils.py:84-112)."""
+    if name == "tanh":
+        return 0.6279 if unit_std else 1.0
+    if name == "relu":
+        return 0.7071067811865476  # 1/sqrt(2)
+    if name == "gelu":
+        return 0.6521 if unit_std else 0.5
+    raise ValueError(f"Unsupported activation function: {name}")
 
 
 def get_activation(name: str):

@@ -1,9 +1,16 @@
-"""Decoder building blocks, inference forms (the counterpart of
-novic_tpu.models.layers).
+"""Decoder building blocks (the counterpart of novic_tpu.models.layers): the
+full-sequence training forward with its dropout sites, and the prefill and
+KV-cached decode forms that serving uses.
 
 Weights are torch layout (out, in) with the JAX package's parameter names, so
 a flattened flax tree is the state dict. Matmuls are exact float32 (TF32 off).
-No dropout: this module serves inference only.
+`init_random` draws every parameter from the same distribution as the flax
+initialisers, from an explicit generator (equal in distribution, not in value).
+
+Dropout (FastDropout) draws each site's mask from the counter-based dropout
+kernel (ops/dropout.py) on CUDA, and from its plain version on the CPU. Its two
+seed words come from a CPU torch.Generator that the caller passes down, so no
+site touches device RNG state or synchronises.
 
 The KV-cached paths update the cache tensors in place (the JAX package returns
 new arrays); they still return the caches so callers read alike.
@@ -17,7 +24,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from novic_tpu_torch.models.config import DecoderModelConfig, get_activation
+from novic_tpu_torch.models.config import DecoderModelConfig, activation_gain, get_activation
+from novic_tpu_torch.ops.dropout import draw_seed, dropout
 
 NEG_INF = -1e30  # finite -inf stand-in: keeps softmax NaN-free for fully masked rows
 
@@ -51,7 +59,47 @@ def causality_mask(max_seq_len: int, prefix_len: int, strictly_causal: bool) -> 
 
 
 def _param(*shape) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(*shape), requires_grad=False)
+    return nn.Parameter(torch.zeros(*shape))
+
+
+DROPOUT_IMPLS = ("auto", "pallas", "threefry")
+
+
+class FastDropout(nn.Module):
+    """Dropout site (the counterpart of novic_tpu.models.layers.FastDropout).
+
+    Every `impl` the JAX package accepts ('auto', 'threefry', 'pallas') takes
+    the same mask source here: the dropout kernel on a CUDA tensor, its plain
+    version on a CPU tensor. Identity when deterministic or rate <= 0. The
+    rate is an attribute so a trainer can rescale it in place."""
+
+    def __init__(self, rate: float, impl: str = "auto"):
+        super().__init__()
+        if impl not in DROPOUT_IMPLS:
+            raise ValueError(f"Unknown dropout impl: {impl}")
+        self.rate = rate
+        self.impl = impl
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if deterministic or self.rate <= 0.0:
+            return x
+        if generator is None:
+            raise ValueError("FastDropout needs a CPU generator for its seeds when not deterministic")
+        return dropout(x.contiguous(), draw_seed(generator), self.rate)
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}, impl={self.impl}"
+
+
+def normal_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+
+def uniform_(p: torch.Tensor, bound: float, generator: torch.Generator) -> None:
+    """U(-bound, bound): torch.nn.Linear's default kaiming-uniform(a=sqrt(5)) for
+    bound = 1/sqrt(fan_in), xavier-uniform for bound = sqrt(6/(fan_in+fan_out))."""
+    p.copy_((torch.rand(p.shape, generator=generator) * 2.0 - 1.0) * bound)
 
 
 class EmbeddingVectorMLP(nn.Module):
@@ -93,6 +141,48 @@ class EmbeddingVectorMLP(nn.Module):
             if output_bias:
                 self.linear2_bias = _param(output_size)
             self.act = get_activation(cfg.mlp_hidden_activation)
+        self.output_bias = output_bias
+
+    @torch.no_grad()
+    def init_random(self, generator: torch.Generator) -> None:
+        """The flax EmbeddingVectorMLP initialisers (ref embedding_decoder.py:203-226)."""
+        cfg = self.cfg
+        output_size = cfg.mlp_seq_len * cfg.hidden_dim
+        if cfg.init_mlp_mode == "default":
+            balanced = None
+        elif cfg.init_mlp_mode == "balanced":
+            balanced = 1.0 if self.output_bias else 1.0 / math.sqrt(2)
+        else:
+            raise ValueError(f"Unrecognised MLP initialisation mode: {cfg.init_mlp_mode}")
+
+        def w_init(p, std, fan_in):
+            if std is None:
+                uniform_(p, 1.0 / math.sqrt(fan_in), generator)
+            else:
+                normal_(p, std, generator)
+
+        for name, p in self.named_parameters():
+            if name.endswith("_bias"):
+                p.zero_()
+        if self.hidden is None:
+            if balanced is None:
+                std = None
+            else:
+                std = balanced / math.sqrt(cfg.hidden_dim) if cfg.init_mlp_unit_norm else balanced
+            w_init(self.linear1_weight, std, cfg.embed_dim)
+            return
+        gain = activation_gain(cfg.mlp_hidden_activation, unit_std=not cfg.init_mlp_unit_norm)
+        if balanced is not None:
+            out_norm = balanced if cfg.init_mlp_unit_norm else balanced * math.sqrt(cfg.hidden_dim)
+            hidden_std = (out_norm / gain) * math.sqrt(cfg.mlp_seq_len / self.hidden)
+        elif cfg.init_mlp_unit_norm:
+            hidden_std = math.sqrt(cfg.mlp_seq_len / self.hidden)
+        else:
+            hidden_std = 1.0
+        w_init(self.linear1_weight, hidden_std if balanced is not None else None, cfg.embed_dim)
+        if cfg.mlp_hidden_norm:
+            self.norm_weight.fill_(hidden_std)
+        w_init(self.linear2_weight, 1.0 / math.sqrt(output_size), self.hidden)
 
     def forward(self, embed: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -108,7 +198,10 @@ class EmbeddingVectorMLP(nn.Module):
 
 class TransformerLayer(nn.Module):
     """One pre/post-LN encoder layer with optional ReZero (nn.TransformerEncoderLayer
-    semantics), in its prefill and KV-cached decode forms."""
+    semantics): the full-sequence form with its four dropout sites (attention
+    probabilities, dropout1 after the output projection, ff_dropout after the
+    feed-forward activation, dropout2 after linear2), and the prefill and
+    KV-cached decode forms, which never drop."""
 
     def __init__(self, cfg: DecoderModelConfig):
         super().__init__()
@@ -135,6 +228,57 @@ class TransformerLayer(nn.Module):
         elif cfg.init_rezero_mode != "none":
             raise ValueError(f"Invalid ReZero specification: {cfg.init_rezero_mode}")
         self.act = get_activation(cfg.layer_activation)
+        self.attn_dropout = FastDropout(cfg.layer_dropout, cfg.dropout_impl)
+        self.dropout1 = FastDropout(cfg.layer_dropout, cfg.dropout_impl)
+        self.ff_dropout = FastDropout(cfg.layer_dropout, cfg.dropout_impl)
+        self.dropout2 = FastDropout(cfg.layer_dropout, cfg.dropout_impl)
+
+    @torch.no_grad()
+    def init_random(self, generator: torch.Generator, postnorm_override: Optional[float] = None
+                    ) -> None:
+        """The flax TransformerLayer.setup initialisers (ref embedding_decoder.py:280-409);
+        post-LN gives the last layer's norm2 the postnorm scale."""
+        cfg = self.cfg
+        E, FF = cfg.hidden_dim, cfg.feedfwd_dim
+        factor = 1.0 / math.sqrt(E)
+        nominal_std = factor if cfg.init_tfrm_unit_norm else 1.0
+        gain = activation_gain(cfg.layer_activation,
+                               unit_std=not (cfg.init_tfrm_unit_norm or cfg.init_zero_norm))
+        init_norm_scale = 0.0 if cfg.init_zero_norm else nominal_std
+        if cfg.init_tfrm_mode == "default":
+            uniform_(self.self_attn_in_proj_weight, math.sqrt(6.0 / (E + 3 * E)), generator)
+            uniform_(self.self_attn_out_proj_weight, 1.0 / math.sqrt(E), generator)
+            uniform_(self.linear1_weight, 1.0 / math.sqrt(E), generator)
+            uniform_(self.linear2_weight, 1.0 / math.sqrt(FF), generator)
+        else:
+            if cfg.init_tfrm_mode == "open":
+                std_in, std_out = factor, factor
+                std_ff1, std_ff2 = factor / math.sqrt(2), factor
+            elif cfg.init_tfrm_mode == "balanced":
+                d = max(cfg.mlp_seq_len, 1)
+                attn_scale = math.sqrt((1 + (nominal_std ** 4) * (d - 1) / d) / d)
+                std_in, std_out = factor, factor / attn_scale
+                std_ff1, std_ff2 = factor, 1.0 / (math.sqrt(FF) * gain)
+            else:
+                raise ValueError(f"Unrecognised transformer initialisation mode: {cfg.init_tfrm_mode}")
+            if cfg.init_tfrm_proj_layers:
+                num_layers_factor = 1.0 / math.sqrt(2 * cfg.num_layers)
+                std_out *= num_layers_factor
+                std_ff2 *= num_layers_factor
+            s = 1.0 / math.sqrt(2) if (cfg.layer_bias and not cfg.init_bias_zero) else 1.0
+            normal_(self.self_attn_in_proj_weight, std_in * s, generator)
+            normal_(self.self_attn_out_proj_weight, std_out * s, generator)
+            normal_(self.linear1_weight, std_ff1 * s, generator)
+            normal_(self.linear2_weight, std_ff2 * s, generator)
+        self.norm1_weight.fill_(init_norm_scale)
+        self.norm2_weight.fill_(init_norm_scale if postnorm_override is None else postnorm_override)
+        for name, p in self.named_parameters():
+            if name.endswith("_bias") or name.startswith("scale"):
+                p.zero_()
+
+    def set_dropout(self, rate: float) -> None:
+        for site in (self.attn_dropout, self.dropout1, self.ff_dropout, self.dropout2):
+            site.rate = rate
 
     def _b(self, name: str) -> Optional[torch.Tensor]:
         return getattr(self, name, None)
@@ -154,37 +298,43 @@ class TransformerLayer(nn.Module):
         shape = (x.shape[0], x.shape[1], cfg.num_heads, cfg.head_dim)
         return q.reshape(shape), k.reshape(shape), v.reshape(shape)
 
-    def _attend(self, q, k, v, attn_bias):
+    def _attend(self, q, k, v, attn_bias, deterministic: bool = True, generator=None):
         """q, k, v (B, S[q|k], H, hd); attn_bias additive, broadcastable to (Sq, Sk)."""
         scale = 1.0 / math.sqrt(self.cfg.head_dim)
         scores = torch.einsum("bqhd,bkhd->bhqk", q * scale, k) + attn_bias
         attn = torch.softmax(scores, dim=-1)
+        attn = self.attn_dropout(attn, deterministic, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         return out.reshape(out.shape[0], out.shape[1], self.cfg.hidden_dim)
 
-    def _ff_block(self, x):
+    def _ff_block(self, x, deterministic: bool = True, generator=None):
         h = self.act(dense(x, self.linear1_weight, self._b("linear1_bias")))
+        h = self.ff_dropout(h, deterministic, generator)
         h = dense(h, self.linear2_weight, self._b("linear2_bias"))
+        h = self.dropout2(h, deterministic, generator)
         scale2 = self._scale(2)
         return h if scale2 is None else h * scale2
 
-    def _finish(self, x, attn_out):
-        """Residual + feed-forward after the attention output projection."""
+    def _finish(self, x, attn_out, deterministic: bool = True, generator=None):
+        """Output projection, residual and feed-forward after the attention."""
         out = dense(attn_out, self.self_attn_out_proj_weight, self._b("self_attn_out_proj_bias"))
+        out = self.dropout1(out, deterministic, generator)
         scale1 = self._scale(1)
         if scale1 is not None:
             out = out * scale1
         if self.cfg.layer_norm_first:
             x = x + out
-            return x + self._ff_block(self._norm(x, 2))
+            return x + self._ff_block(self._norm(x, 2), deterministic, generator)
         x = self._norm(x + out, 1)
-        return self._norm(x + self._ff_block(x), 2)
+        return self._norm(x + self._ff_block(x, deterministic, generator), 2)
 
-    def forward(self, x: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
-        """Full-sequence forward (no cache)."""
+    def forward(self, x: torch.Tensor, attn_bias: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Full-sequence forward (no cache); drops at its four sites unless deterministic."""
         h = self._norm(x, 1) if self.cfg.layer_norm_first else x
         q, k, v = self._qkv(h)
-        return self._finish(x, self._attend(q, k, v, attn_bias))
+        return self._finish(x, self._attend(q, k, v, attn_bias, deterministic, generator),
+                            deterministic, generator)
 
     def prefill(self, x, attn_bias, k_cache, v_cache):
         """Multi-token forward that also fills the KV cache at positions [0, S)."""
@@ -237,6 +387,18 @@ class Transformer(nn.Module):
             if cfg.layer_bias:
                 self.norm_bias = _param(cfg.hidden_dim)
 
+    @torch.no_grad()
+    def init_random(self, generator: torch.Generator) -> None:
+        cfg = self.cfg
+        postnorm_scale = 1.0 / math.sqrt(cfg.hidden_dim) if cfg.init_tfrm_unit_postnorm else 1.0
+        for i, layer in enumerate(self.layers):
+            last_post_ln = not cfg.layer_norm_first and i == cfg.num_layers - 1
+            layer.init_random(generator, postnorm_scale if last_post_ln else None)
+        if cfg.layer_norm_first:
+            self.norm_weight.fill_(postnorm_scale)
+            if cfg.layer_bias:
+                self.norm_bias.zero_()
+
     @property
     def layers(self) -> list:
         return [getattr(self, f"layers_{i}") for i in range(self.cfg.num_layers)]
@@ -246,9 +408,10 @@ class Transformer(nn.Module):
             return layer_norm(x, self.norm_weight, getattr(self, "norm_bias", None))
         return x
 
-    def forward(self, x, attn_bias):
+    def forward(self, x, attn_bias, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         for layer in self.layers:
-            x = layer(x, attn_bias)
+            x = layer(x, attn_bias, deterministic, generator)
         return self._final_norm(x)
 
     def prefill(self, x, attn_bias, k_caches, v_caches):

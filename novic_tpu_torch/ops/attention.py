@@ -19,20 +19,18 @@ from __future__ import annotations
 
 import ctypes
 import math
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from novic_tpu_torch.ops import build as _build
+
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "novic_tpu_torch"
-_LIB_NAME = "libnovic_attention.so"
+SOURCE = _build.CSRC / "attention.cu"
+BUILD_DIR = _build.BUILD_DIR
 _lib = None
 _lib_lock = threading.Lock()
 
@@ -54,28 +52,9 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         v.to(torch.bfloat16).float())
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.isfile(path):
-        raise RuntimeError("nvcc not found: the attention kernel cannot be built")
-    return path
-
-
 def build(force: bool = False) -> Path:
     """Compile csrc/attention.cu into the build directory (if stale); return the .so path."""
-    out = BUILD_DIR / _LIB_NAME
-    if not force and out.is_file() and out.stat().st_mtime >= SOURCE.stat().st_mtime:
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    (BUILD_DIR / "attention.ptxas.txt").write_text(res.stderr)
-    os.replace(tmp, out)
-    return out
+    return _build.build(SOURCE, force=force)
 
 
 def _library():

@@ -1,0 +1,75 @@
+"""Compile the port's CUDA sources with nvcc into shared libraries.
+
+Each source in ops/csrc/ has a plain C interface and is built for sm_90a into
+build/novic_tpu_torch/ at the root of the checkout at first use, then loaded
+through ctypes by its wrapper module. `build_all` starts one nvcc per source at
+once, so a cold start pays the slowest compile rather than the sum.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "novic_tpu_torch"
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.isfile(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def library_path(source: Path) -> Path:
+    return BUILD_DIR / f"libnovic_{source.stem}.so"
+
+
+def ptxas_path(source: Path) -> Path:
+    return BUILD_DIR / f"{source.stem}.ptxas.txt"
+
+
+def _fresh(source: Path) -> bool:
+    out = library_path(source)
+    return out.is_file() and out.stat().st_mtime >= source.stat().st_mtime
+
+
+def _start(source: Path) -> tuple[subprocess.Popen, Path]:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = library_path(source).with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(source)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp
+
+
+def _finish(source: Path, proc: subprocess.Popen, tmp: Path) -> Path:
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n{out}\n{err}")
+    ptxas_path(source).write_text(err)
+    os.replace(tmp, library_path(source))
+    return library_path(source)
+
+
+def build(source: Path, force: bool = False) -> Path:
+    """Compile one source (if stale); return the .so path."""
+    if not force and _fresh(source):
+        return library_path(source)
+    return _finish(source, *_start(source))
+
+
+def build_all(sources: list[Path], force: bool = False) -> list[Path]:
+    """Compile several sources concurrently, one nvcc each; return their .so paths."""
+    jobs = [(s, *_start(s)) for s in sources if force or not _fresh(s)]
+    try:
+        for source, proc, tmp in jobs:
+            _finish(source, proc, tmp)
+    finally:
+        for _, proc, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return [library_path(s) for s in sources]

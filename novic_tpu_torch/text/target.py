@@ -26,6 +26,7 @@ from typing import Any, Optional, Sequence, Union
 import numpy as np
 
 from novic_tpu_torch.text.tokenizer import TextTokenizer
+from novic_tpu_torch.utils.logger import log
 
 TOKEN_DTYPE = np.int32
 MASK_DTYPE = np.bool_
@@ -95,6 +96,99 @@ class TargetConfig:
         d["token_dtype"] = str(d["token_dtype"]).replace("torch.", "")
         d["mask_dtype"] = str(d["mask_dtype"]).replace("torch.", "")
         return TargetConfig(**d)
+
+
+def create_target_config(
+    tokenizer: TextTokenizer,
+    targets: Sequence[str],
+    *,
+    with_start_token: bool,
+    with_end_token: bool,
+    compact_ids: bool,
+    fixed_token_length: bool,
+    auto_fixed_token_length: bool,
+    use_masks: bool,
+    batch_size: int = 1024,
+) -> TargetConfig:
+    """Build a TargetConfig by tokenizing ALL target nouns (ref embedders.py:169-254)."""
+
+    token_id_set: set[int] = set()
+    max_target_tokens = 0
+    max_target_tokens_str = ""
+    targets = list(targets)
+    for i in range(0, len(targets), batch_size):
+        chunk = targets[i:i + batch_size]
+        max_tokens, max_tokens_str, token_set = tokenizer.get_tokenize_details(
+            text=chunk, token_id_set=compact_ids)
+        if token_set:
+            token_id_set.update(token_set)
+        if max_tokens > max_target_tokens or not max_target_tokens_str:
+            max_target_tokens = max_tokens
+            max_target_tokens_str = max_tokens_str
+
+    if compact_ids:
+        token_id_set.remove(tokenizer.end_token_id)
+    if not with_end_token:
+        max_target_tokens -= 1
+    token_id_set.discard(tokenizer.pad_token_id)
+    if tokenizer.start_token_id is None:
+        if with_start_token:
+            max_target_tokens += 1
+    else:
+        if compact_ids:
+            token_id_set.remove(tokenizer.start_token_id)
+        if not with_start_token:
+            max_target_tokens -= 1
+    log.info(
+        f"Max target tokens {'with' if with_start_token else 'without'} start token "
+        f"{'with' if with_end_token else 'without'} end token is {max_target_tokens} "
+        f"for '{max_target_tokens_str}'"
+    )
+
+    if compact_ids:
+        pad_token_id = 0
+        end_token_id = 0 if with_end_token else None
+        compact_list = [tokenizer.pad_token_id]
+        if with_start_token:
+            start_token_id = 1
+            compact_list.append(tokenizer.start_token_id if tokenizer.start_token_id is not None else -1)
+        else:
+            start_token_id = None
+        num_special = len(compact_list)
+        compact_list.extend(sorted(token_id_set))
+        vocab_size = len(compact_list)
+        compact_unmap = np.array(compact_list, dtype=TOKEN_DTYPE)
+        compact_map = np.full((tokenizer.vocab_size,), fill_value=-1, dtype=TOKEN_DTYPE)
+        compact_map[compact_unmap[num_special:]] = np.arange(num_special, vocab_size, dtype=TOKEN_DTYPE)
+        compact_map[tokenizer.pad_token_id] = 0
+        compact_map[tokenizer.end_token_id] = 0
+        if tokenizer.start_token_id is not None and with_start_token:
+            compact_map[tokenizer.start_token_id] = 1
+        log.info(f"Compact tokenization uses a reduced vocab of {vocab_size} tokens")
+    else:
+        vocab_size = tokenizer.vocab_size
+        start_token_id = tokenizer.start_token_id if with_start_token else None
+        end_token_id = tokenizer.end_token_id if with_end_token else None
+        pad_token_id = tokenizer.pad_token_id
+        compact_map = None
+        compact_unmap = None
+
+    token_length = max_target_tokens if not fixed_token_length or auto_fixed_token_length else tokenizer.context_length
+
+    return TargetConfig(
+        vocab_size=vocab_size,
+        token_dtype="int32",
+        mask_dtype="bool",
+        start_token_id=start_token_id,
+        end_token_id=end_token_id,
+        pad_token_id=pad_token_id,
+        compact_ids=compact_ids,
+        compact_map=compact_map,
+        compact_unmap=compact_unmap,
+        fixed_token_length=fixed_token_length,
+        token_length=token_length,
+        use_masks=use_masks,
+    )
 
 
 class TargetTokenizer:
@@ -213,3 +307,17 @@ class TargetTokenizer:
             if all_masks is not None and mask is not None:
                 all_masks[i:i + len(chunk), :mask.shape[1]] = mask
         return all_ids, all_masks
+
+
+def translate_target_tokens(token_ids: np.ndarray, source: TargetConfig, dest: TargetConfig) -> np.ndarray:
+    """Retarget token IDs from one TargetConfig's compact space to another's
+    via unmap→map composition (ref embedding_dataset.py:105-120, embedding_cache.py:668-683)."""
+    if source.compact_ids != dest.compact_ids:
+        raise ValueError("A translation must preserve tokenization compactness")
+    if (source.start_token_id is None) != (dest.start_token_id is None) or \
+       (source.end_token_id is None) != (dest.end_token_id is None):
+        raise ValueError("A translation must preserve start/end token presence")
+    if not source.compact_ids:
+        return token_ids
+    raw = source.compact_unmap[token_ids]
+    return dest.compact_map[raw]

@@ -86,6 +86,17 @@ class TextTokenizer:
             return {"input_ids": token_ids, "attention_mask": attention_mask}
         return token_ids
 
+    def get_tokenize_details(self, text: Union[str, Sequence[str]], max_tokens: Optional[int] = None,
+                             token_id_set: bool = False):
+        """Max tokenization length, an argmax text, and optionally the used-token-ID set
+        (ref embedders.py:408-416)."""
+        tokens_dict = self.tokenize(text=text, max_tokens=max_tokens, output_dict=True)
+        attention_mask = tokens_dict["attention_mask"]
+        max_len = attention_mask.shape[1]
+        max_str = text if isinstance(text, str) else text[int(attention_mask[:, -1].argmax())]
+        token_set = set(np.unique(tokens_dict["input_ids"]).tolist()) if token_id_set else None
+        return max_len, max_str, token_set
+
     def detokenize(self, token_ids: np.ndarray) -> Union[str, list[str]]:
         """Detokenize (a batch of) token ID sequences (ref embedders.py:326-329,550-555).
 

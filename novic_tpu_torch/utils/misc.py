@@ -1,6 +1,8 @@
-"""Dict flatten/unflatten and float formatting (host-only helpers)."""
+"""Dict flatten/unflatten, AttrDict and float formatting (host-only helpers)."""
 
 from __future__ import annotations
+
+from typing import Any
 
 
 def flatten_dict(D: dict, parent_key: str | None = None) -> dict:
@@ -34,6 +36,29 @@ def unflatten_dict(F: dict) -> dict:
             raise ValueError(f"Nesting conflict at '{leaf}' while inserting '{c}'")
         cursor[leaf] = v
     return D
+
+
+class AttrDict(dict):
+    """Dict with attribute access (ref utils.py:385-402)."""
+
+    @classmethod
+    def from_dict(cls, D: dict) -> "AttrDict":
+        return cls({k: cls.from_dict(v) if isinstance(v, dict) else v for k, v in D.items()})
+
+    def to_dict(self) -> dict:
+        return {k: v.to_dict() if isinstance(v, AttrDict) else v for k, v in self.items()}
+
+    def __getattr__(self, key: str) -> Any:
+        try:
+            return self[key]
+        except KeyError as e:
+            raise AttributeError(key) from e
+
+    def __setattr__(self, key: str, value: Any):
+        self[key] = value
+
+    def __delattr__(self, key: str):
+        del self[key]
 
 
 def format_semifix(value: float, precision: int) -> str:

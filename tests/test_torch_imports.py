@@ -3,7 +3,8 @@
 tests/conftest.py has already imported JAX in this process, so the check runs
 in a subprocess whose import hook raises on jax, flax, optax, novic_tpu and
 novic_tpu.* (not novic_tpu_torch), then imports every module of
-novic_tpu_torch and chip_smoke.
+novic_tpu_torch (the serving modules and the training path's: ops.dropout,
+data.*, train.*, cli.*, utils.config/metrics) and chip_smoke.
 """
 
 import os
@@ -36,8 +37,19 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
+print(" ".join(names))
 print(len(names))
 """
+
+TRAINING_MODULES = [
+    "novic_tpu_torch.ops.dropout", "novic_tpu_torch.ops.build", "novic_tpu_torch.models.base",
+    "novic_tpu_torch.data.noise", "novic_tpu_torch.data.config", "novic_tpu_torch.data.dataset",
+    "novic_tpu_torch.data.cache", "novic_tpu_torch.data.loader", "novic_tpu_torch.data.grad_accum",
+    "novic_tpu_torch.train.optim", "novic_tpu_torch.train.step", "novic_tpu_torch.train.loop",
+    "novic_tpu_torch.train.checkpoint", "novic_tpu_torch.utils.config",
+    "novic_tpu_torch.utils.metrics", "novic_tpu_torch.cli.common",
+    "novic_tpu_torch.cli.actions_train", "novic_tpu_torch.cli.train",
+]
 
 
 def test_port_imports_without_jax():
@@ -45,7 +57,21 @@ def test_port_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 20
+    lines = res.stdout.strip().splitlines()
+    assert int(lines[-1]) >= 46
+    assert set(TRAINING_MODULES) <= set(lines[-2].split())
+
+
+def test_train_cli_runs_without_jax():
+    """The training entry point starts (--help) with JAX blocked."""
+    code = _GUARD.split("import novic_tpu_torch")[0] + (
+        "import runpy, sys\nsys.argv = ['train', '--help']\n"
+        "runpy.run_module('novic_tpu_torch.cli.train', run_name='__main__')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "action=train" in res.stdout and "--device" in res.stdout
 
 
 def test_guard_blocks_the_jax_package():
