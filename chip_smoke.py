@@ -4,8 +4,8 @@
 
 Phases, each printing JSON lines; any failure exits nonzero:
   1. device: the card's name and its nvidia-smi name and power limit;
-  2. build: compile every kernel (attention.cu, dropout.cu) from the checkout's
-     sources, one nvcc each, started together;
+  2. build: compile every kernel (attention.cu, dropout.cu, int8_matmul.cu)
+     from the checkout's sources, one nvcc each, started together;
   3. kernel: the attention kernel against its plain PyTorch version on the
      card, at the serving shape and at two more (stated tolerance), with its
      time, the plain version's time, the time of one PyTorch library call for
@@ -17,6 +17,15 @@ Phases, each printing JSON lines; any failure exits nonzero:
      + the FT0 decoder with beam k=10, unguided and guided over all 42,919
      nouns, 2 batches of 64 seeded 224x224 frames; checks the outputs and that
      every kernel launched on this path (12 attention launches per tower forward);
+  4b. int8 serving path: a TorchEmbedder with vision.quant="int8:pallas" (the
+     same seeded weights) embeds the 2 x 64 frames, NOVICModel.classify_embeds
+     labels them unguided and guided; 72 K2 and 12 attention launches per
+     tower forward; card vs CPU and int8 vs bf16 cosines; tower ms and K2's
+     share of the tower's device time;
+  4c. text towers: SigLIP-B/16's (bidirectional, last pool) and OpenAI
+     ViT-B/16's (causal, argmax pool) at full width, B=256, bf16 and int8,
+     through inference_tokens (seeded ids) and inference_text (FT0 nouns,
+     test tokenizer); launch counts, card vs CPU, int8 vs bf16, texts/s;
   5. card vs CPU: 2 images through the same port on device="cpu" (plain
      versions) and on the card (kernels): embedding cosine and top-1 labels;
   6. timings at B=64, and a profile of one served batch (device busy share);
@@ -35,6 +44,7 @@ Exits nonzero without printing a result when CUDA is not available.
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
 import math
@@ -66,6 +76,18 @@ KERNEL_REL_FRO = 1e-4
 COSINE_MIN = 0.9999     # card (kernel) vs CPU (plain) embeddings, bf16 compute
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak
+INT8_OP_PER_S = 1979e12     # H100 SXM dense int8 tensor-core peak
+# int8 towers (phases 4b, 4c): int8 vs bf16 embeddings on the card. The JAX
+# package gives 0.9998 (vision) and 0.9994 (text) at these widths on the CPU
+INT8_VS_BF16_VISION, INT8_VS_BF16_TEXT = 0.999, 0.998
+# Card vs CPU for an int8 text tower at bf16 compute: a bf16 activation one
+# ulp apart (sums in another order; K1's p rounding) is about half an int8 step
+# near its row's maximum, and a row maximum one ulp apart shifts every code of
+# the row, so int8 multiplies the bf16 towers' 1 - cosine (4e-5 for the SigLIP
+# text tower on the card) about five-fold. The vision tower keeps COSINE_MIN.
+INT8_TEXT_COSINE_MIN = 0.9995
+CLIP_SPEC = "openai:ViT-B/16"
+TEXT_BATCH = 256
 # Training (phases 7-8): the FT0 asset's recipe (its cfg_flat) at full width
 TRAIN_ROWS = 65_536         # one epoch = 64 loader batches = 8 optimizer steps
 TRAIN_BATCH, TRAIN_ACCUM = 1024, 8
@@ -103,14 +125,19 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-             and not e.key.startswith("Activity Buffer"))
-    return us / 1e3 / iters
+    # A profiling window can come back without device events (seen with
+    # microsecond kernels); such a window is repeated, never reported as 0 ms
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.self_device_time_total > 0 and not e.key.startswith("Activity Buffer"))
+        if us > 0:
+            return us / 1e3 / iters
+    raise SystemExit("device_ms: the profiler recorded no device time in 5 windows")
 
 
 def wall_ms(fn, repeats: int = 5) -> list[float]:
@@ -230,8 +257,124 @@ def phase_dropout(dropout) -> dict:
     return result
 
 
-def device_profile(fn) -> dict:
-    """Wall time, device busy time and the largest device ops of one call of fn."""
+def int8_bound_ms(M: int, N: int, K: int, out_bytes: int, scales: bool,
+                  bias: bool) -> tuple[float, str]:
+    """Least time: the int8 operands, the scales and the bias read once and the
+    output written once over the HBM rate, vs 2MNK over the int8 peak."""
+    nbytes = (M * K + N * K + out_bytes * M * N + (4 * (M + N) if scales else 0)
+              + (4 * N if bias else 0))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * M * N * K / INT8_OP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# (label, M, K, N): the int8 towers' GEMMs (vision at B=64: 64 x 196 tokens;
+# the SigLIP text tower at B=256: 256 x 64 tokens), a ragged shape, and the
+# DFN5B-H MLP pair of exp/pallas_int8_mlp_chain.py (X4)
+INT8_SHAPES = [("vision q/k/v/o", 12544, 768, 768), ("vision fc1", 12544, 768, 3072),
+               ("vision fc2", 12544, 3072, 768), ("text fc1", 16384, 768, 3072),
+               ("ragged", 257, 70, 200)]
+X4_SHAPES = [("x4 fc1", 16384, 1280, 5120), ("x4 fc2", 16384, 5120, 1280)]
+
+
+def phase_int8(int8mm) -> tuple[dict, dict]:
+    """Phase 3c: K2 against its plain version on the card, every epilogue
+    bit-identical; then exp/pallas_int8_mlp_chain.py's fused chain (X4's path).
+    Returns the kernels-line sources: (vision fc1 int32, x4 fc1 bfloat16)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    picked = {}
+    for label, M, K, N in INT8_SHAPES + X4_SHAPES:
+        xq = torch.randint(-127, 128, (M, K), device="cuda", generator=gen, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (N, K), device="cuda", generator=gen, dtype=torch.int8)
+        sx = torch.rand(M, device="cuda", generator=gen) * 1e-2 + 1e-4
+        sw = torch.rand(N, device="cuda", generator=gen) * 1e-2 + 1e-4
+        b = torch.randn(N, device="cuda", generator=gen)
+        epilogues = {
+            "int32": (lambda: int8mm.int8_matmul(xq, wq),
+                      lambda: int8mm.int8_matmul_reference(xq, wq), 4, False, False),
+            "float32+bias": (lambda: int8mm.int8_matmul_dequant(xq, sx, wq, sw, b),
+                             lambda: int8mm.int8_matmul_dequant_reference(xq, sx, wq, sw, b),
+                             4, True, True),
+            "bfloat16": (lambda: int8mm.int8_matmul_dequant(xq, sx, wq, sw, None, torch.bfloat16),
+                         lambda: int8mm.int8_matmul_dequant_reference(xq, sx, wq, sw, None,
+                                                                      torch.bfloat16), 2, True, False),
+        }
+        names = ["int32", "bfloat16"] if label.startswith("x4") else ["int32", "float32+bias"]
+        for epi in names:
+            run, plain, out_bytes, scales, bias = epilogues[epi]
+            out = run()
+            torch.cuda.synchronize()
+            ref = plain()
+            err = (out.double() - ref.double()).abs().max().item()
+            ok = torch.equal(out, ref)
+            library_ms = None
+            if epi == "int32" and M > 16 and K % 8 == 0 and N % 8 == 0:
+                library_ms = device_ms(lambda: torch._int_mm(xq, wq.t()))
+            bound_ms, bound_by = int8_bound_ms(M, N, K, out_bytes, scales, bias)
+            line = {"phase": "kernel", "name": "int8_matmul", "shape": label, "mkn": [M, K, N],
+                    "epilogue": epi, "max_abs_err": err, "tol": "bit-identical (0)", "ok": ok,
+                    "ms": device_ms(run), "plain_ms": device_ms(plain, iters=3, warmup=1),
+                    "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            emit(line)
+            if not ok:
+                raise SystemExit(f"int8_matmul ({epi}) disagrees with its plain version at {label}")
+            if (label, epi) in (("vision fc1", "int32"), ("x4 fc1", "bfloat16")):
+                picked[label] = line
+            del out, ref
+
+    # X4's path: the harness's fused chain, h -> quantize -> fc1 (bf16
+    # dequant) -> gelu -> quantize -> fc2 (bf16 dequant), 10 chained steps, with
+    # the kernel and with the plain version; the bf16 chain is the control
+    E, Fd = 1280, 5120
+    cpu = torch.Generator().manual_seed(SEED)
+    x0 = (torch.randn(16384, E, generator=cpu) * 0.05).to(torch.bfloat16).cuda()
+    w1 = (torch.randn(Fd, E, generator=cpu) * 0.02).cuda()
+    w2 = (torch.randn(E, Fd, generator=cpu) * 0.02).cuda()
+    (w1q, s1), (w2q, s2) = int8mm.quantize_weight(w1), int8mm.quantize_weight(w2)
+    w1b, w2b = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+
+    def int8_chain(mm):
+        h = x0
+        for _ in range(10):
+            xq, sx = int8mm.quantize_rows(h)
+            a = F.gelu(mm(xq, sx, w1q, s1, None, torch.bfloat16).float(), approximate="tanh")
+            aq, sa = int8mm.quantize_rows(a)
+            h = mm(aq, sa, w2q, s2, None, torch.bfloat16)
+        return h
+
+    def bf16_chain():
+        h = x0
+        for _ in range(10):
+            a = F.gelu(torch.mm(h, w1b.t(), out_dtype=torch.float32), approximate="tanh")
+            h = torch.mm(a.to(torch.bfloat16), w2b.t(), out_dtype=torch.float32).to(torch.bfloat16)
+        return h
+
+    int8mm.LAUNCHES = 0
+    out = int8_chain(int8mm.int8_matmul_dequant)
+    torch.cuda.synchronize()
+    launches = int8mm.LAUNCHES
+    ok = torch.equal(out, int8_chain(int8mm.int8_matmul_dequant_reference)) and launches == 20
+    line = {"phase": "x4_chain", "steps": 10, "rows": 16384, "launches": launches,
+            "bit_identical_to_plain": ok,
+            "int8_ms_per_step": cuda_ms(lambda: int8_chain(int8mm.int8_matmul_dequant),
+                                        iters=3, warmup=1) / 10,
+            "bf16_ms_per_step": cuda_ms(bf16_chain, iters=3, warmup=1) / 10}
+    emit(line)
+    if not ok:
+        raise SystemExit("the int8 MLP chain disagrees with its plain version or launched "
+                         f"{launches} times (expected 20)")
+    picked["x4 fc1"]["path_launches"] = launches
+    return picked["vision fc1"], picked["x4 fc1"]
+
+
+def cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return (a * b).sum(-1) / np.linalg.norm(a, axis=-1) / np.linalg.norm(b, axis=-1)
+
+
+def device_profile(fn, match: tuple = ("dropout_f32", "dropout_bf16")) -> dict:
+    """Wall time, device busy time and the largest device ops of one call of fn;
+    "matched_kernels" lists the device ops whose name holds one of `match`."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -250,9 +393,8 @@ def device_profile(fn) -> dict:
             "device_idle_share": 1.0 - device_us / wall,
             "top_device_kernels_ms": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
                                       for e in top],
-            "dropout_kernels": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
-                                for e in events if "dropout_f32" in e.key
-                                or "dropout_bf16" in e.key]}
+            "matched_kernels": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                                for e in events if any(m in e.key for m in match)]}
 
 
 def check_output(out, n: int, guide: set | None) -> None:
@@ -267,6 +409,135 @@ def check_output(out, n: int, guide: set | None) -> None:
         bad = [p for row in out.preds for p in row if p not in guide]
         if bad:
             raise SystemExit(f"guided preds outside the guide set: {bad[:5]}")
+
+
+def torch_embedder(spec: str, arch, nouns: list, device: str, batch: int):
+    """A TorchEmbedder built directly with a replaced arch (random weights from
+    SEED: the same towers as Embedder.create's), as JaxEmbedder can be."""
+    from novic_tpu_torch.embedders.base import TorchEmbedder
+    from novic_tpu_torch.text.simple import make_test_tokenizer
+
+    return TorchEmbedder(spec=spec, arch=arch, load_model=True, check=False, weights_path=None,
+                         tokenizer=make_test_tokenizer(nouns, context_length=arch.text.context_length),
+                         compute_dtype="bfloat16", seed=SEED, device=device,
+                         inference_batch_size=batch, image_batch_size=batch)
+
+
+def phase_int8_serving(model, frames: list, nouns: list, guided_cfg: str, name: str,
+                       smi: str) -> dict:
+    """Phase 4b: the int8 vision tower on the serving path."""
+    from novic_tpu_torch.embedders.registry import lookup
+    from novic_tpu_torch.ops import attention, int8_matmul
+
+    arch = lookup(SPEC)
+    arch8 = dataclasses.replace(arch, vision=dataclasses.replace(arch.vision, quant="int8:pallas"))
+    emb = torch_embedder(SPEC, arch8, nouns, "cuda", BATCH)
+    pixels = [model.transform_images(frames[i:i + BATCH]) for i in range(0, len(frames), BATCH)]
+    attention.LAUNCHES = int8_matmul.LAUNCHES = 0
+    t0 = time.perf_counter()
+    embeds = np.concatenate([emb.inference_image(p) for p in pixels])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k2, k1 = int8_matmul.LAUNCHES, attention.LAUNCHES
+    forwards = len(pixels)
+    labels = {}
+    for label, gencfg in (("unguided", None), ("guided", guided_cfg)):
+        out = model.classify_embeds(embeds, gencfg=gencfg)
+        check_output(out, len(frames), set(nouns) if gencfg else None)
+        labels[label] = [r[:3] for r in out.preds[:2]]
+    cpu = torch_embedder(SPEC, arch8, nouns, "cpu", 2)
+    e_cpu = cpu.inference_image(cpu.get_image_transform()(frames[:2]))
+    del cpu
+    cos_cpu = cosines(e_cpu, embeds[:2])
+    top1_cpu = [r[0] for r in model.classify_embeds(e_cpu).preds]
+    top1_gpu = [r[0] for r in model.classify_embeds(embeds[:2]).preds]
+    cos_bf16 = cosines(embeds[:BATCH], model.embedder.inference_image(pixels[0]))
+    bf16_ms = cuda_ms(lambda: model.embedder.embed_image_tensor(pixels[0]), iters=5, warmup=1)
+    int8_ms = cuda_ms(lambda: emb.embed_image_tensor(pixels[0]), iters=5, warmup=1)
+    prof = device_profile(lambda: emb.embed_image_tensor(pixels[0]), match=("int8_gemm_kernel",))
+    k2_ms = sum(m[1] for m in prof["matched_kernels"])
+    line = {"phase": "int8_serving", "device": name, "nvidia_smi": smi, "quant": "int8:pallas",
+            "images": len(frames), "tower_forwards": forwards, "int8_matmul_launches": k2,
+            "fused_attention_launches": k1, "first_call_s": seconds, "labels": labels,
+            "card_vs_cpu_cosine": cos_cpu.tolist(), "top1_cpu": top1_cpu, "top1_gpu": top1_gpu,
+            "int8_vs_bf16_cosine_min": float(cos_bf16.min()),
+            "int8_vs_bf16_cosine_mean": float(cos_bf16.mean()),
+            "tower_ms_per_batch": int8_ms, "bf16_tower_ms_per_batch": bf16_ms,
+            "profile_wall_ms": prof["wall_ms"], "profile_device_busy_ms": prof["device_busy_ms"],
+            "int8_matmul_device_ms": k2_ms, "int8_matmul_share": k2_ms / prof["device_busy_ms"],
+            "top_device_kernels_ms": prof["top_device_kernels_ms"]}
+    emit(line)
+    del emb
+    torch.cuda.empty_cache()
+    if k2 != 72 * forwards or k1 != 12 * forwards:
+        raise SystemExit(f"int8 tower: {k2} int8_matmul and {k1} fused_attention launches over "
+                         f"{forwards} forwards (expected 72 and 12 per forward)")
+    if cos_cpu.min() < COSINE_MIN or top1_cpu != top1_gpu:
+        raise SystemExit("int8 tower: card and CPU disagree")
+    if cos_bf16.min() < INT8_VS_BF16_VISION:
+        raise SystemExit(f"int8 tower: cosine to the bf16 tower {cos_bf16.min()} < "
+                         f"{INT8_VS_BF16_VISION}")
+    return line
+
+
+def phase_text(nouns: list, name: str, smi: str) -> None:
+    """Phase 4c: the SigLIP and CLIP text towers at B=256, bf16 and int8."""
+    from novic_tpu_torch.embedders.registry import lookup
+    from novic_tpu_torch.ops import attention, int8_matmul
+
+    rng = np.random.default_rng(SEED)
+    for spec in (SPEC, CLIP_SPEC):
+        arch = lookup(spec)
+        ctx, vocab = arch.text.context_length, arch.text.vocab_size
+        # Seeded ids below the top id, with the top id (CLIP's end token) once a row
+        ids = rng.integers(0, vocab - 1, size=(TEXT_BATCH, ctx)).astype(np.int32)
+        ids[np.arange(TEXT_BATCH), rng.integers(1, ctx, size=TEXT_BATCH)] = vocab - 1
+        texts = list(nouns[:TEXT_BATCH])
+        embeds = {}
+        for quant in ("", "int8:pallas"):
+            archq = dataclasses.replace(arch, text=dataclasses.replace(arch.text, quant=quant))
+            emb = torch_embedder(spec, archq, nouns, "cuda", TEXT_BATCH)
+            counts = []
+            out = {}
+            for label, fn in (("ids", lambda: emb.inference_tokens({"input_ids": ids})),
+                              ("texts", lambda: emb.inference_text(texts))):
+                attention.LAUNCHES = int8_matmul.LAUNCHES = 0
+                out[label] = fn()
+                torch.cuda.synchronize()
+                counts.append((attention.LAUNCHES, int8_matmul.LAUNCHES))
+            cpu = torch_embedder(spec, archq, nouns, "cpu", 2)
+            e_cpu = cpu.inference_tokens({"input_ids": ids[:2]})
+            del cpu
+            cos_cpu = cosines(e_cpu, out["ids"][:2])
+            tids = torch.from_numpy(ids).cuda()
+            ms = cuda_ms(lambda: emb.embed_token_tensor(tids), iters=5, warmup=1)
+            del emb
+            torch.cuda.empty_cache()
+            embeds[quant] = out
+            finite = all(np.isfinite(v).all() and v.shape == (TEXT_BATCH, arch.text.embed_dim)
+                         for v in out.values())
+            want = (12, 72 if quant else 0)
+            emit({"phase": "text_tower", "spec": spec, "device": name, "nvidia_smi": smi,
+                  "quant": quant or "none", "causal": arch.text.causal, "pool": arch.text.pool,
+                  "batch": TEXT_BATCH, "context": ctx, "launches_per_forward": counts,
+                  "card_vs_cpu_cosine": cos_cpu.tolist(),
+                  "card_vs_cpu_bar": INT8_TEXT_COSINE_MIN if quant else COSINE_MIN,
+                  "ms_per_batch": ms,
+                  "texts_per_s": TEXT_BATCH / (ms / 1e3), "finite": finite})
+            if not finite:
+                raise SystemExit(f"{spec} text tower ({quant or 'bf16'}): bad embeddings")
+            if any(c != want for c in counts):
+                raise SystemExit(f"{spec} text tower ({quant or 'bf16'}): launches {counts}, "
+                                 f"expected {want} (fused_attention, int8_matmul) per forward")
+            if cos_cpu.min() < (INT8_TEXT_COSINE_MIN if quant else COSINE_MIN):
+                raise SystemExit(f"{spec} text tower ({quant or 'bf16'}): card and CPU disagree")
+        cos = {k: cosines(embeds[""][k], embeds["int8:pallas"][k]) for k in ("ids", "texts")}
+        emit({"phase": "text_int8_vs_bf16", "spec": spec,
+              "cosine_min": {k: float(v.min()) for k, v in cos.items()},
+              "cosine_mean": {k: float(v.mean()) for k, v in cos.items()},
+              "bar": INT8_VS_BF16_TEXT})
+        if min(v.min() for v in cos.values()) < INT8_VS_BF16_TEXT:
+            raise SystemExit(f"{spec}: int8 text tower too far from the bf16 one")
 
 
 def write_train_cache(path: str, nouns: list) -> None:
@@ -411,7 +682,7 @@ def phase_train(workdir: str, nouns: list, ft0: dict, name: str, smi: str) -> di
           "ms_per_step": med, "repeats_ms": step_ms,
           "samples_per_s": TRAIN_BATCH * TRAIN_ACCUM / (med / 1e3), "peak_memory_gb": peak_gb})
     prof = device_profile(lambda: step(batch, 1e-4, rng_t))
-    drop = prof.pop("dropout_kernels")
+    drop = prof.pop("matched_kernels")
     emit({"phase": "train_profile", "device": name, "steps": 1, **prof,
           # The profiler slows the host; against the unprofiled step time:
           "device_idle_share_unprofiled": 1.0 - prof["device_busy_ms"] / med,
@@ -463,7 +734,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from novic_tpu_torch.infer import NOVICModel
-    from novic_tpu_torch.ops import attention, build, dropout
+    from novic_tpu_torch.ops import attention, build, dropout, int8_matmul
     from novic_tpu_torch.text.simple import make_test_tokenizer
     from novic_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -478,9 +749,9 @@ def main() -> int:
     emit({"phase": "device", "name": name, "nvidia_smi": smi, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # 2. build every kernel of both paths, one nvcc per source, started together
+    # 2. build every kernel of every path, one nvcc per source, started together
     t0 = time.perf_counter()
-    sources = [attention.SOURCE, dropout.SOURCE]
+    sources = [attention.SOURCE, dropout.SOURCE, int8_matmul.SOURCE]
     libs = build.build_all(sources, force=True)
     emit({"phase": "build", "kernels": [os.path.relpath(str(s), REPO) for s in sources],
           "libraries": [os.path.relpath(str(lib), REPO) for lib in libs],
@@ -491,6 +762,7 @@ def main() -> int:
     # 3. kernels vs plain
     k1 = phase_kernel(attention)
     k3 = phase_dropout(dropout)
+    k2, x4 = phase_int8(int8_matmul)
 
     # 4. main path
     ck = load_checkpoint(FT0)
@@ -543,6 +815,10 @@ def main() -> int:
         if cos.min() < COSINE_MIN or top_cpu != top_gpu:
             raise SystemExit("card and CPU disagree")
 
+        # 4b. the int8 serving path, 4c. the text towers
+        int8_line = phase_int8_serving(model, frames, nouns, guided_cfg, name, smi)
+        phase_text(nouns, name, smi)
+
         # 6. timings at B=64
         batch = frames[:BATCH]
         pixels = model.transform_images(batch)
@@ -563,7 +839,7 @@ def main() -> int:
 
         # 6b. device busy share and the largest device ops over one served batch
         prof = device_profile(lambda: model.classify_images(batch))
-        prof.pop("dropout_kernels")
+        prof.pop("matched_kernels")
         emit({"phase": "profile", "device": name, "batch": BATCH, **prof})
 
     # 7. training path, 8. card vs CPU for one step
@@ -588,7 +864,19 @@ def main() -> int:
         "replaces": "novic_tpu/ops/dropout.py:103",
         "launches": train_line["dropout_launches"], "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}]})
+        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}, {
+        "name": "int8_matmul", "route": "cuda",
+        "source": "novic_tpu_torch/ops/csrc/int8_matmul.cu",
+        "replaces": "novic_tpu/ops/int8_matmul.py:73",
+        "launches": int8_line["int8_matmul_launches"], "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]}, {
+        "name": "int8_matmul_dequant_bf16", "route": "cuda",
+        "source": "novic_tpu_torch/ops/csrc/int8_matmul.cu",
+        "replaces": "exp/pallas_int8_mlp_chain.py:97",
+        "launches": x4["path_launches"], "max_abs_err": x4["max_abs_err"], "ms": x4["ms"],
+        "plain_ms": x4["plain_ms"], "bound_ms": x4["bound_ms"], "bound_by": x4["bound_by"],
+        "library_ms": x4["library_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -23,7 +23,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from novic_tpu_torch.embedders.vit import VisionTowerConfig, VisionTransformer
+from novic_tpu_torch.embedders.vit import (
+    TextTowerConfig,
+    TextTransformer,
+    VisionTowerConfig,
+    VisionTransformer,
+)
 from novic_tpu_torch.models.config import DecoderModelConfig
 from novic_tpu_torch.models.prefixed_iter import PrefixedIterDecoder
 from novic_tpu_torch.utils.misc import flatten_dict, unflatten_dict
@@ -34,20 +39,26 @@ def _state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.asarray(v, dtype=np.float32).copy()) for k, v in flat.items()}
 
 
-def _load(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
+def load_tree(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
+    """Load a param tree (nested, or flat with dotted keys) into `module`, strictly."""
     module.load_state_dict(_state_dict(tree), strict=True)
     return module.eval()
 
 
 def vision_tower_from_numpy(cfg: VisionTowerConfig, tree: dict) -> VisionTransformer:
     """VisionTransformer (on the CPU) holding the given param tree."""
-    return _load(VisionTransformer(cfg), tree)
+    return load_tree(VisionTransformer(cfg), tree)
+
+
+def text_tower_from_numpy(cfg: TextTowerConfig, tree: dict) -> TextTransformer:
+    """TextTransformer (on the CPU) holding the given param tree."""
+    return load_tree(TextTransformer(cfg), tree)
 
 
 def decoder_from_numpy(cfg: DecoderModelConfig, tree: dict) -> PrefixedIterDecoder:
     """PrefixedIterDecoder (on the CPU) holding the given param tree (nested, or
     flat with dotted keys as in a checkpoint's `params.*` entries)."""
-    return _load(PrefixedIterDecoder(cfg), tree)
+    return load_tree(PrefixedIterDecoder(cfg), tree)
 
 
 def decoder_to_numpy(module: PrefixedIterDecoder) -> dict:

@@ -1,12 +1,14 @@
 """Embedder: the frozen dual-encoder abstraction (the counterpart of
-novic_tpu.embedders.base), image side.
+novic_tpu.embedders.base).
 
-'TYPE:NAME' factory, lazy model load/unload, target-config creation and
-management, configuration hashing for cache compatibility (the same
-configuration dicts, hence the same hashes, as the JAX package's embedders),
-unit-norm float32 image embeddings. The towers are PyTorch modules on an
-explicit device (CUDA by default). Embeddings come back as numpy float32 unit
-vectors, as in the JAX package. The text tower is not ported yet.
+'TYPE:NAME' factory, tokenizer metadata, lazy model load/unload, target-config
+creation and management, configuration hashing for cache compatibility (the
+same configuration dicts, hence the same hashes, as the JAX package's
+embedders), unit-norm float32 text and image embeddings. The towers are
+PyTorch modules on an explicit device (CUDA by default). Embeddings come back
+as numpy float32 unit vectors, as in the JAX package. Only the word-level test
+tokenizer is ported: the BPE, SentencePiece and WordPiece tokenizers need
+vocabulary files that the repo does not hold.
 
 Also provides the 'test:<dim>' embedder, whose BLAKE2-derived vectors are
 byte-identical to the JAX package's.
@@ -14,6 +16,7 @@ byte-identical to the JAX package's.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -89,6 +92,46 @@ class Embedder:
         log.info(f"Created embedder {spec}: dim {embed_dim}, "
                  f"context {tokenizer.context_length}, vocab {tokenizer.vocab_size}")
 
+    # -- tokenizer passthroughs ---------------------------------------------------
+
+    @property
+    def context_length(self) -> int:
+        return self.tokenizer.context_length
+
+    @property
+    def vocab_size(self) -> int:
+        return self.tokenizer.vocab_size
+
+    @property
+    def cased_tokens(self) -> bool:
+        return self.tokenizer.cased
+
+    @property
+    def start_token_id(self):
+        return self.tokenizer.start_token_id
+
+    @property
+    def end_token_id(self):
+        return self.tokenizer.end_token_id
+
+    @property
+    def pad_token_id(self):
+        return self.tokenizer.pad_token_id
+
+    @property
+    def token_dtype(self):
+        return self.tokenizer.token_dtype
+
+    def tokenize(self, text, max_tokens=None, output_dict=False):
+        return self.tokenizer.tokenize(text, max_tokens=max_tokens, output_dict=output_dict)
+
+    def detokenize(self, token_ids):
+        return self.tokenizer.detokenize(token_ids)
+
+    def get_tokenize_details(self, text, max_tokens=None, token_id_set=False):
+        return self.tokenizer.get_tokenize_details(text, max_tokens=max_tokens,
+                                                   token_id_set=token_id_set)
+
     # -- target config ------------------------------------------------------------
 
     def create_target_config(self, targets: Sequence[str], **kwargs) -> TargetConfig:
@@ -107,6 +150,11 @@ class Embedder:
         if not self.target_tokenizer:
             raise ValueError("Tokenizing a target noun requires a target configuration to be set")
         return self.target_tokenizer.tokenize_target(text, max_tokens=max_tokens)
+
+    def detokenize_target(self, token_ids):
+        if not self.target_tokenizer:
+            raise ValueError("Detokenizing a target noun requires a target configuration to be set")
+        return self.target_tokenizer.detokenize_target(token_ids)
 
     # -- configuration hashing (cache compatibility, ref embedders.py:262-278) -----
 
@@ -138,6 +186,23 @@ class Embedder:
 
     # -- inference ---------------------------------------------------------------
 
+    @contextlib.contextmanager
+    def inference_model(self, release: bool = True):
+        """Temporarily load the towers if they are not loaded."""
+        if self.is_model_loaded():
+            yield
+        else:
+            try:
+                self.load_model()
+                yield
+            finally:
+                self.unload_model()
+
+    @contextlib.contextmanager
+    def inference_mode(self):
+        with torch.inference_mode():
+            yield
+
     def load_model(self) -> bool:
         raise NotImplementedError
 
@@ -147,6 +212,15 @@ class Embedder:
     def is_model_loaded(self) -> bool:
         raise NotImplementedError
 
+    def inference_tokens(self, tokens_dict: dict) -> np.ndarray:
+        """Tokenized texts ({"input_ids": (B,S)}) → unit-norm float32 embeddings."""
+        raise NotImplementedError
+
+    def inference_text(self, text: Union[str, Sequence[str]],
+                       max_tokens: Optional[int] = None) -> np.ndarray:
+        """Texts → unit-norm float32 embeddings."""
+        return self.inference_tokens(self.tokenize(text, max_tokens=max_tokens, output_dict=True))
+
     def inference_image(self, images: np.ndarray) -> np.ndarray:
         """Preprocessed (B,S,S,3) float32 images → unit-norm float32 embeddings."""
         raise NotImplementedError
@@ -155,9 +229,26 @@ class Embedder:
         raise NotImplementedError
 
 
+def tower_modules(arch: EmbedderArch):
+    """(vision_model, text_model) modules for a registry arch: the single
+    family-dispatch point. The EVA02 and ALIGN towers are not ported yet."""
+    if arch.family in ("align", "eva02"):
+        raise NotImplementedError(f"The {arch.family} towers are not ported yet")
+    from novic_tpu_torch.embedders.vit import TextTransformer, VisionTransformer
+
+    return VisionTransformer(arch.vision), TextTransformer(arch.text)
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / x.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+
+
 class TorchEmbedder(Embedder):
     """PyTorch towers for a registered CLIP-family architecture (the
-    counterpart of JaxEmbedder). Only the vision tower is ported so far."""
+    counterpart of JaxEmbedder). Built directly with a replaced arch it serves
+    other tower configurations, e.g. the int8 mode:
+    TorchEmbedder(spec=..., arch=dataclasses.replace(arch, vision=dataclasses.replace(
+    arch.vision, quant="int8:pallas")), ...)."""
 
     def __init__(self, *, spec: str, arch: EmbedderArch, load_model: bool, check: bool,
                  weights_path: Optional[str], tokenizer: Optional[TextTokenizer],
@@ -171,7 +262,7 @@ class TorchEmbedder(Embedder):
         self.device = resolve(device)
         self.weights_path = weights_path
         self.seed = seed
-        self._vision = None
+        self._vision = self._text = None
         if tokenizer is None:
             log.warning("No tokenizer given => word-level test tokenizer (the BPE/"
                         "SentencePiece tokenizers are not ported yet)")
@@ -195,27 +286,30 @@ class TorchEmbedder(Embedder):
     def load_model(self) -> bool:
         if self._vision is not None:
             return False
-        from novic_tpu_torch.embedders.vit import VisionTransformer
-
+        vision, text = tower_modules(self.arch)
         if self.weights_path:
-            from novic_tpu_torch.bridge import vision_tower_from_numpy
+            from novic_tpu_torch.bridge import load_tree
             from novic_tpu_torch.embedders.convert import load_params_npz
 
-            vision_params, _ = load_params_npz(self.weights_path)
-            model = vision_tower_from_numpy(self.arch.vision, vision_params)
+            vision_params, text_params = load_params_npz(self.weights_path)
+            load_tree(vision, vision_params)
+            load_tree(text, text_params)
             log.info(f"Loaded converted tower weights: {self.weights_path}")
         else:
-            model = VisionTransformer(self.arch.vision).init_random(
-                torch.Generator().manual_seed(self.seed))
+            # One CPU generator, vision first: a seed gives the same towers on every device
+            gen = torch.Generator().manual_seed(self.seed)
+            vision.init_random(gen)
+            text.init_random(gen)
             log.warning("No tower weights provided => using random initialization "
                         "(perf benchmarking / testing only)")
-        self._vision = model.to(self.device).eval()
+        self._vision = vision.to(self.device).eval()
+        self._text = text.to(self.device).eval()
         return True
 
     def unload_model(self) -> bool:
         if self._vision is None:
             return False
-        self._vision = None
+        self._vision = self._text = None
         log.info("Unloaded embedder towers")
         return True
 
@@ -229,8 +323,30 @@ class TorchEmbedder(Embedder):
         if self._vision is None:
             raise RuntimeError("Embedder towers not loaded")
         with torch.inference_mode():
-            out = self._vision(images)
-            return out / out.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+            return _unit(self._vision(images))
+
+    def embed_token_tensor(self, token_ids: torch.Tensor) -> torch.Tensor:
+        """(B,S) int token ids on the embedder's device → (B,F) unit-norm."""
+        if self._text is None:
+            raise RuntimeError("Embedder towers not loaded")
+        with torch.inference_mode():
+            return _unit(self._text(token_ids))
+
+    def inference_tokens(self, tokens_dict: dict) -> np.ndarray:
+        """Token ids padded to the context length with the pad id, the batch
+        padded with zero rows to inference_batch_size (as the JAX embedder
+        does) → unit-norm float32 embeddings (numpy)."""
+        token_ids = np.asarray(tokens_dict["input_ids"])
+        B, S = token_ids.shape
+        ctx = self.context_length
+        if S > ctx:
+            raise ValueError(f"Token sequences longer than context length: {S} > {ctx}")
+        rows = max(B, self.inference_batch_size)
+        padded = np.zeros((rows, ctx), dtype=np.int32)
+        padded[:B] = self.pad_token_id
+        padded[:B, :S] = token_ids
+        ids = torch.from_numpy(padded).to(self.device)
+        return self.embed_token_tensor(ids)[:B].cpu().numpy()
 
     def inference_image(self, images: Union[np.ndarray, torch.Tensor]) -> np.ndarray:
         """Preprocessed (B,S,S,3) float32 images (numpy, or a tensor from
@@ -290,6 +406,10 @@ class HashEmbedder(Embedder):
     def inference_text(self, text, max_tokens=None) -> np.ndarray:
         texts = [text] if isinstance(text, str) else list(text)
         return np.stack([self._hash_embed(t.encode("utf-8")) for t in texts])
+
+    def inference_tokens(self, tokens_dict: dict) -> np.ndarray:
+        ids = np.asarray(tokens_dict["input_ids"])
+        return np.stack([self._hash_embed(row.tobytes()) for row in ids])
 
     def inference_image(self, images: np.ndarray) -> np.ndarray:
         images = np.asarray(images)

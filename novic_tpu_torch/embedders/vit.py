@@ -1,4 +1,5 @@
-"""CLIP-family vision tower in PyTorch (the counterpart of novic_tpu.embedders.vit).
+"""CLIP-family vision and text towers in PyTorch (the counterpart of
+novic_tpu.embedders.vit).
 
 Parameters keep the JAX package's names and torch layout (out, in), so a flax
 param tree flattened with dots is this module's state dict (see bridge.py).
@@ -13,6 +14,13 @@ Numerics follow the JAX towers:
   kernel on the card, its plain version on the CPU. The MAP head's 1-query
   cross-attention stays plain torch and, in bf16 compute, keeps its scores and
   softmax in bf16 as the JAX XLA path does.
+* `quant="int8"` or `"int8:pallas"` runs the block q/k/v/o and fc1/fc2 matmuls
+  as W8A8 int8 (ops.int8_matmul.int8_dense: the s8 GEMM kernel K2 on the card,
+  its exact plain version on the CPU), as the JAX towers do; the patch embed,
+  the MAP head and the final projections stay unquantized. Both JAX impls give
+  the same integers, so both run K2 here. Each weight is quantized once per
+  device and value (a cache outside the state dict), which gives the bits of
+  JAX's per-call `quantize_weight` since the weights are frozen.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from torch import nn
 
 from novic_tpu_torch.device import dtype_of
 from novic_tpu_torch.ops.attention import fused_attention
+from novic_tpu_torch.ops.int8_matmul import int8_dense, quantize_rows, quantize_weight
 
 _ACTS = {
     "gelu": lambda x: F.gelu(x),
@@ -52,11 +61,14 @@ class VisionTowerConfig:
     proj_bias: bool = False
     layer_norm_eps: float = 1e-5
     compute_dtype: str = "bfloat16"
-    # The fields below select JAX-side formulations; they are kept so configs
-    # compare and hash alike. The port always runs its attention kernel.
+    # use_pallas_attention, fuse_qkv and attn_impl select JAX-side
+    # formulations; they are kept so configs compare and hash alike. The port
+    # always runs its attention kernel.
     use_pallas_attention: bool = False
     fuse_qkv: bool = False
     attn_impl: str = "einsum"
+    # Quantized serving mode of the block matmuls: "" (off) | "int8" |
+    # "int8:pallas" (both W8A8 through the K2 kernel; see the module docstring)
     quant: str = ""
 
     @property
@@ -90,21 +102,38 @@ class TextTowerConfig:
     compute_dtype: str = "bfloat16"
     use_pallas_attention: bool = False
     fuse_qkv: bool = False
-    quant: str = ""
+    quant: str = ""                # see VisionTowerConfig.quant
 
     @property
     def mlp_dim(self) -> int:
         return int(self.width * self.mlp_ratio)
 
 
+def check_quant(quant: str) -> None:
+    """Raise ValueError for a quant mode the JAX towers reject."""
+    if not quant:
+        return
+    kind, _, impl = quant.partition(":")
+    if kind != "int8":
+        raise ValueError(f"Unknown tower quant mode: {quant}")
+    if impl not in ("", "xla", "pallas"):
+        raise ValueError(f"Unknown int8 dense impl: {impl}")
+
+
 def tower_dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-                compute_dtype: str) -> torch.Tensor:
+                compute_dtype: str, quant: str = "") -> torch.Tensor:
     """x @ w.T + b with torch-layout w; operands rounded to the compute dtype,
     float32 product and result.
 
     bf16 on CUDA: one cuBLAS bf16 GEMM with float32 accumulation and output
     (torch.mm out_dtype). Elsewhere: a float32 matmul of the bf16-rounded
-    operands. Both form the same exact products; only the sum order differs."""
+    operands. Both form the same exact products; only the sum order differs.
+
+    quant="int8[:impl]": W8A8 through int8_dense, w quantized per call as in
+    the JAX package (the towers' blocks keep theirs quantized instead)."""
+    if quant:
+        check_quant(quant)
+        return int8_dense(x, *quantize_weight(w), b)
     dt = dtype_of(compute_dtype)
     if dt == torch.bfloat16 and x.is_cuda:
         y = torch.mm(x.reshape(-1, x.shape[-1]).to(dt), w.to(dt).t(), out_dtype=torch.float32)
@@ -129,12 +158,37 @@ def _param(*shape) -> nn.Parameter:
     return nn.Parameter(torch.zeros(*shape), requires_grad=False)
 
 
-class TowerAttention(nn.Module):
+class _DenseOwner(nn.Module):
+    """Runs its `<name>_weight` / `<name>_bias` params through tower_dense, or in
+    the quant mode through int8_dense with each weight quantized once per
+    (device, storage, version) into a cache outside the state dict."""
+
+    def __init__(self, compute_dtype: str, quant: str):
+        super().__init__()
+        check_quant(quant)
+        self.compute_dtype, self.quant = compute_dtype, quant
+        self._qweights: dict[str, tuple] = {}
+
+    def dense(self, x: torch.Tensor, name: str,
+              rows: Optional[tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        """tower_dense of the named params; in the quant mode `rows` may hold
+        quantize_rows of x (flattened) where the caller has them."""
+        w, b = getattr(self, f"{name}_weight"), getattr(self, f"{name}_bias")
+        if not self.quant:
+            return tower_dense(x, w, b, self.compute_dtype)
+        key = (w.device, w.data_ptr(), w._version)
+        hit = self._qweights.get(name)
+        if hit is None or hit[0] != key:
+            hit = self._qweights[name] = (key, quantize_weight(w.detach()))
+        return int8_dense(x, *hit[1], b, rows)
+
+
+class TowerAttention(_DenseOwner):
     """Biased MHA with separate q/k/v projections (HF layout)."""
 
-    def __init__(self, width: int, heads: int, compute_dtype: str):
-        super().__init__()
-        self.width, self.heads, self.compute_dtype = width, heads, compute_dtype
+    def __init__(self, width: int, heads: int, compute_dtype: str, quant: str = ""):
+        super().__init__(compute_dtype, quant)
+        self.width, self.heads = width, heads
         E = width
         for n in ("q", "k", "v", "out"):
             setattr(self, f"{n}_proj_weight", _param(E, E))
@@ -144,21 +198,22 @@ class TowerAttention(nn.Module):
                 kv: Optional[torch.Tensor] = None) -> torch.Tensor:
         E, H = self.width, self.heads
         hd = E // H
-        dt = self.compute_dtype
         src = x if kv is None else kv
         B, Sq, Sk = x.shape[0], x.shape[1], src.shape[1]
-        q = tower_dense(x, self.q_proj_weight, self.q_proj_bias, dt).reshape(B, Sq, H, hd)
-        k = tower_dense(src, self.k_proj_weight, self.k_proj_bias, dt).reshape(B, Sk, H, hd)
-        v = tower_dense(src, self.v_proj_weight, self.v_proj_bias, dt).reshape(B, Sk, H, hd)
+        # Self-attention in the quant mode: q, k and v quantize the same rows,
+        # so they are quantized once (the bits of three quantize_rows calls)
+        rows = quantize_rows(x.reshape(-1, E)) if self.quant and kv is None else None
+        q = self.dense(x, "q_proj", rows).reshape(B, Sq, H, hd)
+        k = self.dense(src, "k_proj", rows).reshape(B, Sk, H, hd)
+        v = self.dense(src, "v_proj", rows).reshape(B, Sk, H, hd)
         if kv is None:
             sq_bias = None
             if attn_bias is not None:
                 sq_bias = attn_bias.float().expand(Sq, Sk).contiguous()
             out = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(), sq_bias)
-            return tower_dense(out.reshape(B, Sq, E), self.out_proj_weight,
-                               self.out_proj_bias, dt)
+            return self.dense(out.reshape(B, Sq, E), "out_proj")
         # Cross-attention (MAP head): scores and softmax in the compute dtype
-        cdt = dtype_of(dt)
+        cdt = dtype_of(self.compute_dtype)
         scale = 1.0 / math.sqrt(hd)
         scores = torch.einsum("bqhd,bkhd->bhqk", (q * scale).to(cdt).float(),
                               k.to(cdt).float()).to(cdt)
@@ -166,22 +221,22 @@ class TowerAttention(nn.Module):
             scores = scores + attn_bias.to(cdt)
         attn = torch.softmax(scores.float(), dim=-1).to(cdt)
         out = torch.einsum("bhqk,bkhd->bqhd", attn.float(), v.to(cdt).float())
-        return tower_dense(out.reshape(B, Sq, E), self.out_proj_weight, self.out_proj_bias, dt)
+        return self.dense(out.reshape(B, Sq, E), "out_proj")
 
 
-class TowerBlock(nn.Module):
+class TowerBlock(_DenseOwner):
     """Pre-LN residual block (HF CLIP/SigLIP encoder layer)."""
 
     def __init__(self, width: int, heads: int, mlp_dim: int, act: str, eps: float,
-                 compute_dtype: str):
-        super().__init__()
+                 compute_dtype: str, quant: str = ""):
+        super().__init__(compute_dtype, quant)
         E = width
-        self.eps, self.act, self.compute_dtype = eps, act, compute_dtype
+        self.eps, self.act = eps, act
         self.norm1_weight, self.norm1_bias = _param(E), _param(E)
         self.norm2_weight, self.norm2_bias = _param(E), _param(E)
         self.fc1_weight, self.fc1_bias = _param(mlp_dim, E), _param(mlp_dim)
         self.fc2_weight, self.fc2_bias = _param(E, mlp_dim), _param(E)
-        self.attn = TowerAttention(width, heads, compute_dtype)
+        self.attn = TowerAttention(width, heads, compute_dtype, quant)
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         dt = dtype_of(self.compute_dtype)
@@ -189,10 +244,29 @@ class TowerBlock(nn.Module):
         h = f32_layer_norm(x, self.norm1_weight, self.norm1_bias, self.eps, out_dtype=dt)
         x = x + self.attn(h, attn_bias).to(dt)
         h = f32_layer_norm(x, self.norm2_weight, self.norm2_bias, self.eps, out_dtype=dt)
-        h = tower_dense(h, self.fc1_weight, self.fc1_bias, self.compute_dtype).to(dt)
+        h = self.dense(h, "fc1").to(dt)
         h = _ACTS[self.act](h)
-        h = tower_dense(h, self.fc2_weight, self.fc2_bias, self.compute_dtype)
+        h = self.dense(h, "fc2")
         return x + h.to(dt)
+
+
+def _init_flax_like(module: nn.Module, generator: torch.Generator, width: int,
+                    stds: dict[str, float]) -> None:
+    """Random init with the flax init's shapes and scales: zero biases, unit norm
+    scales, normal weights with std width**-0.5 (fc2: mlp_dim**-0.5; a leaf named
+    in `stds`: that std). Draws on the CPU from `generator` in parameter order."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in stds:
+                p.copy_(torch.randn(p.shape, generator=generator) * stds[leaf])
+            elif leaf.endswith("_bias"):
+                p.zero_()
+            elif leaf.endswith(("norm1_weight", "norm2_weight", "ln_weight")):
+                p.fill_(1.0)
+            else:
+                std = p.shape[1] ** -0.5 if leaf.endswith("fc2_weight") else width ** -0.5
+                p.copy_(torch.randn(p.shape, generator=generator) * std)
 
 
 class VisionTransformer(nn.Module):
@@ -215,7 +289,8 @@ class VisionTransformer(nn.Module):
             self.pre_ln_weight, self.pre_ln_bias = _param(E), _param(E)
         for i in range(cfg.layers):
             setattr(self, f"blocks_{i}", TowerBlock(E, cfg.heads, cfg.mlp_dim, cfg.act,
-                                                    cfg.layer_norm_eps, cfg.compute_dtype))
+                                                    cfg.layer_norm_eps, cfg.compute_dtype,
+                                                    cfg.quant))
         self.post_ln_weight, self.post_ln_bias = _param(E), _param(E)
         if cfg.pool == "map":
             self.map_probe = _param(1, 1, E)
@@ -233,17 +308,7 @@ class VisionTransformer(nn.Module):
         std width**-0.5, fc2 std mlp_dim**-0.5; zero biases; unit norm scales).
         Draws on the CPU from `generator`, so a seed gives the same weights on
         every device."""
-        E = self.cfg.width
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                leaf = name.rsplit(".", 1)[-1]
-                if leaf.endswith("_bias") or leaf == "proj_bias":
-                    p.zero_()
-                elif leaf.endswith(("norm1_weight", "norm2_weight", "ln_weight")):
-                    p.fill_(1.0)
-                else:
-                    std = p.shape[1] ** -0.5 if leaf.endswith("fc2_weight") else E ** -0.5
-                    p.copy_(torch.randn(p.shape, generator=generator) * std)
+        _init_flax_like(self, generator, self.cfg.width, {})
         return self
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
@@ -284,3 +349,54 @@ class VisionTransformer(nn.Module):
         if cfg.embed_dim != cfg.width:
             return tower_dense(out, self.proj_weight, None, "float32")
         return out.float()
+
+
+class TextTransformer(nn.Module):
+    """Text tower. Input (B, S) int token ids padded to the context length.
+    Output (B, embed_dim) float32, not normalised (the embedder normalises).
+
+    The token gather and the position add run in float32; the causal bias is
+    an (S, S) float32 mask of -1e30 through the attention kernel; pooling takes
+    the end-of-text token (`argmax`: the highest id, first among ties, as
+    jnp.argmax) or the last position (`last`)."""
+
+    def __init__(self, cfg: TextTowerConfig):
+        super().__init__()
+        if cfg.pool not in ("argmax", "last"):
+            raise ValueError(f"Unknown text pool: {cfg.pool}")
+        self.cfg = cfg
+        E = cfg.width
+        self.token_embedding = _param(cfg.vocab_size, E)
+        self.pos_embedding = _param(cfg.context_length, E)
+        for i in range(cfg.layers):
+            setattr(self, f"blocks_{i}", TowerBlock(E, cfg.heads, cfg.mlp_dim, cfg.act,
+                                                    cfg.layer_norm_eps, cfg.compute_dtype,
+                                                    cfg.quant))
+        self.final_ln_weight, self.final_ln_bias = _param(E), _param(E)
+        self.proj_weight = _param(cfg.embed_dim, E)
+        if cfg.proj_bias:
+            self.proj_bias = _param(cfg.embed_dim)
+
+    def init_random(self, generator: torch.Generator) -> "TextTransformer":
+        """Random init with the flax init's shapes and scales (token table std
+        0.02, positions 0.01, the blocks and projection as in the vision tower)."""
+        _init_flax_like(self, generator, self.cfg.width,
+                        {"token_embedding": 0.02, "pos_embedding": 0.01})
+        return self
+
+    def forward(self, token_ids: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        B, S = token_ids.shape
+        x = self.token_embedding[token_ids] + self.pos_embedding[:S]
+        attn_bias = None
+        if cfg.causal:
+            i = torch.arange(S, device=token_ids.device)
+            attn_bias = torch.where(i[None, :] <= i[:, None], 0.0, -1e30).float()
+        for li in range(cfg.layers):
+            x = getattr(self, f"blocks_{li}")(x, attn_bias)
+        x = f32_layer_norm(x, self.final_ln_weight, self.final_ln_bias, cfg.layer_norm_eps)
+        if cfg.pool == "argmax":
+            pooled = x[torch.arange(B, device=x.device), token_ids.argmax(dim=1)]
+        else:
+            pooled = x[:, -1, :]
+        return tower_dense(pooled, self.proj_weight, getattr(self, "proj_bias", None), "float32")

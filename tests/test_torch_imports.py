@@ -3,8 +3,9 @@
 tests/conftest.py has already imported JAX in this process, so the check runs
 in a subprocess whose import hook raises on jax, flax, optax, novic_tpu and
 novic_tpu.* (not novic_tpu_torch), then imports every module of
-novic_tpu_torch (the serving modules and the training path's: ops.dropout,
-data.*, train.*, cli.*, utils.config/metrics) and chip_smoke.
+novic_tpu_torch (the serving modules, the int8 and text-tower modules:
+ops.int8_matmul, embedders.vit/base, bridge; and the training path's:
+ops.dropout, data.*, train.*, cli.*, utils.config/metrics) and chip_smoke.
 """
 
 import os
@@ -51,6 +52,9 @@ TRAINING_MODULES = [
     "novic_tpu_torch.cli.actions_train", "novic_tpu_torch.cli.train",
 ]
 
+INT8_AND_TEXT_MODULES = ["novic_tpu_torch.ops.int8_matmul", "novic_tpu_torch.embedders.vit",
+                         "novic_tpu_torch.embedders.base", "novic_tpu_torch.bridge"]
+
 
 def test_port_imports_without_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -58,8 +62,8 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     lines = res.stdout.strip().splitlines()
-    assert int(lines[-1]) >= 46
-    assert set(TRAINING_MODULES) <= set(lines[-2].split())
+    assert int(lines[-1]) >= 47
+    assert set(TRAINING_MODULES + INT8_AND_TEXT_MODULES) <= set(lines[-2].split())
 
 
 def test_train_cli_runs_without_jax():

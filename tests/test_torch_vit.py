@@ -6,6 +6,9 @@ bridge.py. The JAX side runs with use_pallas_attention=True, its Pallas kernel
 interpreted on the CPU. Bars: 5e-3 elementwise at float32 compute (the bar of
 tests/test_pallas_attention.py); embedding cosine >= 0.9999 at bf16 compute,
 where the MAP head's bf16 softmax rounds differently in the two frameworks.
+The int8 serving mode (`quant`) keeps the 5e-3 bar at float32 compute and
+holds INT8_BF16_COSINE at bf16 compute (the reason is in
+tests/test_torch_text_tower.py).
 """
 
 import dataclasses
@@ -18,6 +21,7 @@ import jax
 import jax.numpy as jnp
 
 import novic_tpu.ops.attention as jax_attention
+import novic_tpu.ops.int8_matmul as jint8
 from novic_tpu.embedders import vit as jvit
 from novic_tpu.embedders.preprocess import PreprocessConfig as JPreprocessConfig
 from novic_tpu.embedders.preprocess import preprocess_pil_host as jax_preprocess
@@ -30,6 +34,7 @@ from novic_tpu_torch.embedders.preprocess import (
 )
 
 torch.set_num_threads(2)
+INT8_BF16_COSINE = 0.9995
 
 SMALL = dict(image_size=32, patch_size=8, width=64, layers=2, heads=4, mlp_ratio=4.0,
              embed_dim=768, act="gelu_tanh", use_class_token=False, patch_bias=True,
@@ -41,6 +46,13 @@ def interpreted_pallas(monkeypatch):
     orig = jax_attention.fused_attention
     monkeypatch.setattr(jax_attention, "fused_attention",
                         lambda q, k, v, bias=None, **kw: orig(q, k, v, bias, interpret=True))
+
+
+@pytest.fixture
+def interpreted_int8(monkeypatch):
+    orig = jint8.int8_matmul_pallas
+    monkeypatch.setattr(jint8, "int8_matmul_pallas",
+                        lambda xq, wq_t, **kw: orig(xq, wq_t, **{**kw, "interpret": True}))
 
 
 def _jax_tower(cfg_kwargs, images, seed=0):
@@ -128,3 +140,69 @@ def test_config_fields_match_jax():
     for port_cls, jax_cls in ((vit.VisionTowerConfig, jvit.VisionTowerConfig),
                               (vit.TextTowerConfig, jvit.TextTowerConfig)):
         assert dataclasses.asdict(port_cls()) == dataclasses.asdict(jax_cls())
+
+
+@pytest.mark.parametrize("quant,pool", [("int8", "map"), ("int8:pallas", "map"),
+                                        ("int8:pallas", "cls")])
+def test_int8_tower_float32_matches_jax(interpreted_pallas, interpreted_int8, quant, pool):
+    extra = {"use_class_token": True, "pre_ln": True, "patch_bias": False} if pool == "cls" else {}
+    kwargs = {**SMALL, "pool": pool, **extra, "compute_dtype": "float32", "quant": quant}
+    images = _images(2, 32, 5)
+    params, ref = _jax_tower(kwargs, images)
+    model = vision_tower_from_numpy(vit.VisionTowerConfig(**kwargs), params)
+    with torch.no_grad():
+        out = model(torch.from_numpy(images)).numpy()
+    np.testing.assert_allclose(out, ref, atol=5e-3, rtol=5e-3)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8:pallas"])
+def test_int8_tower_bfloat16_cosine(interpreted_pallas, interpreted_int8, quant):
+    kwargs = {**SMALL, "compute_dtype": "bfloat16", "quant": quant}
+    images = _images(3, 32, 6)
+    params, ref = _jax_tower(kwargs, images, seed=2)
+    model = vision_tower_from_numpy(vit.VisionTowerConfig(**kwargs), params)
+    with torch.no_grad():
+        out = model(torch.from_numpy(images)).numpy()
+    cos = (out * ref).sum(-1) / np.linalg.norm(out, axis=-1) / np.linalg.norm(ref, axis=-1)
+    assert cos.min() >= INT8_BF16_COSINE, cos
+
+
+def test_quant_config_is_served_not_ignored(interpreted_pallas, interpreted_int8):
+    """A tower configured with quant="int8" serves int8 embeddings: it matches
+    JAX's int8 tower and differs from the same weights unquantized."""
+    kwargs = {**SMALL, "compute_dtype": "float32"}
+    images = _images(2, 32, 7)
+    params, ref = _jax_tower(kwargs, images)
+    _, ref_q = _jax_tower({**kwargs, "quant": "int8"}, images)
+    x = torch.from_numpy(images)
+    with torch.no_grad():
+        plain = vision_tower_from_numpy(vit.VisionTowerConfig(**kwargs), params)(x).numpy()
+        quant = vision_tower_from_numpy(vit.VisionTowerConfig(**kwargs, quant="int8"), params)(x).numpy()
+    np.testing.assert_allclose(plain, ref, atol=5e-3, rtol=5e-3)
+    np.testing.assert_allclose(quant, ref_q, atol=5e-3, rtol=5e-3)
+    assert np.abs(quant - plain).max() > 10 * np.abs(quant - ref_q).max()
+
+
+def test_int8_weights_cached_outside_the_state_dict():
+    """The quantized weights are made once per weight value, kept out of the
+    state dict (whose names stay the JAX param names), and remade when the
+    weights change."""
+    cfg = vit.VisionTowerConfig(**SMALL, compute_dtype="float32", quant="int8")
+    model = vit.VisionTransformer(cfg).init_random(torch.Generator().manual_seed(0))
+    plain = vit.VisionTransformer(vit.VisionTowerConfig(**SMALL)).init_random(
+        torch.Generator().manual_seed(0))
+    assert list(model.state_dict()) == list(plain.state_dict())
+    x = torch.from_numpy(_images(2, 32, 8))
+    with torch.no_grad():
+        first = model(x)
+        cache = model.blocks_0._qweights["fc1"]
+        assert torch.equal(model(x), first)
+        assert model.blocks_0._qweights["fc1"] is cache
+        model.blocks_0.fc1_weight.mul_(2.0)
+        changed = model(x)
+    wq, sw = model.blocks_0._qweights["fc1"][1]
+    from novic_tpu_torch.ops.int8_matmul import quantize_weight
+
+    ref_q, ref_s = quantize_weight(model.blocks_0.fc1_weight)
+    assert torch.equal(wq, ref_q) and torch.equal(sw, ref_s)
+    assert not torch.equal(changed, first)
