@@ -4,8 +4,9 @@
 
 Phases, each printing JSON lines; any failure exits nonzero:
   1. device: the card's name and its nvidia-smi name and power limit;
-  2. build: compile every kernel (attention.cu, dropout.cu, int8_matmul.cu)
-     from the checkout's sources, one nvcc each, started together;
+  2. build: compile every kernel (attention.cu, dropout.cu, int8_matmul.cu,
+     beam_reorder.cu) from the checkout's sources, one nvcc each, started
+     together;
   3. kernel: the attention kernel against its plain PyTorch version on the
      card, at the serving shape and at two more (stated tolerance), with its
      time, the plain version's time, the time of one PyTorch library call for
@@ -13,6 +14,9 @@ Phases, each printing JSON lines; any failure exits nonzero:
   3b. dropout kernel: bit-identical to its plain version at the three FT0
      site shapes and a ragged size, rates 0.1 and 0.5; its backward mask is
      the forward's; the keep share is within 5 sigma of 1 - rate; times;
+  3d. beam-reorder kernel (X5): bit-identical to its plain version, per-cache
+     and many forms, at the exp/beam_reorder_kernel.py harness shape and the FT0
+     serving shape; times; the harness's 11-step x 12-cache loop (GB/s);
   4. serving path: NOVICModel serving SigLIP-B/16 (random weights from a seed)
      + the FT0 decoder with beam k=10, unguided and guided over all 42,919
      nouns, 2 batches of 64 seeded 224x224 frames; checks the outputs and that
@@ -26,9 +30,15 @@ Phases, each printing JSON lines; any failure exits nonzero:
      ViT-B/16's (causal, argmax pool) at full width, B=256, bf16 and int8,
      through inference_tokens (seeded ids) and inference_text (FT0 nouns,
      test tokenizer); launch counts, card vs CPU, int8 vs bf16, texts/s;
+  4d. decode modes on the 2 x 64 served embeddings: reorder-mode beam k=10
+     (G = 7 X5 launches per batch), unguided and trie-guided, against lazy mode
+     (top-1 identical, scores within 1e-4); greedy and vocab-prior gencfgs
+     through NOVICModel; greedy and reorder card vs CPU on 2 images;
   5. card vs CPU: 2 images through the same port on device="cpu" (plain
      versions) and on the card (kernels): embedding cosine and top-1 labels;
-  6. timings at B=64, and a profile of one served batch (device busy share);
+  6. timings at B=64 (decode lazy and reorder, greedy, vocab priors), and
+     profiles of one served batch and of one reorder-mode decode (device busy
+     share, X5's device time);
   7. training path: `novic_tpu_torch.cli.train action=train` at the FT0
      asset's recipe and full width (hidden 512, 6 layers, batch 1024 x accum
      8, dropout 0.1/0.1, GaussElemUniformAngle noise) for one epoch (8
@@ -86,6 +96,12 @@ INT8_VS_BF16_VISION, INT8_VS_BF16_TEXT = 0.999, 0.998
 # the row, so int8 multiplies the bf16 towers' 1 - cosine (4e-5 for the SigLIP
 # text tower on the card) about five-fold. The vision tower keeps COSINE_MIN.
 INT8_TEXT_COSINE_MIN = 0.9995
+# Reorder vs lazy beam on the card (phase 4d): the two modes sum the attention
+# over the candidate's slots in another order (G slots vs H*G with -inf bias),
+# so scores differ in the last float32 bits of a sum of 7 log-probabilities
+REORDER_VS_LAZY_ATOL = 1e-4
+DECODE_GENCFGS = ["greedy_k1_vnone_gn_t1_a0", "greedy_k1_vnone_gp_t1_a0",
+                  "beam_k10_vtok1_gn_t1_a0", "beam_k10_vtgt0.5_gp_t1_a0"]
 CLIP_SPEC = "openai:ViT-B/16"
 TEXT_BATCH = 256
 # Training (phases 7-8): the FT0 asset's recipe (its cfg_flat) at full width
@@ -116,12 +132,18 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, cold: bool = False) -> float:
     """Mean device time of fn() in ms: the summed duration of the device
     kernels (and copies) it ran, from torch.profiler, over `iters` calls. Unlike
-    cuda_ms, host launch overhead between calls does not count."""
+    cuda_ms, host launch overhead between calls does not count. With `cold`,
+    each call finds the L2 cache cold: a 256 MB uint8 fill runs before it, and
+    its time is left out."""
     from torch.profiler import ProfilerActivity, profile
 
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda") if cold else None
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -130,14 +152,30 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
+                if cold:
+                    flush.zero_()
                 fn()
             torch.cuda.synchronize()
         us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA
-                 and e.self_device_time_total > 0 and not e.key.startswith("Activity Buffer"))
+                 and e.self_device_time_total > 0 and not e.key.startswith("Activity Buffer")
+                 and not (cold and "FillFunctor<unsigned char>" in e.key))
         if us > 0:
             return us / 1e3 / iters
     raise SystemExit("device_ms: the profiler recorded no device time in 5 windows")
+
+
+def host_launch_us(n: int = 2000) -> float:
+    """Host time of one small kernel launch now: the wall time of n queued
+    one-element adds over n. Decode is launch-bound, so its wall time follows
+    this, which varies between runs on a shared host."""
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
 
 
 def wall_ms(fn, repeats: int = 5) -> list[float]:
@@ -368,6 +406,120 @@ def phase_int8(int8mm) -> tuple[dict, dict]:
     return picked["vision fc1"], picked["x4 fc1"]
 
 
+def reorder_bound_ms(n: int, rows_read: int, rows: int, row_bytes: int,
+                     cand_bytes: int) -> tuple[float, str]:
+    """Least time for n caches of `rows` rows: the rows that cand names (each
+    read once; candidates repeat, so fewer than `rows`), every row written once,
+    cand read once, over the HBM rate (a permutation does no arithmetic)."""
+    return (n * (rows_read + rows) * row_bytes + cand_bytes) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+# X5's shapes (label, B, H, G, heads, hd, dtype): exp/beam_reorder_kernel.py's
+# harness, and FT0 serving at B=64, k=10 (token_length 8: G=7; 8 heads x 64)
+REORDER_SHAPES = [("harness", 256, 10, 11, 8, 64, torch.bfloat16),
+                  ("ft0_serving", BATCH, 10, 7, 8, 64, torch.float32)]
+REORDER_CACHES, HARNESS_STEPS = 12, 11
+
+
+def phase_beam_reorder(reorder) -> tuple[dict, dict]:
+    """Phase 3d: X5 against its plain version on the card, bit for bit, per-cache
+    and many forms at both shapes; then the harness's 11-step x 12-cache loop.
+    Returns the kernels-line sources (FT0 serving shape): (per-cache, many)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    picked = {}
+    for label, B, H, G, heads, hd, dtype in REORDER_SHAPES:
+        xs = [torch.randn(B * H, G, heads, hd, device="cuda", generator=gen).to(dtype)
+              for _ in range(REORDER_CACHES)]
+        cand = torch.randint(0, H, (B, H), device="cuda", generator=gen)
+        rows = (torch.arange(B, device="cuda")[:, None] * H + cand).reshape(-1)
+        flat = [x.reshape(B * H, -1) for x in xs]
+        one = reorder.beam_reorder(xs[0], cand)
+        many = reorder.beam_reorder_many(xs, cand)
+        torch.cuda.synchronize()
+        refs = [reorder.reorder_reference(x, cand) for x in xs]
+        checks = {"per_cache": [(one, refs[0])], "many": list(zip(many, refs))}
+        for form, pairs in checks.items():
+            err = max((o.float() - r.float()).abs().max().item() for o, r in pairs)
+            ok = all(torch.equal(o, r) for o, r in pairs)
+            n = len(pairs)
+            if form == "per_cache":
+                run = lambda: reorder.beam_reorder(xs[0], cand)  # noqa: E731
+                plain = lambda: reorder.reorder_reference(xs[0], cand)  # noqa: E731
+                library = lambda: flat[0].index_select(0, rows)  # noqa: E731
+            else:
+                run = lambda: reorder.beam_reorder_many(xs, cand)  # noqa: E731
+                plain = lambda: [reorder.reorder_reference(x, cand) for x in xs]  # noqa: E731
+                library = lambda: [f.index_select(0, rows) for f in flat]  # noqa: E731
+            rows_read = rows.unique().numel()
+            bound_ms, bound_by = reorder_bound_ms(n, rows_read, B * H,
+                                                  flat[0][0].numel() * flat[0].element_size(),
+                                                  cand.numel() * cand.element_size())
+            # Device time with the L2 cold before each call (decode finds the
+            # caches cold: a step moves more than the 50 MB L2), and warm
+            library_ms = device_ms(library, cold=True)
+            line = {"phase": "kernel", "name": "beam_reorder" if n == 1 else "beam_reorder_many",
+                    "shape": label, "cache": [B * H, G, heads, hd], "dtype": str(dtype),
+                    "caches": n, "rows_read": rows_read, "rows": B * H, "max_abs_err": err,
+                    "tol": "bit-identical (0)", "ok": ok,
+                    "ms": device_ms(run, cold=True), "plain_ms": device_ms(plain, iters=5, cold=True),
+                    "library_ms": library_ms if n == 1 else None,
+                    "index_select_per_cache_total_ms": library_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "warm_ms": device_ms(run),
+                    "call_ms": cuda_ms(run)}
+            emit(line)
+            if not ok:
+                raise SystemExit(f"beam_reorder ({form}) disagrees with its plain version at {label}")
+            if label == "ft0_serving":
+                picked[form] = line
+        del xs, flat, one, many, refs
+
+    # The harness: 11 sequential steps over 12 caches, out of place (ping-pong)
+    label, B, H, G, heads, hd, dtype = REORDER_SHAPES[0]
+    cur = [torch.randn(B * H, G, heads, hd, device="cuda", generator=gen).to(dtype)
+           for _ in range(REORDER_CACHES)]
+    spare = [torch.empty_like(x) for x in cur]
+    cands = torch.randint(0, H, (HARNESS_STEPS, B, H), device="cuda", generator=gen)
+
+    def loop(form):
+        a, b = cur, spare
+        for s in range(HARNESS_STEPS):
+            if form == "many":
+                reorder.beam_reorder_many(a, cands[s], out=b)
+            elif form == "per_cache":
+                for x, o in zip(a, b):
+                    reorder.beam_reorder(x, cands[s], out=o)
+            else:
+                b = [reorder.reorder_reference(x, cands[s]) for x in a]
+            a, b = b, a
+        return a
+
+    # Effective rate over every row read and written; the bound counts only the
+    # rows each step's cand names
+    row_bytes = G * heads * hd * cur[0].element_size()
+    gbytes = REORDER_CACHES * B * H * row_bytes * 2 * HARNESS_STEPS / 1e9
+    rows_read = sum((torch.arange(B, device="cuda")[:, None] * H + c).unique().numel() for c in cands)
+    bound_ms, _ = reorder_bound_ms(REORDER_CACHES, rows_read, HARNESS_STEPS * B * H, row_bytes,
+                                   cands.numel() * cands.element_size())
+    harness = {"phase": "x5_harness", "steps": HARNESS_STEPS, "caches": REORDER_CACHES,
+               "cache": [B * H, G, heads, hd], "dtype": str(dtype), "gbytes_moved": gbytes,
+               "rows_read_share": rows_read / (HARNESS_STEPS * B * H), "bound_ms": bound_ms}
+    for form in ("one_hot_plain", "per_cache", "many"):
+        reorder.LAUNCHES = 0
+        loop(form)
+        torch.cuda.synchronize()
+        harness[f"{form}_launches"] = reorder.LAUNCHES
+        ms = cuda_ms(lambda: loop(form), iters=5, warmup=1)
+        harness[f"{form}_ms"] = ms
+        harness[f"{form}_gb_per_s"] = gbytes / (ms / 1e3)
+    emit(harness)
+    want = {"one_hot_plain": 0, "per_cache": HARNESS_STEPS * REORDER_CACHES, "many": HARNESS_STEPS}
+    if any(harness[f"{f}_launches"] != n for f, n in want.items()):
+        raise SystemExit(f"the X5 harness launched {[harness[f + '_launches'] for f in want]}, "
+                         f"expected {list(want.values())}")
+    picked["per_cache"]["path_launches"] = harness["per_cache_launches"]
+    return picked["per_cache"], picked["many"]
+
+
 def cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return (a * b).sum(-1) / np.linalg.norm(a, axis=-1) / np.linalg.norm(b, axis=-1)
 
@@ -397,9 +549,9 @@ def device_profile(fn, match: tuple = ("dropout_f32", "dropout_bf16")) -> dict:
                                 for e in events if any(m in e.key for m in match)]}
 
 
-def check_output(out, n: int, guide: set | None) -> None:
+def check_output(out, n: int, guide: set | None, k: int = 10) -> None:
     lp = np.asarray(out.logprobs, dtype=np.float64)
-    if lp.shape != (n, 10) or len(out.preds) != n or any(len(r) != 10 for r in out.preds):
+    if lp.shape != (n, k) or len(out.preds) != n or any(len(r) != k for r in out.preds):
         raise SystemExit(f"unexpected output shape {lp.shape}")
     if not np.isfinite(lp).all():
         raise SystemExit("non-finite logprobs")
@@ -477,6 +629,107 @@ def phase_int8_serving(model, frames: list, nouns: list, guided_cfg: str, name: 
     if cos_bf16.min() < INT8_VS_BF16_VISION:
         raise SystemExit(f"int8 tower: cosine to the bf16 tower {cos_bf16.min()} < "
                          f"{INT8_VS_BF16_VISION}")
+    return line
+
+
+def device_guide(dec, nouns: list) -> tuple[torch.Tensor, dict]:
+    """The guide ids of `nouns` and their trie tables on the card, as
+    GenerationTask keeps them."""
+    from novic_tpu_torch.infer import load_guide_targets
+    from novic_tpu_torch.models.guide_trie import build_guide_trie
+
+    ids, _ = load_guide_targets(dec.target_tokenizer, nouns)
+    t = build_guide_trie(ids, dec.cfg.vocab_size, dec.cfg.token_length - 1)
+    trie = {k: [torch.from_numpy(x).cuda() for x in t[k]]
+            for k in ("child_tok", "child_id", "child_pack")}
+    return torch.from_numpy(ids.astype(np.int64)).cuda(), trie
+
+
+def beam_direct(dec_model, e: torch.Tensor, mode: str, guide=None):
+    """generate_beam at k=10 in `mode`, unguided or guided through (ids, trie)."""
+    from novic_tpu_torch.models.generate import generate_beam
+
+    kw = {} if guide is None else dict(guide_targets=guide[0], guide_trie=guide[1])
+    return generate_beam(dec_model, e, topk=10, cache_mode=mode, **kw)
+
+
+def phase_decode_modes(model, embeds: np.ndarray, nouns: list, ck: dict, guide,
+                       name: str, smi: str) -> dict:
+    """Phase 4d: reorder-mode beam search (X5 on the path) on the 2 x 64 served
+    embeddings, unguided and trie-guided, against lazy mode on the card; greedy
+    and vocab-prior gencfgs through NOVICModel; card vs CPU on 2 images."""
+    from novic_tpu_torch.bridge import decoder_from_numpy
+    from novic_tpu_torch.models.generate import generate_greedy
+    from novic_tpu_torch.ops import attention, beam_reorder, dropout, int8_matmul
+
+    dec = model.decoder
+    G = dec.cfg.token_length - 1
+    batches = [torch.from_numpy(embeds[i:i + BATCH]).cuda() for i in range(0, len(embeds), BATCH)]
+    nouns_set = set(nouns)
+    line = {"phase": "decode_modes", "device": name, "nvidia_smi": smi, "images": len(embeds),
+            "batches": len(batches), "topk": 10, "decode_steps": G}
+    for label, g in (("unguided", None), ("guided", guide)):
+        attention.LAUNCHES = dropout.LAUNCHES = int8_matmul.LAUNCHES = beam_reorder.LAUNCHES = 0
+        t0 = time.perf_counter()
+        reorder = [beam_direct(dec.model, e, "reorder", g) for e in batches]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = beam_reorder.LAUNCHES
+        others = attention.LAUNCHES + dropout.LAUNCHES + int8_matmul.LAUNCHES
+        lazy = [beam_direct(dec.model, e, "lazy", g) for e in batches]
+        torch.cuda.synchronize()
+        lazy_launches = beam_reorder.LAUNCHES - launches
+        t_r, s_r = torch.cat([o[0] for o in reorder]), torch.cat([o[2] for o in reorder])
+        t_l, s_l = torch.cat([o[0] for o in lazy]), torch.cat([o[2] for o in lazy])
+        top1_same = bool(torch.equal(t_r[:, 0], t_l[:, 0]))
+        score_diff = (s_r - s_l).abs().max().item()
+        differs = (t_r != t_l).any(dim=-1)  # (n, K) ranks holding another candidate
+        preds = dec.target_tokenizer.detokenize_target(t_r.cpu().numpy())
+        finite = bool(torch.isfinite(s_r).all()) and bool((s_r > -1e29).all())
+        descending = bool((s_r[:, 1:] <= s_r[:, :-1] + 1e-6).all())
+        outside = [p for row in preds for p in row if p not in nouns_set] if g else []
+        line[label] = {"x5_launches": launches, "x5_launches_per_batch": launches / len(batches),
+                       "other_kernel_launches": others, "lazy_x5_launches": lazy_launches,
+                       "first_call_s": seconds, "top1_identical_to_lazy": top1_same,
+                       "max_score_diff_vs_lazy": score_diff,
+                       "lower_ranks_swapped_vs_lazy": int(differs[:, 1:].sum()),
+                       "labels": [r[:3] for r in preds[:2]], "finite": finite,
+                       "descending": descending, "guided_outside_guide_set": len(outside)}
+        if launches != G * len(batches) or lazy_launches or others:
+            raise SystemExit(f"{label} reorder beam: {launches} X5 launches over {len(batches)} "
+                             f"batches (expected {G} per batch), {lazy_launches} in lazy mode, "
+                             f"{others} of other kernels")
+        if not (top1_same and score_diff <= REORDER_VS_LAZY_ATOL and finite and descending
+                and not outside):
+            emit(line)
+            raise SystemExit(f"{label} reorder beam disagrees with lazy mode or gave bad scores")
+
+    # Greedy and vocab priors through NOVICModel
+    line["gencfgs"] = {}
+    for gencfg in DECODE_GENCFGS:
+        t0 = time.perf_counter()
+        out = model.classify_embeds(embeds, gencfg=gencfg)
+        seconds = time.perf_counter() - t0
+        k = int(gencfg.split("_")[1][1:])
+        check_output(out, len(embeds), nouns_set if "_gp_" in gencfg else None, k)
+        line["gencfgs"][gencfg] = {"first_call_s": seconds, "labels": [r[:3] for r in out.preds[:2]],
+                                   "logprobs": [[round(x, 4) for x in r[:3]] for r in out.logprobs[:2]]}
+
+    # Card vs CPU on 2 images: the same embeddings through the decoder on each
+    cpu_model = decoder_from_numpy(ck["model_config"], ck["params"])
+    e_cpu, e_gpu = torch.from_numpy(embeds[:2]), batches[0][:2]
+    greedy = [generate_greedy(m, e, calc_loss=True) for m, e in ((dec.model, e_gpu), (cpu_model, e_cpu))]
+    reord = [beam_direct(m, e, "reorder") for m, e in ((dec.model, e_gpu), (cpu_model, e_cpu))]
+    line["card_vs_cpu"] = {
+        "greedy_top1_identical": bool(torch.equal(greedy[0][0].cpu(), greedy[1][0])),
+        "greedy_max_score_diff": (greedy[0][5].cpu() - greedy[1][5]).abs().max().item(),
+        "reorder_top1_identical": bool(torch.equal(reord[0][0][:, 0].cpu(), reord[1][0][:, 0])),
+        "reorder_max_score_diff": (reord[0][2].cpu() - reord[1][2]).abs().max().item(),
+        "top1_gpu": dec.target_tokenizer.detokenize_target(reord[0][0][:, :1].cpu().numpy())}
+    emit(line)
+    cvc = line["card_vs_cpu"]
+    if not (cvc["greedy_top1_identical"] and cvc["reorder_top1_identical"]):
+        raise SystemExit("greedy or reorder decode: card and CPU disagree on top-1")
     return line
 
 
@@ -734,7 +987,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from novic_tpu_torch.infer import NOVICModel
-    from novic_tpu_torch.ops import attention, build, dropout, int8_matmul
+    from novic_tpu_torch.ops import attention, beam_reorder, build, dropout, int8_matmul
     from novic_tpu_torch.text.simple import make_test_tokenizer
     from novic_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -751,7 +1004,7 @@ def main() -> int:
 
     # 2. build every kernel of every path, one nvcc per source, started together
     t0 = time.perf_counter()
-    sources = [attention.SOURCE, dropout.SOURCE, int8_matmul.SOURCE]
+    sources = [attention.SOURCE, dropout.SOURCE, int8_matmul.SOURCE, beam_reorder.SOURCE]
     libs = build.build_all(sources, force=True)
     emit({"phase": "build", "kernels": [os.path.relpath(str(s), REPO) for s in sources],
           "libraries": [os.path.relpath(str(lib), REPO) for lib in libs],
@@ -763,6 +1016,7 @@ def main() -> int:
     k1 = phase_kernel(attention)
     k3 = phase_dropout(dropout)
     k2, x4 = phase_int8(int8_matmul)
+    x5, x5_many = phase_beam_reorder(beam_reorder)
 
     # 4. main path
     ck = load_checkpoint(FT0)
@@ -819,28 +1073,65 @@ def main() -> int:
         int8_line = phase_int8_serving(model, frames, nouns, guided_cfg, name, smi)
         phase_text(nouns, name, smi)
 
+        # 4d. reorder-mode beam (X5), greedy and vocab priors on the served embeddings
+        guide = device_guide(model.decoder, nouns)
+        decode_line = phase_decode_modes(model, model.embed_images(frames), nouns, ck, guide,
+                                         name, smi)
+
         # 6. timings at B=64
         batch = frames[:BATCH]
         pixels = model.transform_images(batch)
         embeds = model.embed_images(batch)
         tower_ms = cuda_ms(lambda: model.embedder.embed_image_tensor(pixels), iters=5, warmup=1)
         embed_ms = wall_ms(lambda: model.embed_images(batch))
+        launch_us = [host_launch_us()]
         decode_ms = wall_ms(lambda: model.classify_embeds(embeds))
         decode_guided_ms = wall_ms(lambda: model.classify_embeds(embeds, gencfg=guided_cfg))
         e2e_ms = wall_ms(lambda: model.classify_images(frames), repeats=3)
+        # generate_beam alone (tokens to the host, no detokenization), lazy and
+        # reorder in turns: lazy, reorder, reorder, lazy, ...
+        e64 = torch.from_numpy(embeds).cuda()
+        gen = {"lazy": [], "reorder": []}
+        for mode in ["lazy", "reorder", "reorder", "lazy"] * 3:
+            gen[mode] += wall_ms(lambda: [x.cpu() for x in beam_direct(model.decoder.model, e64,
+                                                                      mode)], repeats=1)
+        greedy_ms = wall_ms(lambda: model.classify_embeds(embeds, gencfg=DECODE_GENCFGS[0]))
+        vocab_ms = wall_ms(lambda: model.classify_embeds(embeds, gencfg=DECODE_GENCFGS[2]))
+        vocab_guided_ms = wall_ms(lambda: model.classify_embeds(embeds, gencfg=DECODE_GENCFGS[3]))
+        launch_us.append(host_launch_us())
         emit({"phase": "timing", "device": name, "nvidia_smi": smi, "batch": BATCH,
+              "host_launch_us_before_after_decode": launch_us,
               "tower_ms_per_batch": tower_ms,
               "preprocess_and_tower_ms_per_batch": statistics.median(embed_ms),
               "decode_ms_per_batch": statistics.median(decode_ms),
               "decode_guided_ms_per_batch": statistics.median(decode_guided_ms),
+              "decode_lazy_generate_ms_per_batch": statistics.median(gen["lazy"]),
+              "decode_reorder_ms_per_batch": statistics.median(gen["reorder"]),
+              "decode_greedy_ms_per_batch": statistics.median(greedy_ms),
+              "decode_vocab_prior_ms_per_batch": statistics.median(vocab_ms),
+              "decode_vocab_prior_guided_ms_per_batch": statistics.median(vocab_guided_ms),
               "e2e_images_per_s": len(frames) / (statistics.median(e2e_ms) / 1e3),
+              "gencfgs": {"decode_greedy": DECODE_GENCFGS[0], "decode_vocab_prior": DECODE_GENCFGS[2],
+                          "decode_vocab_prior_guided": DECODE_GENCFGS[3]},
               "repeats_ms": {"embed": embed_ms, "decode": decode_ms,
-                             "decode_guided": decode_guided_ms, "e2e": e2e_ms}})
+                             "decode_guided": decode_guided_ms, "e2e": e2e_ms,
+                             "generate_lazy": gen["lazy"], "generate_reorder": gen["reorder"],
+                             "greedy": greedy_ms, "vocab_prior": vocab_ms,
+                             "vocab_prior_guided": vocab_guided_ms}})
 
-        # 6b. device busy share and the largest device ops over one served batch
+        # 6b. device busy share and the largest device ops over one served batch,
+        # and over one lazy and one reorder-mode decode of it (X5's share)
         prof = device_profile(lambda: model.classify_images(batch))
         prof.pop("matched_kernels")
         emit({"phase": "profile", "device": name, "batch": BATCH, **prof})
+        for mode in ("lazy", "reorder"):
+            prof = device_profile(lambda: beam_direct(model.decoder.model, e64, mode),
+                                  match=("beam_reorder_kernel",))
+            matched = prof.pop("matched_kernels")
+            x5_ms = sum(m[1] for m in matched)
+            emit({"phase": "profile_decode", "mode": mode, "device": name, "batch": BATCH, **prof,
+                  "x5_device_ms": x5_ms, "x5_kernels": sum(m[2] for m in matched),
+                  "x5_share_of_device_busy": x5_ms / prof["device_busy_ms"]})
 
     # 7. training path, 8. card vs CPU for one step
     workdir = tempfile.mkdtemp(prefix="novic_chip_smoke_")
@@ -876,7 +1167,20 @@ def main() -> int:
         "replaces": "exp/pallas_int8_mlp_chain.py:97",
         "launches": x4["path_launches"], "max_abs_err": x4["max_abs_err"], "ms": x4["ms"],
         "plain_ms": x4["plain_ms"], "bound_ms": x4["bound_ms"], "bound_by": x4["bound_by"],
-        "library_ms": x4["library_ms"]}]})
+        "library_ms": x4["library_ms"]}, {
+        "name": "beam_reorder", "route": "cuda",
+        "source": "novic_tpu_torch/ops/csrc/beam_reorder.cu",
+        "replaces": "exp/beam_reorder_kernel.py:53",
+        "launches": x5["path_launches"], "max_abs_err": x5["max_abs_err"], "ms": x5["ms"],
+        "plain_ms": x5["plain_ms"], "bound_ms": x5["bound_ms"], "bound_by": x5["bound_by"],
+        "library_ms": x5["library_ms"]}, {
+        "name": "beam_reorder_many", "route": "cuda",
+        "source": "novic_tpu_torch/ops/csrc/beam_reorder.cu",
+        "replaces": "exp/beam_reorder_kernel.py:77",
+        "launches": decode_line["unguided"]["x5_launches"] + decode_line["guided"]["x5_launches"],
+        "max_abs_err": x5_many["max_abs_err"], "ms": x5_many["ms"],
+        "plain_ms": x5_many["plain_ms"], "bound_ms": x5_many["bound_ms"],
+        "bound_by": x5_many["bound_by"], "library_ms": x5_many["library_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -6,8 +6,8 @@ with its compact name codec (``{method}_k{K}_v{none|tokX|tgtX}_g{n|p|r}_t{T}_a{A
 the GenerationTask evaluator with its top-k result bucketing, and the loader
 helpers. Models run on an explicit device, CUDA by default.
 
-Only beam search is ported so far; greedy and exhaustive ('all') generation
-and vocab priors raise NotImplementedError.
+Greedy decode and beam search (with vocab priors) are ported; exhaustive
+('all') generation raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import torch
 from novic_tpu_torch.device import resolve
 from novic_tpu_torch.embedders.base import Embedder
 from novic_tpu_torch.models.config import DecoderModelConfig
-from novic_tpu_torch.models.generate import generate_beam
+from novic_tpu_torch.models.generate import generate_beam, generate_greedy
 from novic_tpu_torch.models.guide_trie import build_guide_trie
 from novic_tpu_torch.models.prefixed_iter import PrefixedIterDecoder
 from novic_tpu_torch.text.target import TargetConfig, TargetTokenizer
@@ -163,18 +163,25 @@ class GenerationTask:
     topk: Optional[np.ndarray] = None
     batch_pad: int = 0  # pad ragged batches with unit e0 rows up to this size
 
-    _guide_trie: Optional[dict] = None
-    _guide_device: Optional[torch.Tensor] = None
+    _trie_cache: dict = dataclasses.field(default_factory=dict)
+    _targets_device: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         self.topk_counts = np.zeros((self.gencfg.topk, 4), dtype=np.int64)
-        if self.gencfg.method != "beam":
-            raise NotImplementedError(f"Generation method {self.gencfg.method!r} is not ported "
-                                      "yet (beam only)")
-        if self.gencfg.vocab_prior:
-            raise NotImplementedError("Vocab priors are not ported yet")
+        if self.gencfg.vocab_prior and self.vocab_targets is None:
+            raise ValueError("Generation config specifies vocab priors but no vocab targets given")
         if self.gencfg.guided and self.guide_targets is None:
             raise ValueError("Guided gencfg requires guide targets")
+        if self.gencfg.method == "greedy":
+            if self.gencfg.topk != 1:
+                raise ValueError(f"Greedy generation requires top-k == 1, got {self.gencfg.topk}")
+            if self.gencfg.vocab_prior:
+                raise ValueError("Vocab priors are not available for greedy generation")
+        elif self.gencfg.method == "all":
+            if not self.gencfg.guided:
+                raise ValueError("The 'all' generation method must always be guided")
+            raise NotImplementedError("Generation method 'all' is not ported yet "
+                                      "(greedy and beam only)")
 
     def clear(self):
         self.target = self.target_padding = self.target_score = None
@@ -196,33 +203,62 @@ class GenerationTask:
             return t[:true_b], p[:true_b], s[:true_b]
         g = self.gencfg
         model = self.decoder.model
-        guide, g_trie = None, None
-        if g.guided:
-            g_trie = self._maybe_trie(self.guide_targets)
-            if self._guide_device is None:
-                self._guide_device = torch.from_numpy(
-                    np.asarray(self.guide_targets, np.int64)).to(model.device)
-            guide = self._guide_device
+        guide = self._targets("guide") if g.guided else None
+        vocab = self._targets("vocab") if g.vocab_prior else None
+        g_trie = self._maybe_trie(self.guide_targets, "guide") if g.guided else None
         e = torch.from_numpy(np.ascontiguousarray(embeds, dtype=np.float32)).to(model.device)
-        t, p, s = generate_beam(model, e, topk=g.topk, temperature=g.temperature,
-                                length_alpha=g.length_alpha, guide_targets=guide,
-                                guide_renorm=g.guide_renorm, guide_trie=g_trie)
+        if g.method == "greedy":
+            t, p, _, _, _, s = generate_greedy(model, e, calc_loss=True, temperature=g.temperature,
+                                               length_alpha=g.length_alpha, guide_targets=guide,
+                                               guide_renorm=g.guide_renorm, guide_trie=g_trie)
+            t, p, s = t[:, None], p[:, None], s[:, None]
+        else:
+            v_trie = (self._maybe_trie(self.vocab_targets, "vocab")
+                      if vocab is not None and vocab is not guide else None)
+            t, p, s = generate_beam(model, e, topk=g.topk, temperature=g.temperature,
+                                    length_alpha=g.length_alpha, vocab_targets=vocab,
+                                    vocab_per_token=g.vocab_per_token,
+                                    vocab_scaler=g.vocab_scaler, guide_targets=guide,
+                                    guide_renorm=g.guide_renorm, guide_trie=g_trie,
+                                    vocab_trie=v_trie)
         return t.cpu().numpy(), p.cpu().numpy(), s.cpu().numpy()
 
-    def _maybe_trie(self, targets: Optional[np.ndarray]):
-        """Build (once) and move to the device the trie tables for a target set,
-        or return None when the set is small enough for the mask path."""
+    def _targets(self, which: str) -> torch.Tensor:
+        """The guide or vocab target ids on the device, moved once. When both sets
+        hold the same rows they share one tensor, which generate_beam reads as
+        'the vocab prior counts the guide's alive rows'."""
+        cached = self._targets_device.get(which)
+        if cached is None:
+            ids = self.guide_targets if which == "guide" else self.vocab_targets
+            other = self.vocab_targets if which == "guide" else self.guide_targets
+            shared = "vocab" if which == "guide" else "guide"
+            if (shared in self._targets_device and other is not None
+                    and (ids is other or np.array_equal(ids, other))):
+                cached = self._targets_device[shared]
+            else:
+                cached = torch.from_numpy(np.asarray(ids, np.int64)).to(self.decoder.model.device)
+            self._targets_device[which] = cached
+        return cached
+
+    def _maybe_trie(self, targets: Optional[np.ndarray], which: str):
+        """Build (once per target set, "guide" or "vocab") and move to the device
+        the trie tables for a target set, or return None when the set is small
+        enough for the mask path. The row-count tables go along when the gencfg
+        has a vocab prior."""
         if targets is None:
             return None
         targets = np.asarray(targets)
         G = self.decoder.cfg.token_length - 1
         if len(targets) < TRIE_MIN_TARGETS or targets.shape[1] < G:
             return None
-        if self._guide_trie is not None:
-            return self._guide_trie
+        cached = self._trie_cache.get(which)
+        if cached is not None:
+            return cached
         trie = build_guide_trie(targets, self.decoder.cfg.vocab_size, G)
-        tables = {"child_tok": trie["child_tok"], "child_id": trie["child_id"],
-                  "child_pack": trie["child_pack"]}
+        keys = ["child_tok", "child_id", "child_pack"]
+        if self.gencfg.vocab_prior:
+            keys += ["child_cnt", "node_cnt"]
+        tables = {k: trie[k] for k in keys}
         if trie["child_pack"] is not None:
             # With the packed table, child_tok/child_id are read only at depth 0
             # (the root special case): keep only those on the device
@@ -231,8 +267,8 @@ class GenerationTask:
                 tables[key] = [trie[key][0]] + [dummy] * (len(trie[key]) - 1)
         dev = self.decoder.model.device
         to_dev = lambda ts: None if ts is None else [torch.from_numpy(t).to(dev) for t in ts]
-        self._guide_trie = {k: to_dev(v) for k, v in tables.items()}
-        return self._guide_trie
+        self._trie_cache[which] = {k: to_dev(v) for k, v in tables.items()}
+        return self._trie_cache[which]
 
     def process(self, embeds: np.ndarray, *, class_indices: Optional[Sequence[int]] = None):
         t, p, s = self.generate(embeds)
@@ -275,6 +311,33 @@ class GenerationTask:
         self.topk_vocab = ratios[:, 2]
         self.topk_guide = ratios[:, 1]
         self.topk = ratios[:, 0]
+
+
+class GenerationTaskList:
+    """Several gencfg tasks over the same batches, generated and updated in the
+    JAX package's order (a task's update after the next task's generation)."""
+
+    def __init__(self, tasks: Sequence[GenerationTask]):
+        self.tasks = list(tasks)
+
+    def process(self, embeds: np.ndarray, *, class_indices: Optional[Sequence[int]] = None):
+        pending = None
+        for task in self.tasks:
+            out = task.generate(embeds)
+            if pending is not None:
+                self._update(*pending, class_indices)
+            pending = (task, out)
+        if pending is not None:
+            self._update(*pending, class_indices)
+
+    @staticmethod
+    def _update(task: GenerationTask, out: tuple, class_indices):
+        task.update(target=out[0], target_padding=out[1], target_score=out[2],
+                    class_indices=class_indices)
+
+    def clear(self):
+        for task in self.tasks:
+            task.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -453,7 +516,7 @@ class NOVICModel:
             gencfg=gencfg, decoder=dec,
             vocab_targets_set=set(vocab_strs), vocab_targets=vocab_ids,
             guide_targets_set=set(guide_strs),
-            guide_targets=guide_ids if gencfg.guided else None)
+            guide_targets=guide_ids if (gencfg.guided or gencfg.method == "all") else None)
         task.batch_pad = self.batch_size
         self._task_cache[gencfg.name] = task
         return task

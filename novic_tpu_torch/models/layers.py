@@ -58,6 +58,11 @@ def causality_mask(max_seq_len: int, prefix_len: int, strictly_causal: bool) -> 
     return torch.where(allowed, 0.0, NEG_INF).float()
 
 
+def slot_bias(slots: int, last: int, device) -> torch.Tensor:
+    """(1, slots) additive bias: 0 at slots <= last, NEG_INF after."""
+    return torch.where(torch.arange(slots, device=device)[None, :] <= last, 0.0, NEG_INF)
+
+
 def _param(*shape) -> nn.Parameter:
     return nn.Parameter(torch.zeros(*shape))
 
@@ -346,6 +351,48 @@ class TransformerLayer(nn.Module):
         out = self._attend(q, k_new, v_new, attn_bias[:S, :S])
         return self._finish(x, out), k_cache, v_cache
 
+    def step(self, x, k_cache, v_cache, pos: int, key_bias: Optional[torch.Tensor] = None):
+        """KV-cached single-token step (greedy decode): x (B,1,E) at sequence
+        position pos; caches (B,Smax,H,hd), written at pos; key_bias (1,Smax)
+        additive (0 at keys <= pos), computed here when not given."""
+        h = self._norm(x, 1) if self.cfg.layer_norm_first else x
+        q, k_new, v_new = self._qkv(h)
+        k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
+        if key_bias is None:
+            key_bias = slot_bias(k_cache.shape[1], pos, x.device)
+        out = self._attend(q, k_cache.float(), v_cache.float(), key_bias)
+        return self._finish(x, out), k_cache, v_cache
+
+    def step_split(self, x, pk, pv, tk, tv, step: int, token_bias: Optional[torch.Tensor] = None):
+        """Split-cache step (reorder-mode beam): the candidates' token caches were
+        permuted before the step, so each candidate attends over its own rows.
+
+        x (B,1,E) with B = Bb*R; pk/pv (Bb,P,H,hd) frozen prefix shared by the R
+        candidates of a sample; tk/tv (B,G,H,hd) per-candidate token caches,
+        written at slot step-1; token_bias (1,G) additive (0 at slots <= step-1),
+        computed here when not given."""
+        cfg = self.cfg
+        h = self._norm(x, 1) if cfg.layer_norm_first else x
+        q, k_new, v_new = self._qkv(h)  # (B,1,H,hd)
+        tk[:, step - 1] = k_new[:, 0].to(tk.dtype)
+        tv[:, step - 1] = v_new[:, 0].to(tv.dtype)
+        B = x.shape[0]
+        Bb, P = pk.shape[0], pk.shape[1]
+        R, G = B // Bb, tk.shape[1]
+        H, hd = cfg.num_heads, cfg.head_dim
+        if token_bias is None:
+            token_bias = slot_bias(G, step - 1, x.device)
+        qs = (q * (1.0 / math.sqrt(hd))).reshape(B, H, hd)
+        sp = torch.einsum("brhd,bphd->brhp", qs.reshape(Bb, R, H, hd), pk.float()).reshape(B, H, P)
+        st = torch.einsum("bhd,bkhd->bhk", qs, tk.float()) + token_bias
+        attn = torch.softmax(torch.cat([sp, st], dim=-1), dim=-1)  # (B,H,P+G)
+        out_p = torch.einsum("brhp,bphd->brhd", attn[..., :P].reshape(Bb, R, H, P),
+                             pv.float()).reshape(B, H, hd)
+        out_t = torch.einsum("bhk,bkhd->bhd", attn[..., P:], tv.float())
+        out = (out_p + out_t).reshape(B, 1, cfg.hidden_dim)
+        return self._finish(x, out), tk, tv
+
     def step_lazy(self, x, pk, pv, tk, tv, anc_bias, step: int):
         """Lazy-cache beam step: the token caches are never reordered.
 
@@ -418,6 +465,19 @@ class Transformer(nn.Module):
         for i, layer in enumerate(self.layers):
             x, k_caches[i], v_caches[i] = layer.prefill(x, attn_bias, k_caches[i], v_caches[i])
         return self._final_norm(x), k_caches, v_caches
+
+    def step(self, x, k_caches, v_caches, pos: int):
+        key_bias = slot_bias(k_caches[0].shape[1], pos, x.device)
+        for i, layer in enumerate(self.layers):
+            x, k_caches[i], v_caches[i] = layer.step(x, k_caches[i], v_caches[i], pos, key_bias)
+        return self._final_norm(x), k_caches, v_caches
+
+    def step_split(self, x, pk_caches, pv_caches, tk_caches, tv_caches, step: int):
+        token_bias = slot_bias(tk_caches[0].shape[1], step - 1, x.device)
+        for i, layer in enumerate(self.layers):
+            x, tk_caches[i], tv_caches[i] = layer.step_split(
+                x, pk_caches[i], pv_caches[i], tk_caches[i], tv_caches[i], step, token_bias)
+        return self._final_norm(x), tk_caches, tv_caches
 
     def step_lazy(self, x, pk_caches, pv_caches, tk_caches, tv_caches, anc_bias, step: int):
         for i, layer in enumerate(self.layers):

@@ -6,8 +6,9 @@ to the logits linear, so autograd sums the gradients of both uses into
 `logits_weight`. The training forward (`forward`) has the reference contract:
 loss sum/basis decomposition, num_end_loss padding expansion, weighted CE with
 ignore_index=-1 and label smoothing, guide-restricted argmax correctness, and
-the BxMxC / MxBxC multi-target reshapes. Generation uses prefill into split
-caches and the lazy-cache beam step.
+the BxMxC / MxBxC multi-target reshapes. Generation prefills either split
+caches (beam search: the lazy-cache step, or the split step after the caller
+permutes the token caches) or monolithic caches (greedy: the plain cached step).
 """
 
 from __future__ import annotations
@@ -279,12 +280,37 @@ class PrefixedIterDecoder(nn.Module):
         x, k_caches, v_caches = self.transformer.prefill(x, self.causality_bias, k_caches, v_caches)
         return self.logits(x[:, -1, :]), k_caches, v_caches
 
-    def _caches(self, batch: int, slots: int):
+    def _caches(self, batch: int, slots: int, dtype: Optional[torch.dtype] = None):
         cfg = self.cfg
         shape = (batch, slots, cfg.num_heads, cfg.head_dim)
-        make = lambda: [torch.zeros(shape, dtype=self.cache_dtype, device=self.device)
+        dtype = self.cache_dtype if dtype is None else dtype
+        make = lambda: [torch.zeros(shape, dtype=dtype, device=self.device)
                         for _ in range(cfg.num_layers)]
         return make(), make()
+
+    def init_cache(self, batch: int, dtype: Optional[torch.dtype] = None):
+        """Monolithic caches over all max_seq_len positions (greedy decode), in the
+        compute dtype unless `dtype` is given."""
+        return self._caches(batch, self.cfg.max_seq_len, dtype)
+
+    def decode_step(self, token_ids: torch.Tensor, step: int, k_caches, v_caches):
+        """One monolithic-cache decode step: the token chosen at step-1 feeds
+        position P+step-1; returns logits for the token at `step` (step >= 1)."""
+        pos = self.cfg.mlp_seq_len + step - 1
+        x = self.embed_tokens(token_ids)[:, None, :] + self.pos_embedding[pos][None, None, :]
+        x, k_caches, v_caches = self.transformer.step(x, k_caches, v_caches, pos)
+        return self.logits(x[:, 0, :]), k_caches, v_caches
+
+    def decode_step_split(self, token_ids: torch.Tensor, step: int, pk_caches, pv_caches,
+                          tk_caches, tv_caches):
+        """Split-cache decode step (TransformerLayer.step_split): prefix caches at
+        base-batch rows (frozen), token caches at candidate rows (slot step-1
+        written); the caller permutes the token caches before the step."""
+        pos = self.cfg.mlp_seq_len + step - 1
+        x = self.embed_tokens(token_ids)[:, None, :] + self.pos_embedding[pos][None, None, :]
+        x, tk_caches, tv_caches = self.transformer.step_split(
+            x, pk_caches, pv_caches, tk_caches, tv_caches, step)
+        return self.logits(x[:, 0, :]), tk_caches, tv_caches
 
     def init_token_cache(self, batch: int):
         """Token-slot caches (G = token_length-1 slots) for the split-cache decode."""

@@ -115,9 +115,12 @@ def test_first_true_matches_argmax_over_bools():
 
 
 def test_unported_modes_raise(ft0):
+    """generate_all is not ported; an unknown cache_mode is refused as JAX refuses it."""
     e = torch.from_numpy(ft0["embed"])
-    with pytest.raises(NotImplementedError):
-        generate.generate_beam(ft0["model"], e, topk=2, cache_mode="reorder")
-    with pytest.raises(NotImplementedError):
-        generate.generate_beam(ft0["model"], e, topk=2, vocab_targets=torch.zeros(3, 8),
-                               vocab_scaler=1.0)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        generate.generate_all(ft0["model"], e, topk=2)
+    with pytest.raises(ValueError, match="cache_mode"):
+        generate.generate_beam(ft0["model"], e, topk=2, cache_mode="gather")
+    with pytest.raises(ValueError, match="cache_mode"):
+        jax_generate_beam(ft0["jmodel"], ft0["jparams"], ft0["embed"], topk=2,
+                          cache_mode="gather")

@@ -126,11 +126,26 @@ def test_gencfg_bad_names_raise(bad):
 
 
 def test_unported_generation_raises(setup):
+    """'all' is not ported (guided: NotImplementedError); the gencfg checks of
+    novic_tpu's GenerationTask hold (unguided 'all', greedy with k > 1 or a vocab
+    prior: ValueError); unported towers raise."""
     model = infer.NOVICModel(FT0, device="cpu", embedder_spec="test:768",
-                             gencfg="greedy_k1_vnone_gn_t1_a0")
-    with pytest.raises(NotImplementedError):
+                             gencfg="all_k3_vnone_gp_t1_a0")
+    with pytest.raises(NotImplementedError, match="not ported"):
         with model:
             pass
+    model = infer.NOVICModel(FT0, device="cpu", embedder_spec="test:768")
+    with model:
+        for bad in ("all_k3_vnone_gn_t1_a0", "greedy_k2_vnone_gn_t1_a0",
+                    "greedy_k1_vtgt0.5_gn_t1_a0"):
+            with pytest.raises(ValueError):
+                model.task_for(bad)
+            jdec = jax_infer.Decoder(model=None, params=None, cfg=None, target_tokenizer=None)
+            with pytest.raises(ValueError):
+                jax_infer.GenerationTask(gencfg=jax_infer.GenerationConfig.from_name(bad),
+                                         decoder=jdec, vocab_targets_set=set(),
+                                         vocab_targets=np.zeros((1, 8), np.int32),
+                                         guide_targets_set=set(), guide_targets=None)
     with pytest.raises(NotImplementedError):
         registry.lookup("transformers:kakaobrain/align-base")
 
