@@ -5,18 +5,28 @@
 Phases, each printing JSON lines; any failure exits nonzero:
   1. device: the card's name and its nvidia-smi name and power limit;
   2. build: compile every kernel (attention.cu, dropout.cu, int8_matmul.cu,
-     beam_reorder.cu) from the checkout's sources, one nvcc each, started
-     together;
+     beam_reorder.cu, attention_bf16.cu, tiled_matmul.cu) from the checkout's
+     sources, one nvcc each, started together;
   3. kernel: the attention kernel against its plain PyTorch version on the
-     card, at the serving shape and at two more (stated tolerance), with its
-     time, the plain version's time, the time of one PyTorch library call for
-     the same function, and the least time the card could take (bound);
+     card, at the serving shape, at the DFN5B-H-378 tower's (32,730,16,80) and
+     at two more (stated tolerance), with its time, the plain version's time,
+     the time of one PyTorch library call for the same function, and the least
+     time the card could take (bound);
   3b. dropout kernel: bit-identical to its plain version at the three FT0
      site shapes and a ragged size, rates 0.1 and 0.5; its backward mask is
      the forward's; the keep share is within 5 sigma of 1 - rate; times;
   3d. beam-reorder kernel (X5): bit-identical to its plain version, per-cache
      and many forms, at the exp/beam_reorder_kernel.py harness shape and the FT0
      serving shape; times; the harness's 11-step x 12-cache loop (GB/s);
+  3e. bf16-input attention kernel (X1, X2): against its plain version at X1's
+     (256,196,12,64) in the (B,S,E) layout and X2's (32,730,16,80) head-major
+     (fullseq), projection (direct) and bf16-out (allheads) layouts; times
+     beside the bound, SDPA's and K1's at the same shape;
+  3f. tiled GEMM kernel (X3): bit-identical for s8, within 1e-5 of a float64
+     product (relative to sum |x*w|) for bf16 and float32, at make_matmul's
+     (16384,1280,5120) s8 and bf16, make_mm's (8192,1280,5120) checksum in
+     float32, bf16 and s8, and ragged shapes; times beside the bound and
+     torch._int_mm / torch.mm; the int32 wrap of the s8 checksum;
   4. serving path: NOVICModel serving SigLIP-B/16 (random weights from a seed)
      + the FT0 decoder with beam k=10, unguided and guided over all 42,919
      nouns, 2 batches of 64 seeded 224x224 frames; checks the outputs and that
@@ -30,6 +40,16 @@ Phases, each printing JSON lines; any failure exits nonzero:
      ViT-B/16's (causal, argmax pool) at full width, B=256, bf16 and int8,
      through inference_tokens (seeded ids) and inference_text (FT0 nouns,
      test tokenizer); launch counts, card vs CPU, int8 vs bf16, texts/s;
+  4e. the DFN5B-H-14-378 embedder at full width (32-layer vision tower at
+     378 px, S=730; 24-layer causal text tower), random weights from a seed,
+     bf16 and int8: 2 x 32 seeded uint8 frames preprocessed on the card, 32
+     fused_attention and (int8) 192 int8_matmul launches per vision forward;
+     texts at B=256; card vs CPU on 1 frame and 4 texts; int8 vs bf16; ms per
+     batch, images/s, texts/s, peak memory, K1's and K2's device shares;
+  4f. the harness paths at their own sizes: exp/dfn5b_attention's tower (B=32,
+     32 layers) with the plain chain and X2's three schedules (32 kernel
+     launches a pass), exp/pallas_attn_v2's tower (B=256, 12 layers) plain and
+     with X1 (12 a pass), and the X3 probe loops (8 launches a loop);
   4d. decode modes on the 2 x 64 served embeddings: reorder-mode beam k=10
      (G = 7 X5 launches per batch), unguided and trie-guided, against lazy mode
      (top-1 identical, scores within 1e-4); greedy and vocab-prior gencfgs
@@ -87,6 +107,29 @@ COSINE_MIN = 0.9999     # card (kernel) vs CPU (plain) embeddings, bf16 compute
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak
 INT8_OP_PER_S = 1979e12     # H100 SXM dense int8 tensor-core peak
+FP32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+# Phase 3e: the bf16-input attention kernel's bf16 outputs round one bf16 ulp
+# (2^-8 relative) apart where the float32 values differ in their last bits,
+# so their relative Frobenius bar is wider than KERNEL_REL_FRO
+KERNEL_REL_FRO_BF16 = 4e-4
+# Phase 3f: bf16 and float32 products within this of a float64 product,
+# relative to the sum of |x*w| over the same terms (float32 sums of K terms)
+MATMUL_REL = 1e-5
+DFN5B_SPEC = "openclip:apple/DFN5B-CLIP-ViT-H-14-378"
+DFN5B_BATCH, DFN5B_BATCHES = 32, 2
+# Phase 4e, card vs CPU at DFN5B-H-378's depth: the bf16 residual stream is
+# rounded after every block, so a last-bit difference between the card's sums
+# and the CPU's becomes a bf16 ulp now and then, and 1 - cosine grows with the
+# depth. The 12-layer towers above give 3-5e-5 and hold COSINE_MIN; the
+# 24-layer text tower gave 0.8-1.0e-4 (the first run of this phase), so its
+# bf16 bar is 0.9998; the 32-layer vision tower keeps COSINE_MIN. int8
+# multiplies such differences about five-fold (INT8_TEXT_COSINE_MIN): both
+# int8 towers are held to 0.9995.
+DFN5B_TEXT_COSINE_MIN, DFN5B_INT8_COSINE_MIN = 0.9998, 0.9995
+# Phase 4f: the harness towers with the kernels against their plain chains,
+# cosine per token: the kernels round the normalised P to bf16, the chains
+# round the scores and the softmax to bf16
+HARNESS_COSINE_MIN = 0.999
 # int8 towers (phases 4b, 4c): int8 vs bf16 embeddings on the card. The JAX
 # package gives 0.9998 (vision) and 0.9994 (text) at these widths on the CPU
 INT8_VS_BF16_VISION, INT8_VS_BF16_TEXT = 0.999, 0.998
@@ -198,14 +241,15 @@ def attention_bound_ms(B, S, H, hd, bias: bool) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernel(attention) -> dict:
-    """Phase 3: fused_attention (kernel) against attention_reference (plain) on the card."""
+def phase_kernel(attention) -> tuple[dict, dict]:
+    """Phase 3: fused_attention (kernel) against attention_reference (plain) on
+    the card. Returns the lines of the serving shape and the DFN5B shape."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    result = None
-    for B, S, H, hd, causal in [(BATCH, 196, 12, 64, False), (8, 729, 16, 72, False),
-                                (8, 77, 8, 64, True)]:
+    result = dfn5b = None
+    for B, S, H, hd, causal in [(BATCH, 196, 12, 64, False), (32, 730, 16, 80, False),
+                                (8, 729, 16, 72, False), (8, 77, 8, 64, True)]:
         q, k, v = (torch.randn(B, S, H, hd, device="cuda", generator=gen) for _ in range(3))
         bias = None
         if causal:
@@ -234,7 +278,9 @@ def phase_kernel(attention) -> dict:
             raise SystemExit(f"fused_attention disagrees with its plain version at {line['shape']}")
         if result is None:
             result = line  # the serving shape
-    return result
+        if (B, S, H, hd) == (32, 730, 16, 80):
+            dfn5b = line  # the DFN5B-H-378 vision tower's
+    return result, dfn5b
 
 
 def dropout_bound_ms(n: int, itemsize: int) -> tuple[float, str]:
@@ -520,6 +566,167 @@ def phase_beam_reorder(reorder) -> tuple[dict, dict]:
     return picked["per_cache"], picked["many"]
 
 
+def attention_bf16_bound_ms(B, S, H, hd, out_bytes: int) -> tuple[float, str]:
+    """Least time: bf16 q, k, v read once and o written once over the HBM rate,
+    vs the two S x S x hd products over the bf16 peak."""
+    n = B * S * H * hd
+    t_bytes = (3 * 2 + out_bytes) * n / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * B * H * S * S * hd / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(1e-30))) - 7)
+
+
+def phase_attention_bf16(ab, k1_dfn5b: dict) -> dict:
+    """Phase 3e: the bf16-input attention kernel (X1, X2) against its plain
+    version on the card, in each harness's layout and output dtype. Returns
+    the lines by replaced function."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf = torch.bfloat16
+    # X1: (256, 196, 768) projections read in place as (B, S, H, hd)
+    B, S, H, hd = 256, 196, 12, 64
+    x1 = [torch.randn(B, S, H * hd, device="cuda", generator=gen).to(bf).view(B, S, H, hd)
+          for _ in range(3)]
+    # X2: (32, 730, 16, 80) padded to 736 rows (direct, allheads) and moved to
+    # (B*H, 768, 1, hd) (fullseq), as the harness's preps do
+    B2, S2, H2, hd2 = 32, 730, 16, 80
+    proj = [F.pad(torch.randn(B2, S2, H2, hd2, device="cuda", generator=gen).to(bf),
+                  (0, 0, 0, 0, 0, 736 - S2)) for _ in range(3)]
+    head_major = [F.pad(t, (0, 0, 0, 0, 0, 768 - 736)).transpose(1, 2).reshape(B2 * H2, 768, 1, hd2)
+                  for t in proj]
+    cases = {"fused_attention2": ("exp/pallas_attn_v2.py:44", x1, S, 1.0 / math.sqrt(hd),
+                                  torch.float32),
+             "fullseq": ("exp/dfn5b_attention.py:131", head_major, S2, 1.0, torch.float32),
+             "allheads": ("exp/dfn5b_attention.py:175", proj, S2, 1.0, bf),
+             "direct": ("exp/dfn5b_attention.py:246", proj, S2, 1.0, torch.float32)}
+    lines = {}
+    for name, (replaces, (q, k, v), sv, scale, od) in cases.items():
+        run = lambda: ab.attention_bf16(q, k, v, sv, scale, od)  # noqa: E731
+        out = run()
+        torch.cuda.synchronize()
+        ref = ab.attention_bf16_reference(q, k, v, sv, scale, od)
+        diff = (out.float() - ref.float()).abs()
+        vmax = v[:, :sv].float().abs().amax(dim=1, keepdim=True)  # over keys
+        ulp = bf16_ulp(ref) if od == bf else 0.0
+        rel_fro = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+        rel_bar = KERNEL_REL_FRO_BF16 if od == bf else KERNEL_REL_FRO
+        ok = bool((diff <= KERNEL_ATOL + 2.0 ** -7 * vmax + ulp).all()) and rel_fro <= rel_bar
+        qt, kt, vt = (t[:, :sv].transpose(1, 2) for t in (q, k, v))
+        bound_ms, bound_by = attention_bf16_bound_ms(q.shape[0], sv, q.shape[2], q.shape[3],
+                                                     od.itemsize)
+        line = {"phase": "kernel", "name": "attention_bf16", "replaces": replaces, "case": name,
+                "shape": [q.shape[0], sv, q.shape[2], q.shape[3]], "strides": list(q.stride()),
+                "out_dtype": str(od), "scale": scale, "max_abs_err": diff.max().item(),
+                "rel_fro_err": rel_fro,
+                "tol": f"|d| <= {KERNEL_ATOL} + 2^-7 max|v|{' + 1 bf16 ulp' if od == bf else ''}, "
+                       f"rel_fro <= {rel_bar}", "ok": ok,
+                "ms": cuda_ms(run), "plain_ms": cuda_ms(lambda: ab.attention_bf16_reference(
+                    q, k, v, sv, scale, od), iters=3, warmup=1),
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        if sv == S2:  # K1 at the same shape, float32 in and out (phase 3)
+            line["k1_fused_attention_ms"] = k1_dfn5b["ms"]
+        emit(line)
+        if not ok:
+            raise SystemExit(f"attention_bf16 ({name}) disagrees with its plain version")
+        lines[name] = line
+        del out, ref, diff
+    return lines
+
+
+def matmul_bound_ms(M: int, N: int, K: int, in_bytes: int, out_elems: int,
+                    peak: float) -> tuple[float, str]:
+    """Least time: x and w read once and the output (4-byte elements) written
+    once over the HBM rate, vs 2MNK over the peak rate of the input type."""
+    t_bytes = ((M * K + K * N) * in_bytes + 4 * out_elems) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * N * K / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# (label, input form, M, K, N, bn): exp/pallas_int8_matmul.py make_matmul's
+# shape (full output), exp/pallas_int8_rate_pin.py make_mm's (checksum over
+# bn=512 column blocks), and ragged shapes (edges, other bn)
+TILED_CASES = [("make_matmul", "s8", 16384, 1280, 5120, None),
+               ("make_matmul", "bf16", 16384, 1280, 5120, None),
+               ("make_mm", "f32", 8192, 1280, 5120, 512), ("make_mm", "bf16", 8192, 1280, 5120, 512),
+               ("make_mm", "s8", 8192, 1280, 5120, 512),
+               ("ragged", "s8", 1000, 272, 400, None), ("ragged", "bf16", 1000, 272, 400, 80),
+               ("ragged", "f32", 1000, 272, 400, 40), ("ragged", "s8", 1000, 272, 400, 16)]
+TILED_FORMS = {"s8": (torch.int8, 1, INT8_OP_PER_S), "bf16": (torch.bfloat16, 2, BF16_FLOP_PER_S),
+               "f32": (torch.float32, 4, FP32_FLOP_PER_S)}
+
+
+def phase_tiled_matmul(tm) -> dict:
+    """Phase 3f: the tiled GEMM kernel (X3) against its plain version and a
+    float64 product on the card. Returns the lines by (label, form)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    picked = {}
+    for label, form, M, K, N, bn in TILED_CASES:
+        dt, in_bytes, peak = TILED_FORMS[form]
+        xf = torch.randn(M, K, device="cuda", generator=gen)
+        wf = torch.randn(K, N, device="cuda", generator=gen)
+        # The probes' operands: normal, cast to bf16, or x * 10 truncated to int8
+        x, w = ((xf * 10).to(dt), (wf * 10).to(dt)) if dt == torch.int8 else (xf.to(dt), wf.to(dt))
+        del xf, wf
+        run = lambda: tm.tiled_matmul(x, w, bn)  # noqa: E731
+        out = run()
+        torch.cuda.synchronize()
+        ref = tm.tiled_matmul_reference(x, w, bn)
+        line = {"phase": "kernel", "name": "tiled_matmul", "case": label, "form": form,
+                "mkn": [M, K, N], "bn": bn}
+        if dt == torch.int8:
+            ok = torch.equal(out, ref)
+            line.update(max_abs_err=(out.double() - ref.double()).abs().max().item(),
+                        tol="bit-identical (0)")
+        else:
+            y64 = x.double() @ w.double()
+            a64 = x.double().abs() @ w.double().abs()
+            if bn:
+                y64, a64 = y64.reshape(M, -1, bn).sum(-1), a64.reshape(M, -1, bn).sum(-1)
+            rel = ((out.double() - y64).abs() / a64).max().item()
+            ok = rel <= MATMUL_REL
+            line.update(max_abs_err=(out.double() - y64).abs().max().item(), rel_err=rel,
+                        plain_rel_err=((ref.double() - y64).abs() / a64).max().item(),
+                        tol=f"|d| <= {MATMUL_REL} sum|x*w| vs a float64 product")
+            del y64, a64
+        # One library call on the same inputs: the full product (make_mm's
+        # block sums are one more op on top of it)
+        if dt == torch.int8:
+            library = lambda: torch._int_mm(x, w)  # noqa: E731
+            w_cm = w.t().contiguous().t()  # the same values, column-major as cuBLAS wants them
+            line["int_mm_w_column_major_ms"] = cuda_ms(lambda: torch._int_mm(x, w_cm))
+        elif dt == torch.bfloat16:
+            library = lambda: torch.mm(x, w, out_dtype=torch.float32)  # noqa: E731
+        else:
+            library = lambda: torch.mm(x, w)  # noqa: E731
+        bound_ms, bound_by = matmul_bound_ms(M, N, K, in_bytes, M * (N // bn if bn else N), peak)
+        line.update(ok=ok, ms=cuda_ms(run), plain_ms=cuda_ms(lambda: tm.tiled_matmul_reference(
+            x, w, bn), iters=3, warmup=1), library_ms=cuda_ms(library),
+            library_call="torch._int_mm" if dt == torch.int8 else "torch.mm",
+            bound_ms=bound_ms, bound_by=bound_by)
+        emit(line)
+        if not ok:
+            raise SystemExit(f"tiled_matmul ({label}, {form}) disagrees with its plain version")
+        if label != "ragged":
+            picked[(label, form)] = line
+        del x, w, out, ref
+    # The s8 checksum's int32 sums wrap past 2^31 as the probe's int32 scratch does
+    x = torch.full((2, 32), 127, dtype=torch.int8, device="cuda")
+    w = torch.full((32, 8192), 127, dtype=torch.int8, device="cuda")
+    got, want = tm.tiled_matmul(x, w, bn=8192), tm.tiled_matmul_reference(x, w, bn=8192)
+    torch.cuda.synchronize()
+    emit({"phase": "kernel", "name": "tiled_matmul", "case": "int32_wrap", "sum": 32 * 127 * 127 * 8192,
+          "got": got[0, 0].item(), "ok": torch.equal(got, want)})
+    if not torch.equal(got, want):
+        raise SystemExit("tiled_matmul: the s8 checksum does not wrap as int32")
+    return picked
+
+
 def cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return (a * b).sum(-1) / np.linalg.norm(a, axis=-1) / np.linalg.norm(b, axis=-1)
 
@@ -793,6 +1000,224 @@ def phase_text(nouns: list, name: str, smi: str) -> None:
             raise SystemExit(f"{spec}: int8 text tower too far from the bf16 one")
 
 
+def phase_dfn5b(nouns: list, name: str, smi: str) -> dict:
+    """Phase 4e: the DFN5B-H-14-378 embedder at full width, bf16 and int8.
+    Returns the bf16 line (K1's launches there feed the kernels line)."""
+    from novic_tpu_torch.embedders.registry import lookup
+    from novic_tpu_torch.ops import attention, int8_matmul
+
+    arch = lookup(DFN5B_SPEC)
+    size, layers, tlayers = arch.vision.image_size, arch.vision.layers, arch.text.layers
+    rng = np.random.default_rng(SEED + 5)
+    frames = [rng.integers(0, 256, size=(size, size, 3), dtype=np.uint8)
+              for _ in range(DFN5B_BATCH * DFN5B_BATCHES)]
+    ctx, vocab = arch.text.context_length, arch.text.vocab_size
+    ids = rng.integers(0, vocab - 1, size=(TEXT_BATCH, ctx)).astype(np.int32)
+    ids[np.arange(TEXT_BATCH), rng.integers(1, ctx, size=TEXT_BATCH)] = vocab - 1
+    texts = list(nouns[:4])
+    lines, embeds, failures = {}, {}, []
+    for quant in ("", "int8:pallas"):
+        label = quant or "bf16"
+        archq = dataclasses.replace(arch, vision=dataclasses.replace(arch.vision, quant=quant),
+                                    text=dataclasses.replace(arch.text, quant=quant))
+        t0 = time.perf_counter()
+        emb = torch_embedder(DFN5B_SPEC, archq, nouns, "cuda", DFN5B_BATCH)
+        init_s = time.perf_counter() - t0
+        transform = emb.get_image_transform()
+        torch.cuda.reset_peak_memory_stats()
+        attention.LAUNCHES = int8_matmul.LAUNCHES = 0
+        t0 = time.perf_counter()
+        pixels = [transform(frames[i:i + DFN5B_BATCH]) for i in range(0, len(frames), DFN5B_BATCH)]
+        image_embeds = np.concatenate([emb.inference_image(p) for p in pixels])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        k1, k2 = attention.LAUNCHES, int8_matmul.LAUNCHES
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        vision_ms = cuda_ms(lambda: emb.embed_image_tensor(pixels[0]), iters=3, warmup=1)
+        preprocess_ms = cuda_ms(lambda: transform(frames[:DFN5B_BATCH]), iters=3, warmup=1)
+        prof = device_profile(lambda: emb.embed_image_tensor(pixels[0]),
+                              match=("attention_kernel", "int8_gemm_kernel"))
+        k1_dev = sum(m[1] for m in prof["matched_kernels"] if "attention_kernel" in m[0])
+        k2_dev = sum(m[1] for m in prof["matched_kernels"] if "int8_gemm_kernel" in m[0])
+        attention.LAUNCHES = int8_matmul.LAUNCHES = 0
+        text_embeds = emb.inference_tokens({"input_ids": ids})
+        torch.cuda.synchronize()
+        tk1, tk2 = attention.LAUNCHES, int8_matmul.LAUNCHES
+        tids = torch.from_numpy(ids).cuda()
+        text_ms = cuda_ms(lambda: emb.embed_token_tensor(tids), iters=3, warmup=1)
+        four = emb.inference_text(texts)
+        del emb, pixels
+        torch.cuda.empty_cache()
+        # Card vs CPU (plain versions) on 1 frame and 4 texts, the same seeded towers
+        t0 = time.perf_counter()
+        cpu = torch_embedder(DFN5B_SPEC, archq, nouns, "cpu", 4)
+        e_img = cpu.inference_image(cpu.get_image_transform()(frames[:1]))
+        e_txt = cpu.inference_text(texts)
+        cpu_s = time.perf_counter() - t0
+        del cpu
+        cos_img, cos_txt = cosines(e_img, image_embeds[:1]), cosines(e_txt, four)
+        image_bar = DFN5B_INT8_COSINE_MIN if quant else COSINE_MIN
+        text_bar = DFN5B_INT8_COSINE_MIN if quant else DFN5B_TEXT_COSINE_MIN
+        finite = (np.isfinite(image_embeds).all() and np.isfinite(text_embeds).all()
+                  and image_embeds.shape == (len(frames), arch.vision.embed_dim)
+                  and text_embeds.shape == (TEXT_BATCH, arch.text.embed_dim))
+        want = (layers, 6 * layers if quant else 0)
+        want_text = (tlayers, 6 * tlayers if quant else 0)
+        forwards = len(frames) // DFN5B_BATCH
+        line = {"phase": "dfn5b", "spec": DFN5B_SPEC, "device": name, "nvidia_smi": smi,
+                "quant": quant or "none", "images": len(frames), "batch": DFN5B_BATCH,
+                "tokens": arch.vision.num_patches + 1, "layers": [layers, tlayers],
+                "preprocess_on_card": True, "init_s": init_s, "first_call_s": first_s,
+                "vision_launches": [k1, k2], "expected_vision_launches": [want[0] * forwards,
+                                                                          want[1] * forwards],
+                "text_launches": [tk1, tk2], "expected_text_launches": list(want_text),
+                "vision_ms_per_batch": vision_ms, "images_per_s": DFN5B_BATCH / (vision_ms / 1e3),
+                "preprocess_ms_per_batch": preprocess_ms,
+                "text_batch": TEXT_BATCH, "text_ms_per_batch": text_ms,
+                "texts_per_s": TEXT_BATCH / (text_ms / 1e3), "peak_memory_gb": peak_gb,
+                "profile_device_busy_ms": prof["device_busy_ms"],
+                "fused_attention_device_ms": k1_dev,
+                "fused_attention_share": k1_dev / prof["device_busy_ms"],
+                "int8_matmul_device_ms": k2_dev, "int8_matmul_share": k2_dev / prof["device_busy_ms"],
+                "top_device_kernels_ms": prof["top_device_kernels_ms"],
+                "card_vs_cpu_cosine_image": cos_img.tolist(),
+                "card_vs_cpu_cosine_text": cos_txt.tolist(),
+                "card_vs_cpu_bars": [image_bar, text_bar], "cpu_side_s": cpu_s,
+                "cpu_side_layers": [layers, tlayers], "finite": bool(finite)}
+        emit(line)
+        if (k1, k2) != (want[0] * forwards, want[1] * forwards) or (tk1, tk2) != want_text:
+            raise SystemExit(f"DFN5B {label}: launches vision {(k1, k2)}, text {(tk1, tk2)}; expected "
+                             f"{want} per vision forward and {want_text} per text forward")
+        if not finite:
+            raise SystemExit(f"DFN5B {label}: bad embeddings")
+        # Both modes report before a disagreement fails the phase
+        if cos_img.min() < image_bar or cos_txt.min() < text_bar:
+            failures.append(f"DFN5B {label}: card and CPU disagree")
+        lines[label] = line
+        embeds[label] = (image_embeds, text_embeds)
+    cos_v = cosines(embeds["bf16"][0], embeds["int8:pallas"][0])
+    cos_t = cosines(embeds["bf16"][1], embeds["int8:pallas"][1])
+    emit({"phase": "dfn5b_int8_vs_bf16", "image_cosine_min": float(cos_v.min()),
+          "image_cosine_mean": float(cos_v.mean()), "text_cosine_min": float(cos_t.min()),
+          "text_cosine_mean": float(cos_t.mean()), "bars": [INT8_VS_BF16_VISION, INT8_VS_BF16_TEXT]})
+    if cos_v.min() < INT8_VS_BF16_VISION or cos_t.min() < INT8_VS_BF16_TEXT:
+        failures.append("DFN5B: the int8 towers are too far from the bf16 ones")
+    if failures:
+        raise SystemExit("; ".join(failures))
+    return lines["bf16"]
+
+
+def phase_harnesses(name: str, smi: str) -> dict:
+    """Phase 4f: the harness paths of X2, X1 and X3 at their own sizes.
+    Returns the kernel launches of each path's driven run, by variant or loop."""
+    from novic_tpu_torch.exp import attn_v2, int8_matmul_probe as probe
+    from novic_tpu_torch.exp import dfn5b_attention as x2h
+    from novic_tpu_torch.ops import attention_bf16 as ab, tiled_matmul as tm
+
+    def tokens_cosine(a, b):
+        a, b = a.float().reshape(-1, a.shape[-1]), b.float().reshape(-1, b.shape[-1])
+        return float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+
+    launches = {}
+    # X2: exp/dfn5b_attention.py's tower, B=32, 32 layers, each attention variant
+    params = x2h.make_params(seed=SEED, device="cuda")
+    x0 = torch.randn((x2h.B, x2h.S, x2h.E), generator=torch.Generator().manual_seed(SEED + 6)).cuda()
+    line = {"phase": "x2_harness", "device": name, "nvidia_smi": smi, "batch": x2h.B,
+            "layers": len(params), "shape": [x2h.S, x2h.E, x2h.H, x2h.hd]}
+    outs = {}
+    with torch.inference_mode():
+        for variant, fn in x2h.VARIANTS.items():
+            ab.LAUNCHES = 0
+            outs[variant] = x2h.tower(params, x0, fn)
+            torch.cuda.synchronize()
+            n = ab.LAUNCHES
+            ms = cuda_ms(lambda: x2h.tower(params, x0, fn), iters=3, warmup=1)
+            line[variant] = {"launches": n, "ms_per_batch": ms, "images_per_s": x2h.B / (ms / 1e3),
+                             "finite": bool(torch.isfinite(outs[variant]).all())}
+            launches[variant] = n
+    for variant in ("fullseq", "allheads", "direct"):
+        line[variant]["token_cosine_min_vs_plain"] = tokens_cosine(outs[variant], outs["xla"])
+    line["fullseq_equals_direct"] = bool(torch.equal(outs["fullseq"], outs["direct"]))
+    emit(line)
+    del params, x0, outs
+    torch.cuda.empty_cache()
+    bad = [v for v in x2h.VARIANTS if line[v]["launches"] != (0 if v == "xla" else x2h.LAYERS)
+           or not line[v]["finite"]]
+    bad += [v for v in ("fullseq", "allheads", "direct")
+            if line[v]["token_cosine_min_vs_plain"] < HARNESS_COSINE_MIN]
+    if bad or not line["fullseq_equals_direct"]:
+        raise SystemExit(f"X2 harness: {bad or 'fullseq != direct'} (launches, finiteness or "
+                         f"cosine >= {HARNESS_COSINE_MIN} to the plain chain)")
+
+    # X1: exp/pallas_attn_v2.py's tower, B=256, 12 layers, plain and with the kernel
+    params = attn_v2.make_params(seed=SEED, device="cuda")
+    x0 = torch.randn((attn_v2.B, attn_v2.S, attn_v2.E),
+                     generator=torch.Generator().manual_seed(SEED + 7)).cuda()
+    line = {"phase": "x1_harness", "device": name, "nvidia_smi": smi, "batch": attn_v2.B,
+            "layers": len(params)}
+    outs = {}
+    with torch.inference_mode():
+        for variant, use in (("plain", False), ("x1", True)):
+            ab.LAUNCHES = 0
+            outs[variant] = attn_v2.tower(x0, params, use)
+            torch.cuda.synchronize()
+            n = ab.LAUNCHES
+            ms = cuda_ms(lambda: attn_v2.tower(x0, params, use), iters=3, warmup=1)
+            line[variant] = {"launches": n, "ms_per_batch": ms,
+                             "images_per_s": attn_v2.B / (ms / 1e3),
+                             "finite": bool(torch.isfinite(outs[variant]).all())}
+    line["x1"]["token_cosine_min_vs_plain"] = tokens_cosine(outs["x1"], outs["plain"])
+    launches["fused_attention2"] = line["x1"]["launches"]
+    emit(line)
+    del params, x0, outs
+    torch.cuda.empty_cache()
+    if (line["plain"]["launches"], line["x1"]["launches"]) != (0, attn_v2.L) or not (
+            line["plain"]["finite"] and line["x1"]["finite"]
+            and line["x1"]["token_cosine_min_vs_plain"] >= HARNESS_COSINE_MIN):
+        raise SystemExit("X1 harness: launches, finiteness or cosine to the plain chain")
+
+    # X3: the probes' loops (INNER calls, each output summed), make_matmul at
+    # (16384, 1280, 5120) and make_mm at (8192, 1280, 5120) over the sweep's bn
+    def loop(fn, x, w):
+        acc = torch.zeros((), device="cuda")
+        for _ in range(probe.INNER):
+            acc = acc + fn(x, w).sum().float()
+        return acc
+
+    line = {"phase": "x3_probes", "device": name, "nvidia_smi": smi, "inner": probe.INNER,
+            "loops": {}}
+    big, small = probe.inputs(probe.M, device="cuda"), probe.inputs(probe.MM_M, device="cuda")
+    runs = [(f"make_matmul {form}", probe.make_matmul(*probe.MATMUL_TILE, dt, acc, acc),
+             big[form])
+            for form, dt, acc in (("bf16", torch.bfloat16, torch.float32),
+                                  ("int8", torch.int8, torch.int32))]
+    for bm, bn, bk in {t[1]: t for t in probe.MM_TILES}.values():  # one tile per bn
+        runs += [(f"make_mm {form} bn{bn}", probe.make_mm(bm, bn, bk, acc), small[form])
+                 for form, acc in (("f32", torch.float32), ("bf16", torch.float32),
+                                   ("int8", torch.int32))]
+    for key, fn, (x, w) in runs:
+        tm.LAUNCHES = 0
+        loop(fn, x, w).item()
+        n = tm.LAUNCHES
+        ms = cuda_ms(lambda: loop(fn, x, w), iters=3, warmup=1) / probe.INNER
+        line["loops"][key] = {"launches": n, "ms_per_call": ms,
+                              "tflops": 2 * x.shape[0] * x.shape[1] * w.shape[1] / (ms / 1e3) / 1e12}
+    emit(line)
+    del big, small, runs
+    torch.cuda.empty_cache()
+    if any(v["launches"] != probe.INNER for v in line["loops"].values()):
+        raise SystemExit(f"X3 probes: launches {[v['launches'] for v in line['loops'].values()]}, "
+                         f"expected {probe.INNER} per loop")
+    launches.update({key: v["launches"] for key, v in line["loops"].items()})
+    return launches
+
+
+def x3_loop_key(label: str, form: str) -> str:
+    """The phase-4f probe loop of a phase-3f case (make_mm's at bn=512)."""
+    form = "int8" if form == "s8" else form
+    return f"make_matmul {form}" if label == "make_matmul" else f"make_mm {form} bn512"
+
+
 def write_train_cache(path: str, nouns: list) -> None:
     """A prototype-structured cache of TRAIN_ROWS seeded rows (as
     exp/train_bench_ckpt.py builds the FT0 asset's): per-noun unit prototypes
@@ -987,7 +1412,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from novic_tpu_torch.infer import NOVICModel
-    from novic_tpu_torch.ops import attention, beam_reorder, build, dropout, int8_matmul
+    from novic_tpu_torch.ops import (attention, attention_bf16, beam_reorder, build, dropout,
+                                     int8_matmul, tiled_matmul)
     from novic_tpu_torch.text.simple import make_test_tokenizer
     from novic_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -1004,7 +1430,8 @@ def main() -> int:
 
     # 2. build every kernel of every path, one nvcc per source, started together
     t0 = time.perf_counter()
-    sources = [attention.SOURCE, dropout.SOURCE, int8_matmul.SOURCE, beam_reorder.SOURCE]
+    sources = [attention.SOURCE, dropout.SOURCE, int8_matmul.SOURCE, beam_reorder.SOURCE,
+               attention_bf16.SOURCE, tiled_matmul.SOURCE]
     libs = build.build_all(sources, force=True)
     emit({"phase": "build", "kernels": [os.path.relpath(str(s), REPO) for s in sources],
           "libraries": [os.path.relpath(str(lib), REPO) for lib in libs],
@@ -1013,10 +1440,12 @@ def main() -> int:
                              if "registers" in line or "spill" in line] for s in sources}})
 
     # 3. kernels vs plain
-    k1 = phase_kernel(attention)
+    k1, k1_dfn5b = phase_kernel(attention)
     k3 = phase_dropout(dropout)
     k2, x4 = phase_int8(int8_matmul)
     x5, x5_many = phase_beam_reorder(beam_reorder)
+    x12 = phase_attention_bf16(attention_bf16, k1_dfn5b)
+    x3 = phase_tiled_matmul(tiled_matmul)
 
     # 4. main path
     ck = load_checkpoint(FT0)
@@ -1072,6 +1501,10 @@ def main() -> int:
         # 4b. the int8 serving path, 4c. the text towers
         int8_line = phase_int8_serving(model, frames, nouns, guided_cfg, name, smi)
         phase_text(nouns, name, smi)
+
+        # 4e. the DFN5B-H-14-378 embedder, 4f. the X1-X3 harness paths
+        dfn5b_line = phase_dfn5b(nouns, name, smi)
+        harness_launches = phase_harnesses(name, smi)
 
         # 4d. reorder-mode beam (X5), greedy and vocab priors on the served embeddings
         guide = device_guide(model.decoder, nouns)
@@ -1180,7 +1613,27 @@ def main() -> int:
         "launches": decode_line["unguided"]["x5_launches"] + decode_line["guided"]["x5_launches"],
         "max_abs_err": x5_many["max_abs_err"], "ms": x5_many["ms"],
         "plain_ms": x5_many["plain_ms"], "bound_ms": x5_many["bound_ms"],
-        "bound_by": x5_many["bound_by"], "library_ms": x5_many["library_ms"]}]})
+        "bound_by": x5_many["bound_by"], "library_ms": x5_many["library_ms"]}, {
+        "name": "fused_attention_dfn5b", "route": "cuda",
+        "source": "novic_tpu_torch/ops/csrc/attention.cu",
+        "replaces": "novic_tpu/ops/attention.py:71",
+        "launches": dfn5b_line["vision_launches"][0], "max_abs_err": k1_dfn5b["max_abs_err"],
+        "ms": k1_dfn5b["ms"], "plain_ms": k1_dfn5b["plain_ms"], "bound_ms": k1_dfn5b["bound_ms"],
+        "bound_by": k1_dfn5b["bound_by"], "library_ms": k1_dfn5b["library_ms"]}] + [{
+        "name": f"attention_bf16_{case}", "route": "cuda",
+        "source": "novic_tpu_torch/ops/csrc/attention_bf16.cu", "replaces": line["replaces"],
+        "launches": harness_launches[case], "max_abs_err": line["max_abs_err"],
+        "ms": line["ms"], "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+        "bound_by": line["bound_by"], "library_ms": line["library_ms"]}
+        for case, line in x12.items()] + [{
+        "name": f"tiled_matmul_{label}_{form}", "route": "cuda",
+        "source": "novic_tpu_torch/ops/csrc/tiled_matmul.cu",
+        "replaces": ("exp/pallas_int8_matmul.py:46" if label == "make_matmul"
+                     else "exp/pallas_int8_rate_pin.py:46"),
+        "launches": harness_launches[x3_loop_key(label, form)], "max_abs_err": line["max_abs_err"],
+        "ms": line["ms"],
+        "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
+        "library_ms": line["library_ms"]} for (label, form), line in x3.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -5,6 +5,9 @@ A flax param tree (after `jax.tree.map(np.asarray, ...)`) or the flat
 `params.*` keys of a novic_tpu `.npz` checkpoint hold the same names as the
 port's state dicts once flattened with dots, so the param bridge is a flatten,
 a float32 cast (the FT0 asset stores float16) and a strict `load_state_dict`.
+The DFN5B attention harness's params (a list of per-layer dicts, the same keys
+in exp/dfn5b_attention.py and novic_tpu_torch/exp/dfn5b_attention.py) cross
+as float32 arrays and tensors.
 
 The optimizer bridge converts torch AdamW state (per parameter: step,
 exp_avg, exp_avg_sq) to and from the leaf list of the JAX package's
@@ -53,6 +56,19 @@ def vision_tower_from_numpy(cfg: VisionTowerConfig, tree: dict) -> VisionTransfo
 def text_tower_from_numpy(cfg: TextTowerConfig, tree: dict) -> TextTransformer:
     """TextTransformer (on the CPU) holding the given param tree."""
     return load_tree(TextTransformer(cfg), tree)
+
+
+def harness_params_from_numpy(layers: list[dict], device="cpu") -> list[dict[str, torch.Tensor]]:
+    """exp/dfn5b_attention.py's params (one dict of arrays per layer, the same
+    keys in novic_tpu_torch.exp.dfn5b_attention) as float32 tensors on `device`."""
+    return [{k: torch.from_numpy(np.asarray(v, dtype=np.float32).copy()).to(device)
+             for k, v in layer.items()} for layer in layers]
+
+
+def harness_params_to_numpy(layers: list[dict]) -> list[dict[str, np.ndarray]]:
+    """The port harness's params as float32 numpy dicts (the JAX harness's form)."""
+    return [{k: v.detach().cpu().numpy().astype(np.float32) for k, v in layer.items()}
+            for layer in layers]
 
 
 def decoder_from_numpy(cfg: DecoderModelConfig, tree: dict) -> PrefixedIterDecoder:

@@ -357,7 +357,7 @@ class TorchEmbedder(Embedder):
 
     def get_image_transform(self) -> Callable:
         """images → (B,S,S,3) float32 tensor on the embedder's device. uint8
-        frames already at the squash size are copied as uint8 and normalised
+        frames already at the final size are copied as uint8 and normalised
         on the device (bit-identical to the host path); others go through PIL."""
         cfg = self.arch.preprocess
 

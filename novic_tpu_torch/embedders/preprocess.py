@@ -2,7 +2,8 @@
 
 `preprocess_pil_host` is the counterpart of novic_tpu.embedders.preprocess's
 PIL path. `preprocess_frames` does the same for uint8 frames already at the
-squash size (where PIL's resize is the identity) on any torch device, with
+final size (where PIL's resize and crop are the identity, in squash and in
+shortest mode) on any torch device, with
 the same float32 operations in the same order, so the result is bit-identical.
 """
 
@@ -33,11 +34,13 @@ class PreprocessConfig:
 
 
 def _is_final_size_rgb(img, cfg: PreprocessConfig) -> bool:
-    """True for a uint8 (S, S, 3) array that squash mode would hand to PIL's
-    resize unchanged (PIL returns a copy when the size already matches)."""
+    """True for a uint8 (S, S, 3) array that PIL's path leaves as it is: squash
+    mode resizes it to its own size (PIL returns a copy when the size already
+    matches), and so does shortest mode (both sides are S), whose center crop
+    is then the whole image."""
     return (isinstance(img, np.ndarray) and img.dtype == np.uint8
-            and img.shape == (cfg.size, cfg.size, 3) and cfg.resize_mode == "squash"
-            and cfg.resize_size in (0, cfg.size))
+            and img.shape == (cfg.size, cfg.size, 3)
+            and (cfg.resize_mode != "squash" or cfg.resize_size in (0, cfg.size)))
 
 
 def preprocess_pil_host(images: Sequence, cfg: PreprocessConfig) -> np.ndarray:
@@ -87,7 +90,7 @@ def is_final_size_batch(images: Sequence, cfg: PreprocessConfig) -> bool:
 
 
 def preprocess_frames(frames: torch.Tensor, cfg: PreprocessConfig) -> torch.Tensor:
-    """uint8 (B, S, S, 3) frames at the squash size → normalised float32 on the
+    """uint8 (B, S, S, 3) frames at the final size → normalised float32 on the
     frames' device: (x / 255 - mean) / std, as preprocess_pil_host computes it."""
     if frames.dtype != torch.uint8 or tuple(frames.shape[1:]) != (cfg.size, cfg.size, 3):
         raise ValueError(f"Expected uint8 (B, {cfg.size}, {cfg.size}, 3) frames, "

@@ -1,6 +1,7 @@
 """Compile the port's CUDA sources with nvcc into shared libraries.
 
-Each source in ops/csrc/ has a plain C interface and is built for sm_90a into
+Each source in ops/csrc/ has a plain C interface (device helpers shared between
+sources live in csrc/*.cuh headers) and is built for sm_90a into
 build/novic_tpu_torch/ at the root of the checkout at first use, then loaded
 through ctypes by its wrapper module. `build_all` starts one nvcc per source at
 once, so a cold start pays the slowest compile rather than the sum.
@@ -33,8 +34,10 @@ def ptxas_path(source: Path) -> Path:
 
 
 def _fresh(source: Path) -> bool:
+    """The library is newer than its source and every shared header in csrc/."""
     out = library_path(source)
-    return out.is_file() and out.stat().st_mtime >= source.stat().st_mtime
+    newest = max(p.stat().st_mtime for p in [source, *CSRC.glob("*.cuh")])
+    return out.is_file() and out.stat().st_mtime >= newest
 
 
 def _start(source: Path) -> tuple[subprocess.Popen, Path]:

@@ -5,7 +5,9 @@ in a subprocess whose import hook raises on jax, flax, optax, novic_tpu and
 novic_tpu.* (not novic_tpu_torch), then imports every module of
 novic_tpu_torch (the serving modules, the int8 and text-tower modules:
 ops.int8_matmul, embedders.vit/base, bridge; and the training path's:
-ops.dropout, data.*, train.*, cli.*, utils.config/metrics) and chip_smoke.
+ops.dropout, data.*, train.*, cli.*, utils.config/metrics; the DFN5B slice's
+ops.attention_bf16, ops.tiled_matmul and the exp.* harnesses, which import
+nothing of the root exp/ either) and chip_smoke.
 """
 
 import os
@@ -22,7 +24,7 @@ REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 _GUARD = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "novic_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "novic_tpu", "exp")
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -55,6 +57,10 @@ TRAINING_MODULES = [
 INT8_AND_TEXT_MODULES = ["novic_tpu_torch.ops.int8_matmul", "novic_tpu_torch.embedders.vit",
                          "novic_tpu_torch.embedders.base", "novic_tpu_torch.bridge"]
 
+DFN5B_SLICE_MODULES = ["novic_tpu_torch.ops.attention_bf16", "novic_tpu_torch.ops.tiled_matmul",
+                       "novic_tpu_torch.exp", "novic_tpu_torch.exp.dfn5b_attention",
+                       "novic_tpu_torch.exp.attn_v2", "novic_tpu_torch.exp.int8_matmul_probe"]
+
 
 def test_port_imports_without_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -62,8 +68,9 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     lines = res.stdout.strip().splitlines()
-    assert int(lines[-1]) >= 47
-    assert set(TRAINING_MODULES + INT8_AND_TEXT_MODULES) <= set(lines[-2].split())
+    assert int(lines[-1]) >= 53
+    assert set(TRAINING_MODULES + INT8_AND_TEXT_MODULES + DFN5B_SLICE_MODULES) <= \
+        set(lines[-2].split())
 
 
 def test_train_cli_runs_without_jax():
@@ -79,14 +86,16 @@ def test_train_cli_runs_without_jax():
 
 
 def test_guard_blocks_the_jax_package():
-    """The hook itself rejects novic_tpu but not novic_tpu_torch."""
+    """The hook itself rejects novic_tpu and the root exp/ harnesses, but not
+    novic_tpu_torch or its exp subpackage."""
     code = _GUARD.split("import novic_tpu_torch")[0] + (
         "import novic_tpu_torch.device\n"
-        "try:\n    import novic_tpu.text\nexcept ImportError:\n    print('blocked')\n")
+        "try:\n    import novic_tpu.text\nexcept ImportError:\n    print('blocked')\n"
+        "try:\n    import exp.dfn5b_attention\nexcept ImportError:\n    print('blocked')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=60)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "blocked"
+    assert res.stdout.split() == ["blocked", "blocked"]
 
 
 def test_resolve_cuda_raises_without_gpu():

@@ -7,11 +7,19 @@
   (params and optimizer state) loads in novic_tpu's load_checkpoint +
   restore_opt_state, a JAX checkpoint resumes in the port, and resume
   continues the chunk counter.
+* The JAX writer's native cache-I/O library is put in place whole before any
+  test runs (see `_prebuild_native_cacheio`).
 """
 
+import ctypes
 import glob
+import hashlib
 import json
 import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +49,40 @@ from novic_tpu_torch.utils.misc import flatten_dict
 
 torch.set_num_threads(2)
 NOUNS = ["dog", "cat", "fire truck", "sea lion", "tree", "car", "hot dog", "apple"]
+
+
+def _prebuild_native_cacheio():
+    """Put novic_tpu's native cache-I/O library in place whole; return its path
+    (None without a C++ compiler, when the JAX writer uses Python loops).
+
+    novic_tpu/data/native.py compiles native/cacheio.cpp straight to its final
+    name, native/_cacheio-<sha256[:12]>.so, with no lock, and loads that name
+    whenever it exists: under pytest-xdist one worker can load another's
+    half-written file ("file too short"). This module writes caches through
+    that library, and every worker imports it while collecting, before any
+    test runs; here the library is compiled with the same command into a
+    temporary name and renamed into place, so `native._build` only ever finds
+    a complete file."""
+    src = Path(__file__).resolve().parents[1] / "native" / "cacheio.cpp"
+    out = src.parent / f"_cacheio-{hashlib.sha256(src.read_bytes()).hexdigest()[:12]}.so"
+    if out.is_file():
+        return out
+    cc = next((c for c in ("g++", "c++", "clang++") if shutil.which(c)), None)
+    if cc is None:
+        return None
+    fd, tmp = tempfile.mkstemp(prefix="_cacheio-tmp-", suffix=".so", dir=src.parent)
+    os.close(fd)
+    try:
+        subprocess.run([cc, "-O2", "-shared", "-fPIC", "-o", tmp, str(src)], check=True,
+                       capture_output=True, timeout=120)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+NATIVE_CACHEIO = _prebuild_native_cacheio()
 F = 32
 N = 320
 
@@ -213,3 +255,15 @@ def test_not_ported_surfaces_raise(workdir):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["action=train"] + _args(workdir, "x"))
+
+
+def test_native_cacheio_is_prebuilt_whole():
+    """novic_tpu's `native._build` finds the library built above, and it loads."""
+    from novic_tpu.data import native
+
+    path = native._build()
+    if NATIVE_CACHEIO is None:
+        assert path is None
+    else:
+        assert Path(path) == NATIVE_CACHEIO
+        ctypes.CDLL(str(NATIVE_CACHEIO))
