@@ -5,8 +5,8 @@
 Phases, each printing JSON lines; any failure exits nonzero:
   1. device: the card's name and its nvidia-smi name and power limit;
   2. build: compile every kernel (attention.cu, dropout.cu, int8_matmul.cu,
-     beam_reorder.cu, attention_bf16.cu, tiled_matmul.cu) from the checkout's
-     sources, one nvcc each, started together;
+     beam_reorder.cu, attention_bf16.cu, tiled_matmul.cu, flash_attention.cu)
+     from the checkout's sources, one nvcc each, started together;
   3. kernel: the attention kernel against its plain PyTorch version on the
      card, at the serving shape, at the DFN5B-H-378 tower's (32,730,16,80) and
      at two more (stated tolerance), with its time, the plain version's time,
@@ -27,6 +27,14 @@ Phases, each printing JSON lines; any failure exits nonzero:
      (16384,1280,5120) s8 and bf16, make_mm's (8192,1280,5120) checksum in
      float32, bf16 and s8, and ragged shapes; times beside the bound and
      torch._int_mm / torch.mm; the int32 wrap of the s8 checksum;
+  3g. one-pass flash-attention kernel (X6): against its plain version at the
+     kernel's blocking (64 keys) and at the harnesses' (256, 768: JAX's
+     multi-step and single-step bodies), at the DFN5B harness's (32,16,768,80)
+     and attn_variants' (256,12,256,64), both read in place from the padded
+     (B,Sp,H,hd) projections with segment ids, and at edge cases (S=1, S=100
+     with hd 8/64/80/128, Sq != Skv, two packed segments, a query with every
+     key masked, no segment ids); times beside the bound, SDPA with the
+     segment mask and, at the DFN5B shape, attention_bf16's;
   4. serving path: NOVICModel serving SigLIP-B/16 (random weights from a seed)
      + the FT0 decoder with beam k=10, unguided and guided over all 42,919
      nouns, 2 batches of 64 seeded 224x224 frames; checks the outputs and that
@@ -47,9 +55,15 @@ Phases, each printing JSON lines; any failure exits nonzero:
      texts at B=256; card vs CPU on 1 frame and 4 texts; int8 vs bf16; ms per
      batch, images/s, texts/s, peak memory, K1's and K2's device shares;
   4f. the harness paths at their own sizes: exp/dfn5b_attention's tower (B=32,
-     32 layers) with the plain chain and X2's three schedules (32 kernel
-     launches a pass), exp/pallas_attn_v2's tower (B=256, 12 layers) plain and
-     with X1 (12 a pass), and the X3 probe loops (8 launches a loop);
+     32 layers) with the plain chain, X2's three schedules and the flash
+     variant (X6; 32 kernel launches a pass each), and its bf16-residual runs
+     (the plain chain and flash768), exp/pallas_attn_v2's tower (B=256, 12
+     layers) plain and with X1 (12 a pass), and the X3 probe loops (8
+     launches a loop);
+  4g. exp/attn_variants' ViT-B/16 tower (B=256, 12 layers) with each attention
+     variant and tower_bhsd: ms per pass, X6 launches (12 a pass with
+     attn_flash), cosine to attn_xla_f32's tower, and the file's flash-vs-xla
+     check at B=4;
   4d. decode modes on the 2 x 64 served embeddings: reorder-mode beam k=10
      (G = 7 X5 launches per batch), unguided and trie-guided, against lazy mode
      (top-1 identical, scores within 1e-4); greedy and vocab-prior gencfgs
@@ -112,6 +126,19 @@ FP32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 # (2^-8 relative) apart where the float32 values differ in their last bits,
 # so their relative Frobenius bar is wider than KERNEL_REL_FRO
 KERNEL_REL_FRO_BF16 = 4e-4
+# Phase 3g: X6 against its plain version at the harnesses' blockings (256,
+# 768). Every p is rounded to bf16 at another point (unnormalised per 64-key
+# block in the kernel; per 256-key block, or normalised in the single-step
+# body), so every output moves, not only where a p sits on a rounding
+# boundary. A rounding's relative error is uniform in +-2^-8, rms 2^-8/sqrt(3)
+# = 2.3e-3 per p; two independent roundings differ by sqrt(2) times that, and
+# the output norm is smaller than that of the terms it averages. The first
+# run measured 1.3e-3 (256) and 3.0e-3 (768) at the DFN5B shape and 3.0e-3
+# (256) at attn_variants': the bar is 2 x sqrt(2) x 2^-8/sqrt(3) = 6.4e-3. The
+# elementwise bar is unchanged: each p is within 2^-8 relative of exact
+# whichever max it is taken against, so each output stays within
+# 2^-7 * max|v| of the other's.
+KERNEL_REL_FRO_BLOCKING = 2 * math.sqrt(2) * 2.0 ** -8 / math.sqrt(3)
 # Phase 3f: bf16 and float32 products within this of a float64 product,
 # relative to the sum of |x*w| over the same terms (float32 sums of K terms)
 MATMUL_REL = 1e-5
@@ -727,6 +754,125 @@ def phase_tiled_matmul(tm) -> dict:
     return picked
 
 
+def flash_bound_ms(B, H, sq, skv, hd, seg: bool) -> tuple[float, str]:
+    """Least time: bf16 q, k, v read once, o written once (and the int32
+    segment ids read once) over the HBM rate, vs the two Sq x Skv x hd
+    products over the bf16 peak. Every query row is computed, padded ones
+    included."""
+    nbytes = 2 * B * H * hd * (2 * sq + 2 * skv) + (4 * B * (sq + skv) if seg else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * B * H * sq * skv * hd / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# X6's cases (label, B, H, Sq, Skv, hd, segments, blockings held): the two
+# harness shapes read in place from the padded (B, Sp, H, hd) projections with
+# the harnesses' segment ids (S real tokens), then edge cases
+FLASH_CASES = [("dfn5b", 32, 16, 768, 768, 80, 730, (None, 256, 768)),
+               ("attn_variants", 256, 12, 256, 256, 64, 196, (None, 256)),
+               ("s1", 2, 3, 1, 1, 64, None, (None,)),
+               ("hd8", 2, 3, 100, 100, 8, 90, (None,)),
+               ("hd64", 2, 3, 100, 100, 64, 90, (None,)),
+               ("hd80", 2, 3, 100, 100, 80, 90, (None,)),
+               ("hd128", 2, 3, 100, 100, 128, 90, (None,)),
+               ("sq_ne_skv", 2, 3, 70, 200, 80, "sq_ne_skv", (None,)),
+               ("packed", 2, 3, 300, 300, 64, "packed", (None,)),
+               ("masked_row", 2, 3, 130, 130, 80, "masked_row", (None,)),
+               ("no_segment_ids", 2, 3, 150, 150, 64, None, (None,))]
+FLASH_REPLACES = {"dfn5b": "exp/dfn5b_attention.py:91 -> jax/experimental/pallas/ops/tpu/"
+                           "flash_attention.py:758",
+                  "attn_variants": "exp/attn_variants.py:68 -> jax/experimental/pallas/ops/tpu/"
+                                   "flash_attention.py:758"}
+
+
+def _flash_segments(kind, B, sq, skv):
+    """Segment ids (q, kv) int32 on the card for a 3g case, or None."""
+    if kind is None:
+        return None
+    ar_q, ar_kv = torch.arange(sq, device="cuda"), torch.arange(skv, device="cuda")
+    if isinstance(kind, int):  # the harnesses': 1 over the real tokens, 0 over the padding
+        q, kv = (ar_q < kind).int(), (ar_kv < kind).int()
+    elif kind == "sq_ne_skv":
+        q, kv = (ar_q < sq - 10).int(), (ar_kv < skv - 30).int()
+    elif kind == "packed":  # two segments in one row
+        q, kv = (ar_q >= sq // 3).int() + 1, (ar_kv >= skv // 3).int() + 1
+    else:  # masked_row: query 0 is in a segment no key has
+        q, kv = torch.ones(sq, dtype=torch.int32, device="cuda"), torch.ones(
+            skv, dtype=torch.int32, device="cuda")
+        q[0] = 7
+    return q[None].repeat(B, 1).contiguous(), kv[None].repeat(B, 1).contiguous()
+
+
+def phase_flash_attention(fa, ab) -> dict:
+    """Phase 3g: X6 against its plain version on the card at the kernel's
+    blocking and at the harnesses'. Returns the harness shapes' lines."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf = torch.bfloat16
+    lines = {}
+    for label, B, H, sq, skv, hd, seg_kind, blockings in FLASH_CASES:
+        def proj(n):  # (B, n, H, hd) bf16, zero past the real tokens, read as (B, H, n, hd)
+            x = torch.randn(B, n, H, hd, device="cuda", generator=gen).to(bf)
+            if isinstance(seg_kind, int):
+                x[:, seg_kind:] = 0
+            return x.transpose(1, 2)
+
+        q, k, v = proj(sq), proj(skv), proj(skv)
+        segs = _flash_segments(seg_kind, B, sq, skv)
+        scale = 1.0 / math.sqrt(hd)
+        run = lambda: fa.flash_attention(q, k, v, segment_ids=segs, sm_scale=scale)  # noqa: E731
+        out = run().float()
+        torch.cuda.synchronize()
+        vmax = v.float().abs().amax(dim=2, keepdim=True)  # over keys
+        line = {"phase": "kernel", "name": "flash_attention", "case": label,
+                "shape": [B, H, sq, skv, hd], "q_strides": list(q.stride()),
+                "segments": seg_kind if seg_kind is None or isinstance(seg_kind, str)
+                else f"1 over {seg_kind} tokens, 0 over the padding", "blockings": {}}
+        ok = bool(torch.isfinite(out).all())
+        for bk in blockings:
+            ref = fa.flash_attention_reference(q, k, v, segs, scale, bk).float()
+            diff = (out - ref).abs()
+            rel_fro = ((out - ref).norm() / ref.norm()).item()
+            rel_bar = KERNEL_REL_FRO_BF16 if bk is None else KERNEL_REL_FRO_BLOCKING
+            held = bool((diff <= KERNEL_ATOL + 2.0 ** -7 * vmax + bf16_ulp(ref)).all()) \
+                and rel_fro <= rel_bar
+            line["blockings"]["kernel (64)" if bk is None else str(bk)] = {
+                "max_abs_err": diff.max().item(), "rel_fro_err": rel_fro, "rel_fro_bar": rel_bar,
+                "ok": held}
+            ok = ok and held
+            del ref, diff
+        if seg_kind == "masked_row":  # every key masked: the plain mean of v over every key
+            mean = v.float().mean(dim=2)
+            err = (out[:, :, 0] - mean).abs()
+            line["masked_row_vs_mean_of_v"] = err.max().item()
+            ok = ok and bool((err <= bf16_ulp(mean) + 1e-5).all())
+        line["max_abs_err"] = line["blockings"]["kernel (64)"]["max_abs_err"]
+        line["tol"] = (f"|d| <= {KERNEL_ATOL} + 2^-7 max|v| + 1 bf16 ulp; rel_fro <= "
+                       f"{KERNEL_REL_FRO_BF16} (kernel blocking), {KERNEL_REL_FRO_BLOCKING:.2e} "
+                       f"(256, 768)")
+        line["ok"] = ok
+        mask = None if segs is None else segs[0][:, None, :, None] == segs[1][:, None, None, :]
+        bound_ms, bound_by = flash_bound_ms(B, H, sq, skv, hd, segs is not None)
+        line.update(ms=cuda_ms(run), plain_ms=cuda_ms(
+            lambda: fa.flash_attention_reference(q, k, v, segs, scale), iters=3, warmup=1),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                      scale=scale)),
+            library_call="scaled_dot_product_attention(attn_mask=segment mask)",
+            bound_ms=bound_ms, bound_by=bound_by)
+        if label == "dfn5b":  # X2's kernel on the same projections (730 real rows), bf16 out
+            qp, kp, vp = (t.transpose(1, 2) for t in (q, k, v))
+            line["attention_bf16_ms"] = cuda_ms(lambda: ab.attention_bf16(qp, kp, vp, seg_kind,
+                                                                          scale, bf))
+        emit(line)
+        if not ok:
+            raise SystemExit(f"flash_attention disagrees with its plain version ({label})")
+        if label in FLASH_REPLACES:
+            lines[label] = line
+        del q, k, v, out, mask
+    return lines
+
+
 def cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return (a * b).sum(-1) / np.linalg.norm(a, axis=-1) / np.linalg.norm(b, axis=-1)
 
@@ -1112,38 +1258,48 @@ def phase_harnesses(name: str, smi: str) -> dict:
     Returns the kernel launches of each path's driven run, by variant or loop."""
     from novic_tpu_torch.exp import attn_v2, int8_matmul_probe as probe
     from novic_tpu_torch.exp import dfn5b_attention as x2h
-    from novic_tpu_torch.ops import attention_bf16 as ab, tiled_matmul as tm
+    from novic_tpu_torch.ops import attention_bf16 as ab, flash_attention as fa, tiled_matmul as tm
 
     def tokens_cosine(a, b):
         a, b = a.float().reshape(-1, a.shape[-1]), b.float().reshape(-1, b.shape[-1])
         return float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
 
     launches = {}
-    # X2: exp/dfn5b_attention.py's tower, B=32, 32 layers, each attention variant
+    # X2 and X6: exp/dfn5b_attention.py's tower, B=32, 32 layers, each attention
+    # variant (the X2 schedules launch attention_bf16, flash launches X6), then
+    # the harness's bf16-residual runs
     params = x2h.make_params(seed=SEED, device="cuda")
     x0 = torch.randn((x2h.B, x2h.S, x2h.E), generator=torch.Generator().manual_seed(SEED + 6)).cuda()
     line = {"phase": "x2_harness", "device": name, "nvidia_smi": smi, "batch": x2h.B,
             "layers": len(params), "shape": [x2h.S, x2h.E, x2h.H, x2h.hd]}
-    outs = {}
+    outs, counts = {}, {}
+    runs = [(v, fn, torch.float32) for v, fn in x2h.VARIANTS.items()]
+    runs += [(v, fn, dt) for v, (fn, dt) in x2h.RESID16.items()]
     with torch.inference_mode():
-        for variant, fn in x2h.VARIANTS.items():
-            ab.LAUNCHES = 0
-            outs[variant] = x2h.tower(params, x0, fn)
+        for variant, fn, resid in runs:
+            ab.LAUNCHES = fa.LAUNCHES = 0
+            outs[variant] = x2h.tower(params, x0, fn, resid_dtype=resid)
             torch.cuda.synchronize()
-            n = ab.LAUNCHES
-            ms = cuda_ms(lambda: x2h.tower(params, x0, fn), iters=3, warmup=1)
-            line[variant] = {"launches": n, "ms_per_batch": ms, "images_per_s": x2h.B / (ms / 1e3),
+            n = (ab.LAUNCHES, fa.LAUNCHES)
+            ms = cuda_ms(lambda: x2h.tower(params, x0, fn, resid_dtype=resid), iters=3, warmup=1)
+            line[variant] = {"attention_bf16_launches": n[0], "flash_attention_launches": n[1],
+                             "ms_per_batch": ms, "images_per_s": x2h.B / (ms / 1e3),
+                             "resid_dtype": str(resid),
                              "finite": bool(torch.isfinite(outs[variant]).all())}
-            launches[variant] = n
-    for variant in ("fullseq", "allheads", "direct"):
+            counts[variant] = n
+            launches[variant] = n[1] if "flash" in variant else n[0]  # its kernel's
+    for variant in ("fullseq", "allheads", "direct", "flash"):
         line[variant]["token_cosine_min_vs_plain"] = tokens_cosine(outs[variant], outs["xla"])
+    flash768, xla16 = list(x2h.RESID16)[1], list(x2h.RESID16)[0]
+    line[flash768]["token_cosine_min_vs_plain"] = tokens_cosine(outs[flash768], outs[xla16])
     line["fullseq_equals_direct"] = bool(torch.equal(outs["fullseq"], outs["direct"]))
     emit(line)
     del params, x0, outs
     torch.cuda.empty_cache()
-    bad = [v for v in x2h.VARIANTS if line[v]["launches"] != (0 if v == "xla" else x2h.LAYERS)
-           or not line[v]["finite"]]
-    bad += [v for v in ("fullseq", "allheads", "direct")
+    want = {v: (0, 0) if v.startswith("xla") else (0, x2h.LAYERS) if "flash" in v
+            else (x2h.LAYERS, 0) for v, _, _ in runs}
+    bad = [v for v, _, _ in runs if counts[v] != want[v] or not line[v]["finite"]]
+    bad += [v for v in ("fullseq", "allheads", "direct", "flash", flash768)
             if line[v]["token_cosine_min_vs_plain"] < HARNESS_COSINE_MIN]
     if bad or not line["fullseq_equals_direct"]:
         raise SystemExit(f"X2 harness: {bad or 'fullseq != direct'} (launches, finiteness or "
@@ -1210,6 +1366,50 @@ def phase_harnesses(name: str, smi: str) -> dict:
                          f"expected {probe.INNER} per loop")
     launches.update({key: v["launches"] for key, v in line["loops"].items()})
     return launches
+
+
+def phase_attn_variants(name: str, smi: str) -> int:
+    """Phase 4g: exp/attn_variants.py's ViT-B/16 tower at B=256, 12 layers,
+    with each attention variant and tower_bhsd; the file's flash-vs-xla check.
+    Returns X6's launches in the attn_flash pass."""
+    from novic_tpu_torch.exp import attn_variants as av
+    from novic_tpu_torch.ops import attention_bf16 as ab, flash_attention as fa
+
+    params = av.make_params(av.L, seed=SEED, device="cuda")
+    x0 = torch.randn((av.B, av.S, av.E), generator=torch.Generator().manual_seed(SEED + 8)).cuda()
+    line = {"phase": "attn_variants", "device": name, "nvidia_smi": smi, "batch": av.B,
+            "layers": len(params), "shape": [av.S, av.E, av.H, av.hd], "padded_to": av.SP}
+    ab.LAUNCHES = fa.LAUNCHES = 0
+    line["flash_vs_xla_max_abs_diff_b4"] = av.check("cuda")
+    line["check_launches"] = fa.LAUNCHES
+    runs = {v: (lambda x, p, a=attn: av.tower(x, a, p)) for v, attn in av.VARIANTS.items()}
+    runs["tower_bhsd"] = av.tower_bhsd
+    outs = {}
+    with torch.inference_mode():
+        for variant, fn in runs.items():
+            ab.LAUNCHES = fa.LAUNCHES = 0
+            outs[variant] = fn(x0, params)
+            torch.cuda.synchronize()
+            n = (fa.LAUNCHES, ab.LAUNCHES)
+            ms = cuda_ms(lambda: fn(x0, params), iters=3, warmup=1)
+            line[variant] = {"flash_attention_launches": n[0], "attention_bf16_launches": n[1],
+                             "ms_per_batch": ms, "images_per_s": av.B / (ms / 1e3),
+                             "finite": bool(torch.isfinite(outs[variant]).all())}
+    for variant in runs:
+        a = outs[variant].float().reshape(-1, av.E)
+        b = outs["attn_xla_f32"].float().reshape(-1, av.E)
+        line[variant]["token_cosine_min_vs_attn_xla_f32"] = float(
+            torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+    emit(line)
+    del params, x0, outs
+    torch.cuda.empty_cache()
+    bad = [v for v in runs if (line[v]["flash_attention_launches"], line[v]["attention_bf16_launches"])
+           != ((av.L if v == "attn_flash" else 0), 0) or not line[v]["finite"]
+           or line[v]["token_cosine_min_vs_attn_xla_f32"] < HARNESS_COSINE_MIN]
+    if bad or line["check_launches"] != 1 or not 0 < line["flash_vs_xla_max_abs_diff_b4"] < 0.05:
+        raise SystemExit(f"attn_variants harness: {bad} (launches, finiteness or cosine >= "
+                         f"{HARNESS_COSINE_MIN} to attn_xla_f32's tower), or the check")
+    return line["attn_flash"]["flash_attention_launches"]
 
 
 def x3_loop_key(label: str, form: str) -> str:
@@ -1413,7 +1613,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from novic_tpu_torch.infer import NOVICModel
     from novic_tpu_torch.ops import (attention, attention_bf16, beam_reorder, build, dropout,
-                                     int8_matmul, tiled_matmul)
+                                     flash_attention, int8_matmul, tiled_matmul)
     from novic_tpu_torch.text.simple import make_test_tokenizer
     from novic_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -1431,7 +1631,7 @@ def main() -> int:
     # 2. build every kernel of every path, one nvcc per source, started together
     t0 = time.perf_counter()
     sources = [attention.SOURCE, dropout.SOURCE, int8_matmul.SOURCE, beam_reorder.SOURCE,
-               attention_bf16.SOURCE, tiled_matmul.SOURCE]
+               attention_bf16.SOURCE, tiled_matmul.SOURCE, flash_attention.SOURCE]
     libs = build.build_all(sources, force=True)
     emit({"phase": "build", "kernels": [os.path.relpath(str(s), REPO) for s in sources],
           "libraries": [os.path.relpath(str(lib), REPO) for lib in libs],
@@ -1446,6 +1646,7 @@ def main() -> int:
     x5, x5_many = phase_beam_reorder(beam_reorder)
     x12 = phase_attention_bf16(attention_bf16, k1_dfn5b)
     x3 = phase_tiled_matmul(tiled_matmul)
+    x6 = phase_flash_attention(flash_attention, attention_bf16)
 
     # 4. main path
     ck = load_checkpoint(FT0)
@@ -1502,9 +1703,11 @@ def main() -> int:
         int8_line = phase_int8_serving(model, frames, nouns, guided_cfg, name, smi)
         phase_text(nouns, name, smi)
 
-        # 4e. the DFN5B-H-14-378 embedder, 4f. the X1-X3 harness paths
+        # 4e. the DFN5B-H-14-378 embedder, 4f. the X1-X3 and X6 harness paths,
+        # 4g. the attn_variants tower (X6)
         dfn5b_line = phase_dfn5b(nouns, name, smi)
         harness_launches = phase_harnesses(name, smi)
+        x6_variants_launches = phase_attn_variants(name, smi)
 
         # 4d. reorder-mode beam (X5), greedy and vocab priors on the served embeddings
         guide = device_guide(model.decoder, nouns)
@@ -1626,6 +1829,12 @@ def main() -> int:
         "ms": line["ms"], "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
         "bound_by": line["bound_by"], "library_ms": line["library_ms"]}
         for case, line in x12.items()] + [{
+        "name": f"flash_attention_{case}", "route": "cuda",
+        "source": "novic_tpu_torch/ops/csrc/flash_attention.cu", "replaces": FLASH_REPLACES[case],
+        "launches": harness_launches["flash"] if case == "dfn5b" else x6_variants_launches,
+        "max_abs_err": line["max_abs_err"], "ms": line["ms"], "plain_ms": line["plain_ms"],
+        "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
+        "library_ms": line["library_ms"]} for case, line in x6.items()] + [{
         "name": f"tiled_matmul_{label}_{form}", "route": "cuda",
         "source": "novic_tpu_torch/ops/csrc/tiled_matmul.cu",
         "replaces": ("exp/pallas_int8_matmul.py:46" if label == "make_matmul"

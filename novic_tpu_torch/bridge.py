@@ -4,7 +4,9 @@ the port's modules.
 A flax param tree (after `jax.tree.map(np.asarray, ...)`) or the flat
 `params.*` keys of a novic_tpu `.npz` checkpoint hold the same names as the
 port's state dicts once flattened with dots, so the param bridge is a flatten,
-a float32 cast (the FT0 asset stores float16) and a strict `load_state_dict`.
+a float32 cast and a strict `load_state_dict`. The FT0 asset stores float16:
+its values are exact in float32, and the decoder's `float16_params` flag
+rounds the decode steps as JAX computes with them (models/prefixed_iter.py).
 The DFN5B attention harness's params (a list of per-layer dicts, the same keys
 in exp/dfn5b_attention.py and novic_tpu_torch/exp/dfn5b_attention.py) cross
 as float32 arrays and tensors.
@@ -73,8 +75,14 @@ def harness_params_to_numpy(layers: list[dict]) -> list[dict[str, np.ndarray]]:
 
 def decoder_from_numpy(cfg: DecoderModelConfig, tree: dict) -> PrefixedIterDecoder:
     """PrefixedIterDecoder (on the CPU) holding the given param tree (nested, or
-    flat with dotted keys as in a checkpoint's `params.*` entries)."""
-    return load_tree(PrefixedIterDecoder(cfg), tree)
+    flat with dotted keys as in a checkpoint's `params.*` entries). When every
+    array is float16 (the FT0 asset), `float16_params` makes the decode steps
+    round where the JAX decoder computing with those arrays rounds; a tree
+    that mixes float16 and float32 is served in float32."""
+    model = load_tree(PrefixedIterDecoder(cfg), tree)
+    flat = flatten_dict(tree) if any(isinstance(v, dict) for v in tree.values()) else tree
+    model.float16_params = all(np.asarray(v).dtype == np.float16 for v in flat.values())
+    return model
 
 
 def decoder_to_numpy(module: PrefixedIterDecoder) -> dict:
@@ -99,7 +107,7 @@ def adamw_state_to_leaves(model: torch.nn.Module, optimizer: torch.optim.Optimiz
     order = flax_order(named)
     first = optimizer.param_groups[0]
     b1, b2 = first["betas"]
-    wd = max(g["weight_decay"] for g in optimizer.param_groups)
+    wd = first.get("weight_decay_hparam", first["weight_decay"])
     states = [optimizer.state.get(named[n], {}) for n in order]
     step = int(max((float(st["step"]) for st in states if "step" in st), default=0))
     f32 = lambda v: np.asarray(v, dtype=np.float32)

@@ -53,6 +53,7 @@ def load_embedder(cfg, load_model: bool = False, device="cuda") -> Embedder:
     if not is_test:
         kwargs.update(
             weights_path=resolve_path(cfg, cfg.embedder_weights) if cfg.embedder_weights else None,
+            bpe_merges_path=resolve_path(cfg, cfg.bpe_merges_path) if cfg.bpe_merges_path else None,
             compute_dtype=cfg.embedder_compute_dtype,
             device=device,
         )

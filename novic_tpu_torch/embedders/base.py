@@ -6,9 +6,10 @@ creation and management, configuration hashing for cache compatibility (the
 same configuration dicts, hence the same hashes, as the JAX package's
 embedders), unit-norm float32 text and image embeddings. The towers are
 PyTorch modules on an explicit device (CUDA by default). Embeddings come back
-as numpy float32 unit vectors, as in the JAX package. Only the word-level test
-tokenizer is ported: the BPE, SentencePiece and WordPiece tokenizers need
-vocabulary files that the repo does not hold.
+as numpy float32 unit vectors, as in the JAX package. The tokenizer is chosen
+as the JAX package chooses it: the CLIP BPE, SentencePiece or WordPiece
+tokenizer when `bpe_merges_path` or $NOVIC_CLIP_BPE / $NOVIC_SIGLIP_SPM /
+$NOVIC_BERT_VOCAB names a file, else the word-level test tokenizer.
 
 Also provides the 'test:<dim>' embedder, whose BLAKE2-derived vectors are
 byte-identical to the JAX package's.
@@ -53,6 +54,7 @@ class Embedder:
         load_model: bool = True,
         check: bool = False,
         weights_path: Optional[str] = None,    # converted .npz tower weights
+        bpe_merges_path: Optional[str] = None, # CLIP BPE merges file (or $NOVIC_CLIP_BPE)
         tokenizer: Optional[TextTokenizer] = None,  # explicit override (tests/benches)
         compute_dtype: str = "bfloat16",
         seed: int = 0,
@@ -69,8 +71,9 @@ class Embedder:
         if kind not in ("openai", "openclip", "transformers"):
             raise ValueError(f"Unsupported embedder type: {kind}")
         return TorchEmbedder(spec=spec, arch=lookup(spec), load_model=load_model, check=check,
-                             weights_path=weights_path, tokenizer=tokenizer,
-                             compute_dtype=compute_dtype, seed=seed, device=device, **sizes)
+                             weights_path=weights_path, bpe_merges_path=bpe_merges_path,
+                             tokenizer=tokenizer, compute_dtype=compute_dtype, seed=seed,
+                             device=device, **sizes)
 
     def __init__(self, *, spec: str, configuration: dict[str, Any], tokenizer: TextTokenizer,
                  embed_dim: int, check: bool, config_class: str, tokenizer_batch_size: int = 1024,
@@ -253,7 +256,7 @@ class TorchEmbedder(Embedder):
     def __init__(self, *, spec: str, arch: EmbedderArch, load_model: bool, check: bool,
                  weights_path: Optional[str], tokenizer: Optional[TextTokenizer],
                  compute_dtype: str, seed: int, device: Union[str, torch.device] = "cuda",
-                 **sizes):
+                 bpe_merges_path: Optional[str] = None, **sizes):
         if compute_dtype != arch.vision.compute_dtype:
             arch = dataclasses.replace(
                 arch, vision=dataclasses.replace(arch.vision, compute_dtype=compute_dtype),
@@ -264,9 +267,7 @@ class TorchEmbedder(Embedder):
         self.seed = seed
         self._vision = self._text = None
         if tokenizer is None:
-            log.warning("No tokenizer given => word-level test tokenizer (the BPE/"
-                        "SentencePiece tokenizers are not ported yet)")
-            tokenizer = SimpleWordTokenizer(words=(), context_length=arch.text.context_length)
+            tokenizer = self._build_tokenizer(arch, bpe_merges_path)
         configuration = {
             "spec": spec,
             "family": arch.family,
@@ -280,6 +281,56 @@ class TorchEmbedder(Embedder):
                          config_class="JaxEmbedder", **sizes)
         if load_model:
             self.load_model()
+
+    @staticmethod
+    def _build_tokenizer(arch: EmbedderArch, bpe_merges_path: Optional[str]) -> TextTokenizer:
+        """The tokenizer JaxEmbedder._build_tokenizer picks for `arch`, branch
+        for branch: the real one when its file is named and exists, else (with
+        the same warning) the word-level test tokenizer."""
+        if arch.tokenizer == "clip_bpe":
+            path = bpe_merges_path or os.environ.get("NOVIC_CLIP_BPE", "")
+            if path and os.path.isfile(path):
+                from novic_tpu_torch.text.clip_bpe import CLIPBPETokenizer
+
+                return CLIPBPETokenizer(path, context_length=arch.text.context_length)
+            log.warning(
+                "CLIP BPE merges file not available (set NOVIC_CLIP_BPE or pass "
+                "bpe_merges_path) => falling back to the word-level test tokenizer; "
+                "text embeddings will NOT match released checkpoints")
+        elif arch.tokenizer == "sentencepiece":
+            path = bpe_merges_path or os.environ.get("NOVIC_SIGLIP_SPM", "")
+            if path and os.path.isfile(path):
+                from novic_tpu_torch.text.sentencepiece import SentencePieceTokenizer
+
+                return SentencePieceTokenizer(path, context_length=arch.text.context_length)
+            log.warning(
+                "SentencePiece .model asset not available (set NOVIC_SIGLIP_SPM or "
+                "pass bpe_merges_path) => falling back to the word-level test "
+                "tokenizer; text embeddings will NOT match released checkpoints")
+        elif arch.tokenizer == "bert":
+            # ALIGN: BERT-uncased WordPiece with [SEP] kept as the end token
+            path = bpe_merges_path or os.environ.get("NOVIC_BERT_VOCAB", "")
+            if path and os.path.isfile(path):
+                from novic_tpu_torch.text.wordpiece import BertWordPieceTokenizer
+
+                return BertWordPieceTokenizer(path, context_length=arch.text.context_length,
+                                              keep_sep=True)
+            log.warning(
+                "BERT WordPiece vocab.txt asset not available (set NOVIC_BERT_VOCAB "
+                "or pass bpe_merges_path) => falling back to the word-level test "
+                "tokenizer; text embeddings will NOT match released checkpoints")
+        elif arch.tokenizer == "wordpiece":
+            # CLIPA: BERT-uncased WordPiece with [SEP] stripped
+            path = bpe_merges_path or os.environ.get("NOVIC_BERT_VOCAB", "")
+            if path and os.path.isfile(path):
+                from novic_tpu_torch.text.wordpiece import BertWordPieceTokenizer
+
+                return BertWordPieceTokenizer(path, context_length=arch.text.context_length)
+            log.warning(
+                "BERT WordPiece vocab.txt asset not available (set NOVIC_BERT_VOCAB "
+                "or pass bpe_merges_path) => falling back to the word-level test "
+                "tokenizer; text embeddings will NOT match released checkpoints")
+        return SimpleWordTokenizer(words=(), context_length=arch.text.context_length)
 
     # -- model lifecycle ---------------------------------------------------------
 

@@ -3,12 +3,15 @@ exp/dfn5b_attention.py).
 
 The same transformer tower at the same shapes, S=730 (27x27 patches + cls),
 E=1280, H=16, hd=80, 32 layers, B=32, with the attention as the plain chain
-(`attn_xla`: bf16 scores and softmax, the yardstick) or as one of the
+(`attn_xla`: bf16 scores and softmax, the yardstick), as one of the
 harness's three Pallas schedules, which here launch ops/attention_bf16.py's
-kernel (X2) once per layer: `attn_fullseq`, `attn_allheads`, `attn_direct`.
-Weights are (in, out) as the harness keeps them, random from a seed.
+kernel (X2) once per layer: `attn_fullseq`, `attn_allheads`, `attn_direct`,
+or as its `flash` variant (`make_attn_flash`), which launches
+ops/flash_attention.py's kernel (X6) once per layer. Weights are (in, out) as
+the harness keeps them, random from a seed.
 
-Nothing runs at import: `main(device=...)` times the variants.
+Nothing runs at import: `main(device=...)` times the variants ("resid16"
+adds the harness's bf16-residual runs).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 from novic_tpu_torch.device import resolve
 from novic_tpu_torch.embedders.vit import tower_dense
 from novic_tpu_torch.ops.attention_bf16 import attn_allheads, attn_direct, attn_fullseq
+from novic_tpu_torch.ops.flash_attention import SegmentIds, flash_attention
 
 B = 32
 IMG, PATCH = 378, 14
@@ -89,8 +93,36 @@ def attn_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(Bq, Hq, Sq, d).transpose(1, 2)
 
 
+def make_attn_flash(block_q: int, block_k: int, sp: int = 768):
+    """exp/dfn5b_attention.py `make_attn_flash` (X6): q, k, v (B, S, H, hd) →
+    (B, S, H, hd) float32. Each is padded along S to sp rows and cast to bf16
+    (the (B, H, sp, hd) view of the padded projections is what the kernel
+    reads; no transposed copy is made); segment ids are 1 over the S real
+    tokens and 0 over the padding; sm_scale is 1/√hd; the bf16 output is
+    sliced back to S and returned as float32. The block sizes set the plain
+    version's blocking on the CPU (block_k as JAX's; block_q changes no
+    value). The kernel's 64-key tile is fixed, so on the card they change
+    nothing and the harness's block sweep has no counterpart."""
+    del block_q
+
+    def attn(q, k, v):
+        Bq, Sq = q.shape[:2]
+        seg = F.pad(torch.ones((Bq, Sq), dtype=torch.int32, device=q.device), (0, sp - Sq))
+
+        def prep(x):  # (B, S, H, hd) -> (B, H, sp, hd) bf16 view
+            return F.pad(x, (0, 0, 0, 0, 0, sp - Sq)).to(bf16).transpose(1, 2)
+
+        o = flash_attention(prep(q), prep(k), prep(v), segment_ids=SegmentIds(seg, seg),
+                            sm_scale=1.0 / math.sqrt(q.shape[-1]), block_k=block_k)
+        return o.transpose(1, 2)[:, :Sq].float()
+    return attn
+
+
 VARIANTS = {"xla": attn_xla, "fullseq": attn_fullseq, "allheads": attn_allheads,
-            "direct": attn_direct}
+            "direct": attn_direct, "flash": make_attn_flash(256, 256)}
+# The harness's bf16-residual runs (its "resid16"): name -> (attention, resid dtype)
+RESID16 = {"xla + bf16 residual": (attn_xla, bf16),
+           "flash768 + bf16 resid": (make_attn_flash(768, 768), bf16)}
 
 
 def tower(params: list[dict], x: torch.Tensor, attn_fn, resid_dtype: torch.dtype = torch.float32,
@@ -136,11 +168,19 @@ def bench(name: str, attn_fn, params: list[dict], x0: torch.Tensor, **kw) -> flo
 
 
 def main(variants=None, device="cuda") -> dict:
-    """Time the tower with each variant at the harness's shapes; returns ms per pass."""
+    """Time the tower with each variant at the harness's shapes ("resid16":
+    the bf16-residual runs); returns ms per pass."""
     dev = resolve(device)
     params = make_params(device=dev)
     x0 = torch.randn((B, S, E), generator=torch.Generator().manual_seed(1)).to(dev)
-    return {v: bench(v, VARIANTS[v], params, x0) for v in (variants or list(VARIANTS))}
+    out = {}
+    for v in variants or list(VARIANTS):
+        if v == "resid16":
+            for name, (fn, dt) in RESID16.items():
+                out[name] = bench(name, fn, params, x0, resid_dtype=dt)
+        else:
+            out[v] = bench(v, VARIANTS[v], params, x0)
+    return out
 
 
 if __name__ == "__main__":

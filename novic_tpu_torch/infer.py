@@ -580,6 +580,8 @@ def main(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--guide_targets_file", default=None)
     parser.add_argument("--batch_size", type=int, default=64)
     parser.add_argument("--weights", default=None, help="Converted embedder tower weights (.npz)")
+    parser.add_argument("--bpe_merges", default=None,
+                        help="CLIP BPE merges file (or set NOVIC_CLIP_BPE / NOVIC_SIGLIP_SPM)")
     parser.add_argument("--compute_dtype", default=None,
                         help="Embedder compute dtype override (float32|bfloat16)")
     parser.add_argument("--device", default="cuda", help="Torch device (default cuda)")
@@ -590,6 +592,8 @@ def main(argv: Optional[Sequence[str]] = None):
     embedder_kwargs = {}
     if args.weights:
         embedder_kwargs["weights_path"] = args.weights
+    if args.bpe_merges:
+        embedder_kwargs["bpe_merges_path"] = args.bpe_merges
     if args.compute_dtype:
         embedder_kwargs["compute_dtype"] = args.compute_dtype
     model = NOVICModel(args.checkpoint, embedder_spec=args.embedder, gencfg=args.gencfg,

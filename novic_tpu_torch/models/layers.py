@@ -31,7 +31,11 @@ NEG_INF = -1e30  # finite -inf stand-in: keeps softmax NaN-free for fully masked
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y = x @ w.T + b with torch-layout weight (out, in)."""
+    """y = x @ w.T + b with torch-layout weight (out, in). A float16 x (a
+    float16 checkpoint's step input) enters as float32: JAX's float16 product
+    accumulates in float32, and products of float16 values are exact there."""
+    if x.dtype == torch.float16:
+        x = x.float()
     y = torch.matmul(x, w.t())
     if b is not None:
         y = y + b
@@ -40,11 +44,34 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) ->
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                eps: float = 1e-5) -> torch.Tensor:
+    if x.dtype == torch.float16:
+        return _layer_norm_float16(x, weight, bias, eps)
     mean = x.mean(dim=-1, keepdim=True)
     var = torch.square(x - mean).mean(dim=-1, keepdim=True)
     y = (x - mean) * torch.rsqrt(var + eps) * weight
     if bias is not None:
         y = y + bias
+    return y
+
+
+def _layer_norm_float16(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                        eps: float) -> torch.Tensor:
+    """layer_norm as JAX computes it on float16 x and float16 params (a float16
+    checkpoint's first norm of a decode step; weight and bias hold float16
+    values): each op rounds to float16, the two means sum and divide in
+    float32 before their rounding, eps is a float16 constant, and rsqrt is a
+    float16 sqrt and then a float16 reciprocal, two roundings (XLA's CPU
+    rsqrt of float16; one rounding of the exact value differs in 26% of the
+    FT0 asset's token rows)."""
+    h = torch.float16
+    mean = x.float().mean(dim=-1, keepdim=True).to(h)
+    d = x - mean
+    var = torch.square(d).float().mean(dim=-1, keepdim=True).to(h)
+    eps16 = float(torch.tensor(eps, dtype=h))  # a float16 value: var + eps16 rounds as JAX's sum
+    r = torch.reciprocal(torch.sqrt(var + eps16))
+    y = d * r * weight.to(h)
+    if bias is not None:
+        y = y + bias.to(h)
     return y
 
 

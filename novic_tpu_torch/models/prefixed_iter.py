@@ -9,6 +9,14 @@ ignore_index=-1 and label smoothing, guide-restricted argmax correctness, and
 the BxMxC / MxBxC multi-target reshapes. Generation prefills either split
 caches (beam search: the lazy-cache step, or the split step after the caller
 permutes the token caches) or monolithic caches (greedy: the plain cached step).
+
+A checkpoint stored in float16 (the FT0 asset) is held in float32 parameters
+with `float16_params` set (bridge.decoder_from_numpy). The decode steps then
+round where the JAX package, computing with the float16 arrays as stored,
+keeps float16 values: the token embedding plus the position embedding is a
+float16 sum, and the first layer's norm runs on it in float16
+(layers.layer_norm). Every other value is float32 there too: a float16 array
+meets a float32 one, or a product accumulates in float32.
 """
 
 from __future__ import annotations
@@ -109,6 +117,7 @@ class PrefixedIterDecoder(nn.Module):
         if not cfg.weight_tying:
             self.token_embedding = nn.Parameter(torch.zeros(Q, E))
         self.pos_embedding = nn.Parameter(torch.zeros(cfg.max_seq_len, E))
+        self.float16_params = False  # the parameters hold a float16 checkpoint's values
         self.input_dropout = FastDropout(cfg.input_dropout, cfg.dropout_impl)
         self.transformer = Transformer(cfg)
         self.register_buffer("causality_bias", causality_mask(
@@ -157,6 +166,16 @@ class PrefixedIterDecoder(nn.Module):
     def embed_tokens(self, token_ids: torch.Tensor) -> torch.Tensor:
         table = getattr(self, "token_embedding", self.logits_weight)
         return table[token_ids]
+
+    def step_input(self, token_ids: torch.Tensor, pos: int) -> torch.Tensor:
+        """(B,1,E) input of a decode step at sequence position pos: the token
+        embedding plus the position embedding, summed in float16 (and returned
+        as float16) when the parameters hold a float16 checkpoint, as JAX sums
+        the two float16 arrays."""
+        tok, at = self.embed_tokens(token_ids)[:, None, :], self.pos_embedding[pos][None, None, :]
+        if self.float16_params:
+            return tok.half() + at.half()
+        return tok + at
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         out = dense(x, self.logits_weight, getattr(self, "logits_bias", None))
@@ -297,7 +316,7 @@ class PrefixedIterDecoder(nn.Module):
         """One monolithic-cache decode step: the token chosen at step-1 feeds
         position P+step-1; returns logits for the token at `step` (step >= 1)."""
         pos = self.cfg.mlp_seq_len + step - 1
-        x = self.embed_tokens(token_ids)[:, None, :] + self.pos_embedding[pos][None, None, :]
+        x = self.step_input(token_ids, pos)
         x, k_caches, v_caches = self.transformer.step(x, k_caches, v_caches, pos)
         return self.logits(x[:, 0, :]), k_caches, v_caches
 
@@ -307,7 +326,7 @@ class PrefixedIterDecoder(nn.Module):
         base-batch rows (frozen), token caches at candidate rows (slot step-1
         written); the caller permutes the token caches before the step."""
         pos = self.cfg.mlp_seq_len + step - 1
-        x = self.embed_tokens(token_ids)[:, None, :] + self.pos_embedding[pos][None, None, :]
+        x = self.step_input(token_ids, pos)
         x, tk_caches, tv_caches = self.transformer.step_split(
             x, pk_caches, pv_caches, tk_caches, tv_caches, step)
         return self.logits(x[:, 0, :]), tk_caches, tv_caches
@@ -326,7 +345,7 @@ class PrefixedIterDecoder(nn.Module):
         """Lazy-cache beam decode step (TransformerLayer.step_lazy): the token chosen
         at step-1 feeds position P+step-1; returns logits for the token at `step`."""
         pos = self.cfg.mlp_seq_len + step - 1
-        x = self.embed_tokens(token_ids)[:, None, :] + self.pos_embedding[pos][None, None, :]
+        x = self.step_input(token_ids, pos)
         x, tk_caches, tv_caches = self.transformer.step_lazy(
             x, pk_caches, pv_caches, tk_caches, tv_caches, anc_bias, step)
         return self.logits(x[:, 0, :]), tk_caches, tv_caches

@@ -1,19 +1,19 @@
 """Optimizer, learning-rate schedule and gradient clipping (the counterpart of
 novic_tpu.train.optim).
 
-AdamW (torch.optim.AdamW) with two parameter groups, as the reference builds
-them (reference train.py:1103-1116): decay for parameters with ndim >= 2, none
-for the 0-D/1-D ones (layer norms, biases, ReZero scalars), unless
-weight_decay_1d puts every parameter in the decay group. torch's AdamW and
-optax's adamw compute the same update: both add eps outside the square root
-of the bias-corrected second moment and decay decoupled from the gradient.
-The learning rate is set per step from `lr_schedule_per_chunk`.
-
-Note: the JAX package's optax mask (novic_tpu/train/optim.py create_optimizer)
-is a callable passed through inject_hyperparams, which evaluates it on the step
-count and gets False, so with weight_decay_1d=False that package applies no
-weight decay at all. The port follows the reference's two groups; ROADMAP
-Queue 3 records the divergence and tests/test_torch_train.py pins both.
+AdamW (torch.optim.AdamW) giving the update the JAX package's trainer gives.
+That package builds an optax mask that means the reference's two groups
+(reference train.py:1103-1116: decay for ndim >= 2, none for layer norms,
+biases and ReZero scalars), but passes the mask callable through
+inject_hyperparams, which evaluates it on the step count: the mask is then the
+scalar weight_decay_1d. So with weight_decay_1d=False no parameter decays, and
+with weight_decay_1d=True every parameter does; the port does the same, so a
+run trains to the JAX trainer's loss curve and checkpoints. The nominal
+weight_decay is kept on the group as "weight_decay_hparam", which bridge.py
+writes into the optax leaf list as JAX does. torch's AdamW and optax's adamw
+compute the same update: both add eps outside the square root of the
+bias-corrected second moment and decay decoupled from the gradient. The
+learning rate is set per step from `lr_schedule_per_chunk`.
 """
 
 from __future__ import annotations
@@ -57,20 +57,18 @@ def create_optimizer(named_params: Iterable[tuple[str, torch.nn.Parameter]], *,
                      beta1: float = 0.9, beta2: float = 0.95, eps: float = 1e-8,
                      weight_decay: float = 0.1, weight_decay_1d: bool = False,
                      optimizer: str = "AdamW", nesterov: bool = True) -> torch.optim.AdamW:
-    """AdamW over `named_params` with the decay / no-decay groups; lr starts at 0
-    and is set per step by the train step."""
+    """AdamW over `named_params`, decaying every parameter by weight_decay if
+    weight_decay_1d and none otherwise (see the module docstring); lr starts at
+    0 and is set per step by the train step."""
     name = optimizer.lower()
     if name == "adamp":
         raise NotImplementedError("optimizer=AdamP is not ported yet (AdamW only)")
     if name != "adamw":
         raise ValueError(f"Unsupported optimizer: {optimizer} (AdamW | AdamP)")
-    params = [p for _, p in named_params]
-    decay = [p for p in params if weight_decay_1d or p.ndim >= 2]
-    no_decay = [p for p in params if not (weight_decay_1d or p.ndim >= 2)]
-    groups = [{"params": decay, "weight_decay": weight_decay}]
-    if no_decay:
-        groups.append({"params": no_decay, "weight_decay": 0.0})
-    return torch.optim.AdamW(groups, lr=0.0, betas=(beta1, beta2), eps=eps)
+    group = {"params": [p for _, p in named_params],
+             "weight_decay": weight_decay if weight_decay_1d else 0.0,
+             "weight_decay_hparam": weight_decay}
+    return torch.optim.AdamW([group], lr=0.0, betas=(beta1, beta2), eps=eps)
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:

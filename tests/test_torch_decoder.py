@@ -71,7 +71,7 @@ def test_bridge_round_trip_bit_exact(ft0):
 def test_prefill_and_lazy_steps_match_jax(ft0):
     ck, jcfg, jparams = ft0
     cfg = ck["model_config"]
-    model = decoder_from_numpy(cfg, ck["params"])
+    model = decoder_from_numpy(cfg, jparams)  # the float32 copy JAX gets
     jmodel = JDecoder(cfg=jcfg).bind({"params": jparams})
     rng = np.random.default_rng(0)
     Bb, R = 2, 3

@@ -48,15 +48,15 @@ def ft0():
     np.testing.assert_array_equal(gids, jgids)
     embed = np.random.default_rng(0).normal(size=(2, 768)).astype(np.float32)
     embed /= np.linalg.norm(embed, axis=1, keepdims=True)
-    model = decoder_from_numpy(ck["model_config"], ck["params"])
+    jparams = jax.tree.map(lambda a: np.asarray(a, np.float32), jck["params"])
+    model = decoder_from_numpy(ck["model_config"], jparams)  # both read float32
     G = model.cfg.token_length - 1
     # The full vocabulary's tries (JAX's, the port's), built once
     jt = jax_build_guide_trie(gids, model.cfg.vocab_size, G)
     jt.pop("pack_tok_bits")
     t = build_guide_trie(gids, model.cfg.vocab_size, G)
     return dict(model=model, jmodel=JDecoder(cfg=jck["model_config"]),
-                jparams=jax.tree.map(lambda a: np.asarray(a, np.float32), jck["params"]),
-                gids=gids, embed=embed, jtrie=jax.device_put(jt),
+                jparams=jparams, gids=gids, embed=embed, jtrie=jax.device_put(jt),
                 trie={k: [torch.from_numpy(x) for x in t[k]] for k in TRIE_KEYS})
 
 

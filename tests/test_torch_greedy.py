@@ -40,9 +40,9 @@ def ft0():
                                  nouns)
     embed = np.random.default_rng(1).normal(size=(3, 768)).astype(np.float32)
     embed /= np.linalg.norm(embed, axis=1, keepdims=True)
-    return dict(model=decoder_from_numpy(ck["model_config"], ck["params"]),
-                jmodel=JDecoder(cfg=jck["model_config"]),
-                jparams=jax.tree.map(lambda a: np.asarray(a, np.float32), jck["params"]),
+    jparams = jax.tree.map(lambda a: np.asarray(a, np.float32), jck["params"])
+    return dict(model=decoder_from_numpy(ck["model_config"], jparams),  # both read float32
+                jmodel=JDecoder(cfg=jck["model_config"]), jparams=jparams,
                 gids=gids, embed=embed)
 
 

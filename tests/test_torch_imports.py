@@ -7,7 +7,9 @@ novic_tpu_torch (the serving modules, the int8 and text-tower modules:
 ops.int8_matmul, embedders.vit/base, bridge; and the training path's:
 ops.dropout, data.*, train.*, cli.*, utils.config/metrics; the DFN5B slice's
 ops.attention_bf16, ops.tiled_matmul and the exp.* harnesses, which import
-nothing of the root exp/ either) and chip_smoke.
+nothing of the root exp/ either; the flash-attention slice's
+ops.flash_attention, exp.attn_variants and the text.clip_bpe / sentencepiece /
+wordpiece tokenizers) and chip_smoke.
 """
 
 import os
@@ -60,6 +62,9 @@ INT8_AND_TEXT_MODULES = ["novic_tpu_torch.ops.int8_matmul", "novic_tpu_torch.emb
 DFN5B_SLICE_MODULES = ["novic_tpu_torch.ops.attention_bf16", "novic_tpu_torch.ops.tiled_matmul",
                        "novic_tpu_torch.exp", "novic_tpu_torch.exp.dfn5b_attention",
                        "novic_tpu_torch.exp.attn_v2", "novic_tpu_torch.exp.int8_matmul_probe"]
+FLASH_SLICE_MODULES = ["novic_tpu_torch.ops.flash_attention", "novic_tpu_torch.exp.attn_variants",
+                       "novic_tpu_torch.text.clip_bpe", "novic_tpu_torch.text.sentencepiece",
+                       "novic_tpu_torch.text.wordpiece"]
 
 
 def test_port_imports_without_jax():
@@ -68,9 +73,9 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     lines = res.stdout.strip().splitlines()
-    assert int(lines[-1]) >= 53
-    assert set(TRAINING_MODULES + INT8_AND_TEXT_MODULES + DFN5B_SLICE_MODULES) <= \
-        set(lines[-2].split())
+    assert int(lines[-1]) >= 58
+    assert set(TRAINING_MODULES + INT8_AND_TEXT_MODULES + DFN5B_SLICE_MODULES
+               + FLASH_SLICE_MODULES) <= set(lines[-2].split())
 
 
 def test_train_cli_runs_without_jax():

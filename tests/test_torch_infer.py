@@ -5,11 +5,12 @@ images at float32 compute: a small SigLIP-shaped tower (registered under one
 spec in both registries) with the same converted weights .npz, written by the
 JAX package's convert.save_params_npz and read through each package's
 weights_path, and the FT0 decoder with its word tokenizer. Preds identical,
-logprobs within 1e-4 (float32 end to end; sum order differs).
+logprobs within 1e-4 (sums in another order).
 
-The FT0 asset stores float16. The port casts it to float32 on load; the JAX
-NOVICModel computes with the float16 arrays as stored, which moves its
-logprobs by up to ~3e-3. Both packages therefore read a float32 copy here.
+The FT0 asset stores float16, and both packages read it as stored: the JAX
+NOVICModel computes with the float16 arrays, and the port rounds its decode
+steps at the same points (PrefixedIterDecoder.float16_params). Without those
+roundings the logprobs differ by up to ~3e-3.
 """
 
 import dataclasses
@@ -28,8 +29,14 @@ from novic_tpu.embedders.base import HashEmbedder as JHashEmbedder
 from novic_tpu.embedders.convert import save_params_npz
 from novic_tpu.embedders.vit import TextTransformer as JTextTransformer
 from novic_tpu.embedders.vit import VisionTransformer as JVisionTransformer
+from novic_tpu.models.generate import generate_beam as jax_generate_beam
+from novic_tpu.models.generate import generate_greedy as jax_generate_greedy
+from novic_tpu.models.prefixed_iter import PrefixedIterDecoder as JDecoder
 from novic_tpu.text.simple import make_test_tokenizer as jax_make_test_tokenizer
+from novic_tpu.train.checkpoint import load_checkpoint as jax_load_checkpoint
 from novic_tpu_torch import infer
+from novic_tpu_torch.bridge import decoder_from_numpy
+from novic_tpu_torch.models import generate
 from novic_tpu_torch.embedders import registry
 from novic_tpu_torch.embedders.base import Embedder, HashEmbedder
 from novic_tpu_torch.text.simple import make_test_tokenizer
@@ -58,15 +65,11 @@ def setup(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("weights")
     path = str(tmp / "small_siglip.npz")
     save_params_npz(path, jax.tree.map(np.asarray, vparams), jax.tree.map(np.asarray, tparams))
-    ft0_f32 = str(tmp / "ft0_f32.npz")
-    with np.load(FT0) as data:
-        np.savez(ft0_f32, **{k: data[k].astype(np.float32) if data[k].dtype == np.float16
-                             else data[k] for k in data.files})
     ck = load_checkpoint(FT0)
     nouns = ck["target_nouns"][ck["num_invalid_target_nouns"]:]
     rng = np.random.default_rng(7)
     frames = [rng.integers(0, 256, size=(224, 224, 3), dtype=np.uint8) for _ in range(4)]
-    return dict(weights=path, nouns=nouns, frames=frames, jarch=jarch, ft0=ft0_f32)
+    return dict(weights=path, nouns=nouns, frames=frames, jarch=jarch)
 
 
 @pytest.fixture
@@ -78,10 +81,10 @@ def registered(setup, monkeypatch):
 @pytest.mark.parametrize("gencfg", ["beam_k10_vnone_gn_t1_a0", "beam_k10_vnone_gp_t1_a0"])
 def test_classify_images_matches_jax(setup, registered, gencfg):
     common = dict(embedder_spec=SPEC, gencfg=gencfg, batch_size=4)
-    jmodel = jax_infer.NOVICModel(setup["ft0"], embedder_kwargs=dict(
+    jmodel = jax_infer.NOVICModel(FT0, embedder_kwargs=dict(
         tokenizer=jax_make_test_tokenizer(setup["nouns"]), weights_path=setup["weights"],
         compute_dtype="float32"), **common)
-    model = infer.NOVICModel(setup["ft0"], device="cpu", embedder_kwargs=dict(
+    model = infer.NOVICModel(FT0, device="cpu", embedder_kwargs=dict(
         tokenizer=make_test_tokenizer(setup["nouns"]), weights_path=setup["weights"],
         compute_dtype="float32"), **common)
     with jmodel:
@@ -94,6 +97,33 @@ def test_classify_images_matches_jax(setup, registered, gencfg):
     assert np.array(out.logprobs).shape == (4, 10)
     if gencfg.split("_")[3] == "gp":
         assert all(p in set(setup["nouns"]) for row in out.preds for p in row)
+
+
+@pytest.mark.parametrize("mode", ["greedy", "lazy", "reorder"])
+def test_float16_checkpoint_decodes_like_jax(mode):
+    """The FT0 decoder as stored (float16): the port's decode, rounding where
+    JAX keeps float16 values, gives JAX's tokens, and scores within 1e-4
+    (float32 sums in another order)."""
+    ck, jck = load_checkpoint(FT0), jax_load_checkpoint(FT0)
+    model = decoder_from_numpy(ck["model_config"], ck["params"])
+    assert model.float16_params
+    assert {np.asarray(a).dtype for a in jax.tree.leaves(jck["params"])} == {np.dtype(np.float16)}
+    e = np.random.default_rng(0).normal(size=(4, 768)).astype(np.float32)
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    jmodel = JDecoder(cfg=jck["model_config"])
+    with torch.no_grad():
+        if mode == "greedy":
+            ref = jax.jit(lambda p, x: jax_generate_greedy(jmodel, p, x, calc_loss=True))(
+                jck["params"], jnp.asarray(e))
+            out = generate.generate_greedy(model, torch.from_numpy(e), calc_loss=True)
+            pairs = [(out[0], ref[0], 0.0), (out[5], ref[5], 1e-4)]
+        else:
+            ref = jax.jit(lambda p, x: jax_generate_beam(jmodel, p, x, topk=10, cache_mode=mode))(
+                jck["params"], jnp.asarray(e))
+            out = generate.generate_beam(model, torch.from_numpy(e), topk=10, cache_mode=mode)
+            pairs = [(out[0], ref[0], 0.0), (out[2], ref[2], 1e-4)]
+    for got, want, atol in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol, rtol=0)
 
 
 def test_classify_embeds_pads_ragged_batch(setup, registered):
