@@ -6,7 +6,10 @@ Phases, each printing JSON lines; any failure exits nonzero:
   1. device: the card's name and its nvidia-smi name and power limit;
   2. build: compile every kernel (attention.cu, dropout.cu, int8_matmul.cu,
      beam_reorder.cu, attention_bf16.cu, tiled_matmul.cu, flash_attention.cu)
-     from the checkout's sources, one nvcc each, started together;
+     from the checkout's sources, one nvcc each, started together; count
+     HGMMA (wgmma), UTMALDG (TMA load) and SYNCS (mbarrier) instructions in
+     the SASS of the Hopper designs (attention_bf16, tiled_matmul), and fail
+     if either has no HGMMA or no UTMALDG;
   3. kernel: the attention kernel against its plain PyTorch version on the
      card, at the serving shape, at the DFN5B-H-378 tower's (32,730,16,80) and
      at two more (stated tolerance), with its time, the plain version's time,
@@ -20,12 +23,14 @@ Phases, each printing JSON lines; any failure exits nonzero:
      serving shape; times; the harness's 11-step x 12-cache loop (GB/s);
   3e. bf16-input attention kernel (X1, X2): against its plain version at X1's
      (256,196,12,64) in the (B,S,E) layout and X2's (32,730,16,80) head-major
-     (fullseq), projection (direct) and bf16-out (allheads) layouts; times
+     (fullseq), projection (direct) and bf16-out (allheads) layouts, and at
+     edge cases (s_valid 1, 63, 65, 129; hd 72 and 128; one head); times
      beside the bound, SDPA's and K1's at the same shape;
   3f. tiled GEMM kernel (X3): bit-identical for s8, within 1e-5 of a float64
      product (relative to sum |x*w|) for bf16 and float32, at make_matmul's
      (16384,1280,5120) s8 and bf16, make_mm's (8192,1280,5120) checksum in
-     float32, bf16 and s8, and ragged shapes; times beside the bound and
+     float32, bf16 and s8, ragged shapes, and bf16 edges ((1,16,16) and
+     (129,1040,272), whole and bn=16); times beside the bound and
      torch._int_mm / torch.mm; the int32 wrap of the s8 checksum;
   3g. one-pass flash-attention kernel (X6): against its plain version at the
      kernel's blocking (64 keys) and at the harnesses' (256, 768: JAX's
@@ -593,6 +598,16 @@ def phase_beam_reorder(reorder) -> tuple[dict, dict]:
     return picked["per_cache"], picked["many"]
 
 
+def sass_counts(lib) -> dict:
+    """Instructions in a library's SASS (cuobjdump from the CUDA toolkit):
+    HGMMA (wgmma), UTMALDG (TMA loads), SYNCS (mbarrier operations)."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([exe, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    return {op: sum(line.count(op) for line in text.splitlines()) for op in
+            ("HGMMA", "UTMALDG", "SYNCS")}
+
+
 def attention_bf16_bound_ms(B, S, H, hd, out_bytes: int) -> tuple[float, str]:
     """Least time: bf16 q, k, v read once and o written once over the HBM rate,
     vs the two S x S x hd products over the bf16 peak."""
@@ -631,10 +646,9 @@ def phase_attention_bf16(ab, k1_dfn5b: dict) -> dict:
              "fullseq": ("exp/dfn5b_attention.py:131", head_major, S2, 1.0, torch.float32),
              "allheads": ("exp/dfn5b_attention.py:175", proj, S2, 1.0, bf),
              "direct": ("exp/dfn5b_attention.py:246", proj, S2, 1.0, torch.float32)}
-    lines = {}
-    for name, (replaces, (q, k, v), sv, scale, od) in cases.items():
-        run = lambda: ab.attention_bf16(q, k, v, sv, scale, od)  # noqa: E731
-        out = run()
+
+    def check(q, k, v, sv, scale, od) -> tuple[bool, float, float, str]:
+        out = ab.attention_bf16(q, k, v, sv, scale, od)
         torch.cuda.synchronize()
         ref = ab.attention_bf16_reference(q, k, v, sv, scale, od)
         diff = (out.float() - ref.float()).abs()
@@ -643,15 +657,37 @@ def phase_attention_bf16(ab, k1_dfn5b: dict) -> dict:
         rel_fro = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
         rel_bar = KERNEL_REL_FRO_BF16 if od == bf else KERNEL_REL_FRO
         ok = bool((diff <= KERNEL_ATOL + 2.0 ** -7 * vmax + ulp).all()) and rel_fro <= rel_bar
+        tol = (f"|d| <= {KERNEL_ATOL} + 2^-7 max|v|{' + 1 bf16 ulp' if od == bf else ''}, "
+               f"rel_fro <= {rel_bar}")
+        return ok, diff.max().item(), rel_fro, tol
+
+    # Edges of the tensor maps and the ring: s_valid within, at and past a
+    # 64-key tile and a 128-query block; hd 72 (an atom zero-filled past hd)
+    # and 128 (two full atoms); a head dimension of size 1
+    edges = [(f"s_valid_{sv}", (2, 160, 3, 64), sv, torch.float32) for sv in (1, 63, 65, 129)]
+    edges += [(f"hd{hd}_{str(od)[6:]}", (2, 100, 3, hd), 100, od) for hd in (72, 128)
+              for od in (torch.float32, bf)]
+    edges += [("heads_1", (4, 96, 1, 64), 90, torch.float32)]
+    for name, shape, sv, od in edges:
+        q, k, v = (torch.randn(*shape, device="cuda", generator=gen).to(bf) for _ in range(3))
+        ok, err, rel_fro, tol = check(q, k, v, sv, 1.0 / math.sqrt(shape[3]), od)
+        emit({"phase": "kernel", "name": "attention_bf16", "case": name, "shape": list(shape),
+              "s_valid": sv, "out_dtype": str(od), "max_abs_err": err, "rel_fro_err": rel_fro,
+              "tol": tol, "ok": ok})
+        if not ok:
+            raise SystemExit(f"attention_bf16 ({name}) disagrees with its plain version")
+
+    lines = {}
+    for name, (replaces, (q, k, v), sv, scale, od) in cases.items():
+        run = lambda: ab.attention_bf16(q, k, v, sv, scale, od)  # noqa: E731
+        ok, err, rel_fro, tol = check(q, k, v, sv, scale, od)
         qt, kt, vt = (t[:, :sv].transpose(1, 2) for t in (q, k, v))
         bound_ms, bound_by = attention_bf16_bound_ms(q.shape[0], sv, q.shape[2], q.shape[3],
                                                      od.itemsize)
         line = {"phase": "kernel", "name": "attention_bf16", "replaces": replaces, "case": name,
                 "shape": [q.shape[0], sv, q.shape[2], q.shape[3]], "strides": list(q.stride()),
-                "out_dtype": str(od), "scale": scale, "max_abs_err": diff.max().item(),
-                "rel_fro_err": rel_fro,
-                "tol": f"|d| <= {KERNEL_ATOL} + 2^-7 max|v|{' + 1 bf16 ulp' if od == bf else ''}, "
-                       f"rel_fro <= {rel_bar}", "ok": ok,
+                "out_dtype": str(od), "scale": scale, "max_abs_err": err, "rel_fro_err": rel_fro,
+                "tol": tol, "ok": ok,
                 "ms": cuda_ms(run), "plain_ms": cuda_ms(lambda: ab.attention_bf16_reference(
                     q, k, v, sv, scale, od), iters=3, warmup=1),
                 "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)),
@@ -662,7 +698,6 @@ def phase_attention_bf16(ab, k1_dfn5b: dict) -> dict:
         if not ok:
             raise SystemExit(f"attention_bf16 ({name}) disagrees with its plain version")
         lines[name] = line
-        del out, ref, diff
     return lines
 
 
@@ -677,13 +712,17 @@ def matmul_bound_ms(M: int, N: int, K: int, in_bytes: int, out_elems: int,
 
 # (label, input form, M, K, N, bn): exp/pallas_int8_matmul.py make_matmul's
 # shape (full output), exp/pallas_int8_rate_pin.py make_mm's (checksum over
-# bn=512 column blocks), and ragged shapes (edges, other bn)
+# bn=512 column blocks), ragged shapes (other bn), and the bf16 kernel's
+# edges (one row; a tile row and K stage past a whole number, whole and with
+# bn = 16)
 TILED_CASES = [("make_matmul", "s8", 16384, 1280, 5120, None),
                ("make_matmul", "bf16", 16384, 1280, 5120, None),
                ("make_mm", "f32", 8192, 1280, 5120, 512), ("make_mm", "bf16", 8192, 1280, 5120, 512),
                ("make_mm", "s8", 8192, 1280, 5120, 512),
                ("ragged", "s8", 1000, 272, 400, None), ("ragged", "bf16", 1000, 272, 400, 80),
-               ("ragged", "f32", 1000, 272, 400, 40), ("ragged", "s8", 1000, 272, 400, 16)]
+               ("ragged", "f32", 1000, 272, 400, 40), ("ragged", "s8", 1000, 272, 400, 16),
+               ("edge", "bf16", 1, 16, 16, None), ("edge", "bf16", 1, 16, 16, 16),
+               ("edge", "bf16", 129, 1040, 272, None), ("edge", "bf16", 129, 1040, 272, 16)]
 TILED_FORMS = {"s8": (torch.int8, 1, INT8_OP_PER_S), "bf16": (torch.bfloat16, 2, BF16_FLOP_PER_S),
                "f32": (torch.float32, 4, FP32_FLOP_PER_S)}
 
@@ -739,7 +778,7 @@ def phase_tiled_matmul(tm) -> dict:
         emit(line)
         if not ok:
             raise SystemExit(f"tiled_matmul ({label}, {form}) disagrees with its plain version")
-        if label != "ragged":
+        if label in ("make_matmul", "make_mm"):
             picked[(label, form)] = line
         del x, w, out, ref
     # The s8 checksum's int32 sums wrap past 2^31 as the probe's int32 scratch does
@@ -1633,11 +1672,18 @@ def main() -> int:
     sources = [attention.SOURCE, dropout.SOURCE, int8_matmul.SOURCE, beam_reorder.SOURCE,
                attention_bf16.SOURCE, tiled_matmul.SOURCE, flash_attention.SOURCE]
     libs = build.build_all(sources, force=True)
+    # The Hopper designs (wgmma, TMA, mbarriers) are what was built
+    sass = {build.library_path(s).name: sass_counts(build.library_path(s))
+            for s in (attention_bf16.SOURCE, tiled_matmul.SOURCE)}
     emit({"phase": "build", "kernels": [os.path.relpath(str(s), REPO) for s in sources],
           "libraries": [os.path.relpath(str(lib), REPO) for lib in libs],
           "seconds": time.perf_counter() - t0,
           "ptxas": {s.name: [line for line in build.ptxas_path(s).read_text().splitlines()
-                             if "registers" in line or "spill" in line] for s in sources}})
+                             if "registers" in line or "spill" in line] for s in sources},
+          "sass": sass})
+    for lib, counts in sass.items():
+        if not counts["HGMMA"] or not counts["UTMALDG"]:
+            raise SystemExit(f"{lib}: no wgmma (HGMMA) or no TMA load (UTMALDG) in its SASS: {counts}")
 
     # 3. kernels vs plain
     k1, k1_dfn5b = phase_kernel(attention)

@@ -13,7 +13,10 @@ place; the result holds the s_valid queries, (B, s_valid, H, hd).
 
 * On CPU tensors it runs `attention_bf16_reference`, the plain version.
 * On CUDA tensors it launches the kernel in csrc/attention_bf16.cu, or raises.
-  It never falls back to the plain version.
+  It never falls back to the plain version. The kernel reads q, k and v by TMA
+  through tensor maps that `_tma_plan` lays out (dims, byte strides, box);
+  a view a map cannot take (a base or stride not a multiple of 16 bytes) is
+  refused before any launch.
 
 The harness wrappers: `fused_attention2` (exp/pallas_attn_v2.py, X1) reads the
 (B, S, E) projections in place; `attn_fullseq`, `attn_allheads` and
@@ -43,6 +46,7 @@ from novic_tpu_torch.ops import build as _build
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
 SOURCE = _build.CSRC / "attention_bf16.cu"
+MAX_HD = 128  # the largest hd the kernel takes (a multiple of 8)
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
 _lib_lock = threading.Lock()
@@ -75,10 +79,9 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             lib.novic_attention_bf16.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                                               ctypes.c_void_p])
             lib.novic_attention_bf16.restype = ctypes.c_int
-            lib.novic_attention_bf16_max_hd.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -98,31 +101,61 @@ def _check(q, k, v, s_valid: int, out_dtype: torch.dtype) -> None:
         raise ValueError(f"attention_bf16: out_dtype must be float32 or bfloat16, got {out_dtype}")
 
 
-def _strides(t: torch.Tensor) -> list[int]:
-    """(batch, seq, head) element strides; a dimension of size 1 gets 0 (never stepped)."""
-    return [s if n > 1 else 0 for n, s in zip(t.shape[:3], t.stride()[:3])]
+TMA_ATOM = 64   # bf16 per 128-byte swizzled row: a box's innermost extent
+KV_ROWS = 64    # the kernel's key tile
+
+
+def q_rows(hd: int) -> int:
+    """The kernel's query block: 64 rows for each consumer warpgroup, two
+    where a row of hd features is one 64-wide atom, else three."""
+    return 128 if hd <= TMA_ATOM else 192
+
+
+def _tma_plan(t: torch.Tensor, s_valid: int, rows: int) -> list[int]:
+    """The kernel's tensor map of a (B, S, H, hd) bf16 view: dims (hd, s_valid,
+    H, B) innermost first, the byte strides of dims 1-3, and a box of one
+    64-wide atom by `rows`. The seq extent s_valid keeps rows past it unread
+    and the hd extent zero-fills the atom past hd. A size-1 dimension is never
+    stepped; it gets the byte span of the dimensions inside it, since a map's
+    strides are positive."""
+    B, _, H, hd = t.shape
+    dims = [hd, s_valid, H, B]
+    es = t.element_size()
+    span, strides = hd * es, []
+    for n, st in zip(dims[1:], (t.stride(1), t.stride(2), t.stride(0))):
+        sb = st * es if n > 1 else span
+        strides.append(sb)
+        span = max(span, sb * n)
+    return dims + strides + [TMA_ATOM, rows, 1, 1]
+
+
+def _check_map(name: str, t: torch.Tensor, plan: list[int]) -> None:
+    """Raise where a tensor map cannot take the view: TMA reads from a 16-byte
+    aligned base with byte strides that are positive multiples of 16."""
+    strides = plan[4:7]
+    if t.data_ptr() % 16 or any(s <= 0 or s % 16 for s in strides):
+        raise ValueError(f"attention_bf16: {name} must be 16-byte aligned with strides that are "
+                         f"multiples of 16 bytes, got element strides {tuple(t.stride())}")
 
 
 def _launch(q, k, v, s_valid: int, scale: float, out_dtype: torch.dtype) -> torch.Tensor:
     global LAUNCHES
     B, _, H, hd = q.shape
+    if hd % 8 or hd > MAX_HD:
+        raise ValueError(f"attention_bf16: unsupported hd={hd} (a multiple of 8, at most {MAX_HD})")
+    plan = []
+    for name, t, rows in (("q", q, q_rows(hd)), ("k", k, KV_ROWS), ("v", v, KV_ROWS)):
+        p = _tma_plan(t, s_valid, rows)
+        _check_map(name, t, p)
+        plan += p
     lib = _library()
-    if hd % 8 or hd > lib.novic_attention_bf16_max_hd():
-        raise ValueError(f"attention_bf16: unsupported hd={hd} (a multiple of 8, at most "
-                         f"{lib.novic_attention_bf16_max_hd()})")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"attention_bf16: B={B} and H={H} must be at most 65535")
     out = torch.empty((B, s_valid, H, hd), dtype=out_dtype, device=q.device)
-    strides = []
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        st = _strides(t)
-        if t.data_ptr() % 16 or any(s % 8 for s in st):
-            raise ValueError(f"attention_bf16: {name} must be 16-byte aligned with strides "
-                             f"that are multiples of 8 elements, got {tuple(t.stride())}")
-        strides += st
+    ostrides = [out.stride(0), out.stride(1), out.stride(2)]
     with torch.cuda.device(q.device):
         err = lib.novic_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                       ctypes.cast((ctypes.c_longlong * 12)(*strides),
+                                       ctypes.cast((ctypes.c_longlong * 33)(*plan),
+                                                   ctypes.c_void_p),
+                                       ctypes.cast((ctypes.c_longlong * 3)(*ostrides),
                                                    ctypes.c_void_p),
                                        B, H, s_valid, hd, scale, int(out_dtype == torch.bfloat16),
                                        torch.cuda.current_stream(q.device).cuda_stream)

@@ -13,113 +13,126 @@
 //   * keys at or past s_valid are masked (-1e30 there; exp gives 0 for both);
 //   * p = exp(s - max) / sum, NORMALISED, then rounded to bf16;
 //   * o = p.v accumulated in float32, stored as float32 or rounded to bf16.
-// The Pallas kernels differ only in the layouts they read and write, which
-// this kernel takes as a base pointer and (batch, seq, head) element strides
-// with hd contiguous: X1's (B, S, E), fullseq's (B*H, SP, hd) and
-// allheads/direct's (B, SP, H, hd) are all read in place. Nothing at or past
-// s_valid is read, and queries there are not computed (the harnesses slice
-// them off).
+// The Pallas kernels differ only in the layouts they read and write. This
+// kernel reads q, k and v through 4-D tensor maps (hd, s_valid, H, B) whose
+// byte strides the wrapper plans (`_tma_plan` in ops/attention_bf16.py), so
+// X1's (B, S, E), fullseq's (B*H, SP, 1, hd) and allheads/direct's (B, SP, H,
+// hd) are all read in place; the maps' extents zero-fill features past hd and
+// rows past s_valid, which are never read. Queries past s_valid are not
+// stored (the harnesses slice them off).
 //
-// Layout: q, k, v bf16, o float32 or bf16, each 16-byte aligned with strides
-// that are multiples of 8 elements; hd a multiple of 8, at most 128 (zero
-// padded to the tensor-core depth of 16 in shared memory); any s_valid >= 1.
+// Layout: q, k, v bf16, 16-byte aligned, hd contiguous, other strides
+// multiples of 16 bytes; hd a multiple of 8, at most 128; any s_valid >= 1.
+// o float32 or bf16 with element strides (batch, seq, head), hd contiguous.
 //
-// Design (right and simple first), as the port's K1 (attention.cu): one block
-// of 8 warps per (batch, head, 128 queries), each warp 16 query rows held in
-// mma.sync m16n8k16 bf16 fragments. The block walks the keys twice in tiles of
-// 64 through a 2-stage cp.async ring (k, and v in the second pass, copied as
-// they are: no conversion on the way in). Pass 1 keeps each row's running max
-// and its sum of exps rescaled to it; pass 2 forms the normalised p, rounds it
-// to bf16 in registers (the score accumulator layout is the A operand layout
-// of the next mma) and accumulates p.v. k fragments come from ldmatrix, v
-// fragments from ldmatrix.trans.
+// Design (Hopper): a persistent kernel; each block walks work items (batch,
+// head, query block). Where hd <= 64 a block has two consumer warpgroups
+// (128 queries) and two blocks share an SM; else three (192 queries) and one
+// block an SM. The last warpgroup is the producer: one thread loads each
+// item's q tile by TMA into one of two buffers (the next item's q lands while
+// this one's is read), then streams 64-key tiles through a shared-memory
+// ring (4 stages) by TMA, each stage completed on a `full` mbarrier by its
+// transaction bytes and released on an `empty` mbarrier by every consumer
+// thread; it runs ahead into the next item while the consumers finish this
+// one. Each consumer warpgroup owns 64 query rows of an item and walks its
+// keys twice:
+//   pass 1: S = q.k^T by wgmma m64n64k16 (both operands from shared memory,
+//     128-byte swizzled, K-major), scaled and masked in float32; each thread
+//     keeps a running max and a sum of exps (ex2.approx on (s - m) * log2 e,
+//     s - m taken in float32) per row, rescaled once per tile; the four
+//     threads of a row merge after the pass;
+//   pass 2: S again by wgmma, p = exp(s - m) * (1 / l) (one reciprocal per
+//     row), rounded to bf16 in registers, where the score accumulator's layout
+//     is the register A operand's; O += P.v by wgmma m64n{hd}k16 in its RS
+//     form, v read from shared memory as the MN-major B operand (transpose
+//     bit); the first product overwrites O, so no other instruction writes an
+//     accumulator (ptxas serialises wgmmas around such writes). A row of 80
+//     or 128 features lands as two 64-wide swizzle atoms.
+// The consumer warpgroups (and, at hd <= 64, the other block's) take turns
+// on the SM: while one computes its exps another's wgmma runs. The producer
+// gives up registers (setmaxnreg) to the consumers. Issuing the next tile's
+// S before this tile's exps, within a warpgroup, measured slower.
 //
 // Bound on the H100 at X2's shape (B=32, S=730, H=16, hd=80): the two
 // products are 4*B*H*S^2*hd = 87.3 GFLOP, 0.0883 ms at the 989 TFLOP/s bf16
 // peak; q, k, v in bf16 and o in float32 are 299 MB, 0.0893 ms at 3.35 TB/s
 // (bf16 out: 239 MB, 0.0714 ms, so operations bound it). At X1's (256, 196,
-// 12, 64): 385 MB, 0.1150 ms, bytes. The kernel reads q, k, v and writes o
-// once from device memory (k and v of a head are re-read from L2 by each of
-// its query tiles), so what separates it from the bound is compute: pass 2
-// recomputes q.k^T (1.5x the products' operations), mma.sync runs below the
-// wgmma rate, and exp and the division run per score on the CUDA cores in
-// both passes. wgmma, one pass with a rescaled output, and warp specialisation
-// are later work.
+// 12, 64): 385 MB, 0.1150 ms, bytes. The kernel reads q, k, v once from device
+// memory (each query tile re-reads its head's k and v from L2) and writes o
+// once in full 32-byte sectors; pass 2's recompute of q.k^T is 1.5x the
+// products' operations.
 //
 // Tolerance: products of bf16 values are exact in float32; sums run in
-// another order than the plain version's, so a row sum can differ in its last
-// bit and move the bf16 rounding of a p by one ulp (<= 2^-7 p): an output then
+// another order than the plain version's, the exps are ex2.approx and p is
+// multiplied by 1 / l, so a p can differ from the plain version's in its last
+// float32 bits and its bf16 rounding by one ulp (<= 2^-7 p): an output then
 // differs by at most 2^-7 * max|v| over the keys, plus one bf16 ulp of the
 // output where it is stored as bf16.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <math.h>
 
+#include "hopper_common.cuh"
 #include "mma_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kQTile = 16 * kWarps;  // queries per block
-constexpr int kKTile = 64;           // keys per shared-memory stage
-constexpr int kMaxHd = 128;
+constexpr int kSmemMax = 232448;                   // shared memory a block can have
+constexpr int kKTile = 64;                         // keys per stage
+constexpr int kAtom = 64;                          // bf16 per 128-byte swizzled row
+constexpr int kMaxHd = 128;                        // as the wrapper's MAX_HD
 constexpr int kMaxDevices = 64;
+constexpr int kProducerRegs = 24;                  // setmaxnreg of the producer warpgroup
+// The shape of a block for hd in `na` 64-wide atoms. hd <= 64: two consumer
+// warpgroups of 64 query rows, two blocks an SM (97 KB of shared memory and
+// 104 registers a consumer thread each), so that one block's exps overlap the
+// other's products and loads. hd > 64: three consumer warpgroups, one block
+// an SM (225 KB, 160 registers). Each block adds a producer warpgroup.
+__host__ __device__ constexpr int consumers(int na) { return na == 1 ? 2 : 3; }
+__host__ __device__ constexpr int blocks_per_sm(int na) { return na == 1 ? 2 : 1; }
+__host__ __device__ constexpr int threads(int na) { return 128 * (consumers(na) + 1); }
+__host__ __device__ constexpr int q_tile(int na) { return 64 * consumers(na); }
+// setmaxnreg moves registers within a block: each thread starts with the
+// launch's share of the SM's 65,536 (a multiple of 8), the producer keeps
+// few, and the consumers share what it gives up
+__host__ __device__ constexpr int launch_regs(int na) {
+  return 65536 / (threads(na) * blocks_per_sm(na)) / 8 * 8;
+}
+__host__ __device__ constexpr int consumer_regs(int na) {
+  return (threads(na) * launch_regs(na) - 128 * kProducerRegs) / (128 * consumers(na)) / 8 * 8;
+}
+constexpr int kPlanLen = 11;                       // per map: 4 dims, 3 strides, 4 box
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   long long b, s, h;  // in elements; hd is contiguous
 };
 
-template <int HDP>  // hd padded to a multiple of 16
-struct Tile {
-  static constexpr int LD = HDP + 8;  // bf16 row stride: conflict-free ldmatrix rows
-  static constexpr int kElems = kKTile * LD;
-  static constexpr int kSmemBytes = 2 * 2 * kElems * 2;  // 2 stages x (k, v) x bf16
+// Shared memory for hd in NA 64-wide atoms: two q buffers (NA atoms of
+// q_tile rows each), the ring (per stage: k then v, NA atoms of kKTile rows each),
+// the barriers
+template <int NA>
+struct Smem {
+  static constexpr int kQBytes = NA * q_tile(NA) * 128;
+  static constexpr int kKVBytes = NA * kKTile * 128;
+  static constexpr int kStageBytes = 2 * kKVBytes;
+  // As many stages as fit, up to 4 (the barriers and the alignment slack
+  // take the last 1.1 KB)
+  static constexpr int kFit =
+      (kSmemMax / blocks_per_sm(NA) - 2 * kQBytes - 1024 - 12 * 8 - 1024) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kBarOffset = 2 * kQBytes + kStages * kStageBytes;
+  static constexpr int kBytes = kBarOffset + (2 * kStages + 4) * 8 + 1024;  // + alignment
+  static_assert(kStages >= 2 && kBytes <= kSmemMax, "shared memory");
 };
 
-// Rows [k0, k0 + kKTile) of one head (`head` points at its seq 0, feature 0)
-// into `dst` with cp.async; rows at or past s_valid and columns at or past hd
-// are zero-filled without reading.
-template <int HDP>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* head,
-                                          long long seq_stride, int k0, int s_valid, int hd) {
-  constexpr int kChunks = HDP / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kKTile * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = 8 * (i % kChunks);
-    const bool valid = k0 + r < s_valid && c < hd;
-    const __nv_bfloat16* src = valid ? head + (long long)(k0 + r) * seq_stride + c : head;
-    cp_async16(smem_u32(dst + r * Tile<HDP>::LD + c), src, valid ? 16 : 0);
-  }
-}
-
-// Scores of one warp's 16 rows against keys [key0, key0 + 16): two m16n8
-// accumulators; element j of sc[t] is row (j < 2 ? row0 : row1), key
-// key0 + 8t + 2c + (j & 1). `kaddr` is this lane's ldmatrix address of the
-// chunk's first key row. Scaled in float32; keys at or past s_valid are -inf.
-template <int KSTEPS>
-__device__ __forceinline__ void score_chunk(float (&sc)[2][4], const uint32_t (&qa)[KSTEPS][4],
-                                            uint32_t kaddr, int key0, int s_valid, float scale,
-                                            int c) {
-#pragma unroll
-  for (int t = 0; t < 2; ++t)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sc[t][j] = 0.f;
-#pragma unroll
-  for (int s = 0; s < KSTEPS; ++s) {
-    uint32_t kb[4];  // b0, b1 of keys 0-7, then of keys 8-15
-    ldmatrix_x4(kb, kaddr + s * 16 * 2);
-    mma_bf16(sc[0], qa[s], kb[0], kb[1]);
-    mma_bf16(sc[1], qa[s], kb[2], kb[3]);
-  }
-#pragma unroll
-  for (int t = 0; t < 2; ++t)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = key0 + t * 8 + 2 * c + (j & 1);
-      sc[t][j] = key < s_valid ? sc[t][j] * scale : -INFINITY;
-    }
+__device__ __forceinline__ float ex2(float x) {  // 2^x; 0 for -inf
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 template <bool kOutBF16>
@@ -131,144 +144,217 @@ __device__ __forceinline__ void store_pair(void* o, long long idx, float x, floa
   }
 }
 
-template <int KSTEPS, bool kOutBF16>  // KSTEPS = padded hd / 16
-__global__ void __launch_bounds__(kThreads, 2)
-attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, void* __restrict__ o, Strides qs,
-                      Strides ks, Strides vs, Strides os, int s_valid, int hd, float scale) {
-  constexpr int HDP = 16 * KSTEPS;
-  constexpr int LD = Tile<HDP>::LD;
-  constexpr int kElems = Tile<HDP>::kElems;
-  constexpr int DTILES = HDP / 8;  // even: v fragments come two n8 tiles at a time
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];  // stage s: k at 2s, v at 2s + 1
+// A block's work item: (query block, head, batch), query blocks fastest so
+// that the blocks running together share their heads' k and v in L2
+struct Item {
+  int q0, h, b;
+  __device__ Item(int item, int nq, int H, int q_tile)
+      : q0((item % nq) * q_tile), h((item / nq) % H), b(item / nq / H) {}
+};
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c = lane % 4;  // mma group (row) and thread-in-group
-  const int h = blockIdx.y, b = blockIdx.z;
-  const __nv_bfloat16* qh = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kh = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vh = v + b * vs.b + h * vs.h;
-  const int row0 = blockIdx.x * kQTile + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const int row1 = row0 + 8;
+template <int KS, bool kOutBF16>  // KS = hd / 16, rounded up: k-steps of q.k^T
+__global__ void __launch_bounds__(threads((KS + 3) / 4), blocks_per_sm((KS + 3) / 4))
+attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, void* __restrict__ o, Strides os,
+                      int H, int items, int s_valid, int hd, float scale) {
+  constexpr int NA = (KS + 3) / 4;  // 64-wide atoms of a row
+  constexpr int HDP = 16 * KS;      // the P.v product's N
+  using L = Smem<NA>;
+  constexpr int kStages = L::kStages, kConsumers = consumers(NA), kQTile = q_tile(NA);
+  constexpr int kSRegs = kKTile / 2, kORegs = HDP / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* empty = full + kStages;
+  uint64_t* qfull = empty + kStages;  // two q buffers
+  uint64_t* qempty = qfull + 2;
+  const int wg = threadIdx.x / 128;
+  const int nq = (s_valid + kQTile - 1) / kQTile;
+  const int ntiles = (s_valid + kKTile - 1) / kKTile;  // key tiles of one pass
+  auto stage = [&](int it) { return smem + 2 * L::kQBytes + (it % kStages) * L::kStageBytes; };
+  auto parity = [](int it) { return (uint32_t)(it / kStages) & 1; };
 
-  // q fragments (A operand, 16 rows x HDP), bf16 pairs as they are stored
-  uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int s = 0; s < KSTEPS; ++s) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = (j & 1) ? row1 : row0;
-      const int col = s * 16 + 2 * c + ((j & 2) ? 8 : 0);
-      qa[s][j] = r < s_valid && col < hd
-                     ? *reinterpret_cast<const uint32_t*>(qh + r * qs.s + col)
-                     : 0u;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * kConsumers);
     }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&qfull[i], 1);
+      mbar_init(&qempty[i], 128 * kConsumers);
+    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  // This lane's ldmatrix offsets (elements) in a tile: k rows (keys) 0-7 at
-  // features 0-7 / 8-15 give b0 / b1 of keys 0-7, lanes 16-31 those of keys
-  // 8-15; v (transposed) keys 0-7 / 8-15 give b0 / b1 of features 0-7, lanes
-  // 16-31 those of features 8-15
-  const int k_lane = ((lane & 7) + ((lane >> 4) & 1) * 8) * LD + ((lane >> 3) & 1) * 8;
-  const int v_lane = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
-
-  // Per-thread running max and sum of exps over this thread's keys (merged
-  // across the four threads of a row after pass 1)
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float out[DTILES][4];
-#pragma unroll
-  for (int t = 0; t < DTILES; ++t)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[t][j] = 0.f;
-
-  const int ntiles = (s_valid + kKTile - 1) / kKTile;
-  for (int pass = 0; pass < 2; ++pass) {
-    load_tile<HDP>(smem, kh, ks.s, 0, s_valid, hd);
-    if (pass == 1) load_tile<HDP>(smem + kElems, vh, vs.s, 0, s_valid, hd);
-    cp_async_commit();
-    for (int t = 0; t < ntiles; ++t) {
-      const int st = t & 1;
-      if (t + 1 < ntiles) {
-        __nv_bfloat16* next = smem + 2 * (st ^ 1) * kElems;
-        load_tile<HDP>(next, kh, ks.s, (t + 1) * kKTile, s_valid, hd);
-        if (pass == 1) load_tile<HDP>(next + kElems, vh, vs.s, (t + 1) * kKTile, s_valid, hd);
+  if (wg == kConsumers) {
+    // ---- producer: one thread issues every load, running ahead into the
+    // next item while the consumers finish this one ----
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 128 * kConsumers) {
+      prefetch_map(&qmap);
+      prefetch_map(&kmap);
+      prefetch_map(&vmap);
+      int it = 0;
+      for (int item = blockIdx.x, n = 0; item < items; item += gridDim.x, ++n) {
+        const Item w(item, nq, H, kQTile);
+        const int qb = n & 1;
+        mbar_wait(&qempty[qb], ((n >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(&qfull[qb], L::kQBytes);
+        for (int a = 0; a < NA; ++a)
+          tma_load_4d(smem + qb * L::kQBytes + a * kQTile * 128, &qmap, &qfull[qb], a * kAtom,
+                      w.q0, w.h, w.b);
+        for (int j = 0; j < 2 * ntiles; ++j, ++it) {
+          const bool pass2 = j >= ntiles;
+          const int key0 = (j % ntiles) * kKTile;
+          uint64_t* bar = &full[it % kStages];
+          mbar_wait(&empty[it % kStages], parity(it) ^ 1);
+          uint8_t* kv = stage(it);
+          mbar_arrive_expect_tx(bar, (pass2 ? 2 : 1) * L::kKVBytes);
+          for (int a = 0; a < NA; ++a)
+            tma_load_4d(kv + a * kKTile * 128, &kmap, bar, a * kAtom, key0, w.h, w.b);
+          if (pass2)
+            for (int a = 0; a < NA; ++a)
+              tma_load_4d(kv + L::kKVBytes + a * kKTile * 128, &vmap, bar, a * kAtom, key0, w.h,
+                          w.b);
+        }
       }
-      cp_async_commit();
-      cp_async_wait<1>();  // tile t has landed
-      __syncthreads();     // ... for every thread
-      const uint32_t kbase = smem_u32(smem + 2 * st * kElems);
-      const uint32_t vbase = kbase + kElems * 2;
-      const int k0 = t * kKTile;
-      const int kn = min(kKTile, s_valid - k0);
-      for (int kk = 0; kk < kn; kk += 16) {
-        float sc[2][4];
-        score_chunk<KSTEPS>(sc, qa, kbase + (k_lane + kk * LD) * 2, k0 + kk, s_valid, scale, c);
-        if (pass == 0) {
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows [q0 + 64 wg, +64) of each item ----
+    regs_alloc<consumer_regs(NA)>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int r0 = 16 * (t / 32) + lane / 4;  // this thread's rows r0, r0 + 8 of the 64
+    const int c2 = 2 * (lane % 4);            // its first column in each n8 block
+    int it = 0;  // ring slot, counted across items as the producer counts
+    for (int item = blockIdx.x, n = 0; item < items; item += gridDim.x, ++n) {
+      const Item w(item, nq, H, kQTile);
+      const int qb = n & 1;
+      const uint32_t q_base = smem_addr(smem + qb * L::kQBytes) + wg * 64 * 128;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
+      // O's registers are written only by wgmma (the first P.v overwrites
+      // them): ptxas serialises wgmmas around other writes to an accumulator
+      float acc[kORegs];
+      mbar_wait(&qfull[qb], (n >> 1) & 1);
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const float cmax = fmaxf(fmaxf(sc[0][2 * i], sc[0][2 * i + 1]),
-                                     fmaxf(sc[1][2 * i], sc[1][2 * i + 1]));
-            const float m_new = fmaxf(m[i], cmax);
-            if (m_new == -INFINITY) continue;  // no valid key seen yet
-            l[i] = l[i] * expf(m[i] - m_new) + expf(sc[0][2 * i] - m_new) +
-                   expf(sc[0][2 * i + 1] - m_new) + expf(sc[1][2 * i] - m_new) +
-                   expf(sc[1][2 * i + 1] - m_new);
-            m[i] = m_new;
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int tile = 0; tile < ntiles; ++tile, ++it) {
+          const int st = it % kStages;
+          mbar_wait(&full[st], parity(it));
+          const uint32_t k_base = smem_addr(stage(it));
+          float s[kSRegs];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            const uint32_t off = (kk % 4) * 32;  // 16 k-elements into the atom
+            wgmma_ss<kKTile, 0>(s, desc_b128(q_base + (kk / 4) * kQTile * 128 + off, 16, 1024),
+                                desc_b128(k_base + (kk / 4) * kKTile * 128 + off, 16, 1024),
+                                kk > 0);
           }
-        } else {
-          // P (normalised, rounded to bf16) as the A fragment of the next mma
-          float p[2][4];
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(s);
+          if (pass == 0) mbar_arrive(&empty[st]);  // k is no longer read
+
+          // Scale in float32; keys at or past s_valid (zero-filled) get -inf
+          const int key0 = tile * kKTile;
 #pragma unroll
-          for (int u = 0; u < 2; ++u)
+          for (int i = 0; i < kSRegs; ++i) s[i] *= scale;
+          if (key0 + kKTile > s_valid) {
 #pragma unroll
-            for (int j = 0; j < 4; ++j) p[u][j] = expf(sc[u][j] - m[j >> 1]) / l[j >> 1];
-          const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
-                                  pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+            for (int i = 0; i < kSRegs; ++i)
+              if (key0 + 8 * (i / 4) + c2 + (i & 1) >= s_valid) s[i] = -INFINITY;
+          }
+
+          if (pass == 0) {
 #pragma unroll
-          for (int u = 0; u < DTILES; u += 2) {
-            uint32_t vb[4];  // b0, b1 of features u*8.., then of (u+1)*8..
-            ldmatrix_x4_trans(vb, vbase + (v_lane + kk * LD + u * 8) * 2);
-            mma_bf16(out[u], pa, vb[0], vb[1]);
-            mma_bf16(out[u + 1], pa, vb[2], vb[3]);
+            for (int r = 0; r < 2; ++r) {  // element i is row r when (i / 2) % 2 == r
+              float tmax = -INFINITY;
+#pragma unroll
+              for (int j = 0; j < kKTile / 8; ++j)
+                tmax = fmaxf(tmax, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+              const float m_new = fmaxf(m[r], tmax);
+              if (m_new == -INFINITY) continue;  // no valid key seen yet
+              float sum = 0.f;
+#pragma unroll
+              for (int j = 0; j < kKTile / 8; ++j)
+                sum += ex2((s[4 * j + 2 * r] - m_new) * kLog2e) +
+                       ex2((s[4 * j + 2 * r + 1] - m_new) * kLog2e);
+              l[r] = l[r] * ex2((m[r] - m_new) * kLog2e) + sum;
+              m[r] = m_new;
+            }
+          } else {
+            // P normalised and rounded to bf16, as the A operand of 16-key
+            // slices: a0 row r0 keys 2c.., a1 row r0 + 8, a2 / a3 keys 8 + 2c..
+            uint32_t p[kKTile / 16][4];
+#pragma unroll
+            for (int kk = 0; kk < kKTile / 16; ++kk)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int i = 8 * kk + 2 * e, r = e & 1;
+                p[kk][e] = pack_bf16(ex2((s[i] - m[r]) * kLog2e) * inv_l[r],
+                                     ex2((s[i + 1] - m[r]) * kLog2e) * inv_l[r]);
+              }
+            const uint32_t v_base = k_base + L::kKVBytes;
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kKTile / 16; ++kk)
+              wgmma_rs<HDP>(acc, p[kk], desc_b128(v_base + kk * 16 * 128, kKTile * 128, 1024),
+                            tile > 0 || kk > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(acc);
+            mbar_arrive(&empty[st]);  // k and v are no longer read
+          }
+        }
+        if (pass == 0) {
+          // Merge the four threads of each row (lanes 4g .. 4g + 3)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float mr = m[r];
+#pragma unroll
+            for (int off = 1; off < 4; off *= 2)
+              mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, off));
+            float lr = m[r] == -INFINITY ? 0.f : l[r] * ex2((m[r] - mr) * kLog2e);
+#pragma unroll
+            for (int off = 1; off < 4; off *= 2) lr += __shfl_xor_sync(0xffffffffu, lr, off);
+            m[r] = mr;
+            inv_l[r] = 1.f / lr;
           }
         }
       }
-      __syncthreads();  // stage st is consumed before it is refilled
-    }
-    if (pass == 0) {
-      // Merge the four threads of each row (lanes 4g .. 4g+3)
+      mbar_arrive(&qempty[qb]);  // q is no longer read
+
+      // acc: rows r0 (4j + 0, 1) and r0 + 8 (4j + 2, 3), features 8j + c2 + (0, 1)
+      const int row0 = w.q0 + wg * 64 + r0, row1 = row0 + 8;
+      const long long obase = w.b * os.b + w.h * os.h;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float mr = m[i];
-#pragma unroll
-        for (int off = 1; off < 4; off *= 2) mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, off));
-        float lr = m[i] == -INFINITY ? 0.f : l[i] * expf(m[i] - mr);
-#pragma unroll
-        for (int off = 1; off < 4; off *= 2) lr += __shfl_xor_sync(0xffffffffu, lr, off);
-        m[i] = mr;
-        l[i] = lr;
+      for (int jj = 0; jj < HDP / 8; ++jj) {
+        const int col = 8 * jj + c2;
+        if (col >= hd) continue;
+        if (row0 < s_valid)
+          store_pair<kOutBF16>(o, obase + row0 * os.s + col, acc[4 * jj], acc[4 * jj + 1]);
+        if (row1 < s_valid)
+          store_pair<kOutBF16>(o, obase + row1 * os.s + col, acc[4 * jj + 2], acc[4 * jj + 3]);
       }
     }
   }
-
-  // out[t]: rows row0 (j = 0, 1) and row1 (j = 2, 3), features t*8 + 2c + (j & 1)
-  const long long obase = b * os.b + h * os.h;
-#pragma unroll
-  for (int t = 0; t < DTILES; ++t) {
-    const int col = t * 8 + 2 * c;
-    if (col >= hd) continue;
-    if (row0 < s_valid) store_pair<kOutBF16>(o, obase + row0 * os.s + col, out[t][0], out[t][1]);
-    if (row1 < s_valid) store_pair<kOutBF16>(o, obase + row1 * os.s + col, out[t][2], out[t][3]);
-  }
 }
 
-template <int KSTEPS, bool kOutBF16>
-cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                   void* o, const Strides (&st)[4], int B, int H, int s_valid, int hd,
-                   float scale, cudaStream_t stream) {
-  auto kernel = attention_bf16_kernel<KSTEPS, kOutBF16>;
-  constexpr int kSmem = Tile<16 * KSTEPS>::kSmemBytes;
+// The plan of one map agrees with what the kernel loads: dims (hd, s_valid,
+// H, B) and a box of one 64-wide atom by `rows`
+bool plan_matches(const long long* p, int B, int H, int s_valid, int hd, int rows) {
+  return p[0] == hd && p[1] == s_valid && p[2] == H && p[3] == B && p[7] == kAtom &&
+         p[8] == rows && p[9] == 1 && p[10] == 1;
+}
+
+template <int KS, bool kOutBF16>
+cudaError_t launch(const void* const (&base)[3], const long long* plan, void* o, Strides os, int B,
+                   int H, int s_valid, int hd, float scale, cudaStream_t stream) {
+  auto kernel = attention_bf16_kernel<KS, kOutBF16>;
+  constexpr int kSmem = Smem<(KS + 3) / 4>::kBytes;
   static bool configured[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -279,25 +365,40 @@ cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bf
     if (err != cudaSuccess) return err;
     configured[dev] = true;
   }
-  const dim3 grid((s_valid + kQTile - 1) / kQTile, H, B);
-  kernel<<<grid, kThreads, kSmem, stream>>>(q, k, v, o, st[0], st[1], st[2], st[3], s_valid, hd,
-                                            scale);
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {
+    err = encode_bf16_map(&maps[i], base[i], 4, plan + kPlanLen * i);
+    if (err != cudaSuccess) return err;
+  }
+  // Persistent: at most blocks_per_sm blocks an SM, each walking items
+  // blockIdx.x, + gridDim.x, ...
+  static int sms[kMaxDevices] = {};
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  constexpr int NA = (KS + 3) / 4;
+  const long long items = (long long)((s_valid + q_tile(NA) - 1) / q_tile(NA)) * H * B;
+  if (items > INT32_MAX) return cudaErrorInvalidValue;
+  const int slots = sms[dev] * blocks_per_sm(NA);
+  const int grid = (int)(items < slots ? items : slots);
+  kernel<<<grid, threads(NA), kSmem, stream>>>(maps[0], maps[1], maps[2], o, os, H, (int)items,
+                                            s_valid, hd, scale);
   return cudaGetLastError();
 }
 
 template <bool kOutBF16>
-cudaError_t dispatch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                     void* o, const Strides (&st)[4], int B, int H, int s_valid, int hd,
-                     float scale, cudaStream_t stream) {
+cudaError_t dispatch(const void* const (&base)[3], const long long* plan, void* o, Strides os,
+                     int B, int H, int s_valid, int hd, float scale, cudaStream_t stream) {
   switch ((hd + 15) / 16) {
-    case 1: return launch<1, kOutBF16>(q, k, v, o, st, B, H, s_valid, hd, scale, stream);
-    case 2: return launch<2, kOutBF16>(q, k, v, o, st, B, H, s_valid, hd, scale, stream);
-    case 3: return launch<3, kOutBF16>(q, k, v, o, st, B, H, s_valid, hd, scale, stream);
-    case 4: return launch<4, kOutBF16>(q, k, v, o, st, B, H, s_valid, hd, scale, stream);
-    case 5: return launch<5, kOutBF16>(q, k, v, o, st, B, H, s_valid, hd, scale, stream);
-    case 6: return launch<6, kOutBF16>(q, k, v, o, st, B, H, s_valid, hd, scale, stream);
-    case 7: return launch<7, kOutBF16>(q, k, v, o, st, B, H, s_valid, hd, scale, stream);
-    default: return launch<8, kOutBF16>(q, k, v, o, st, B, H, s_valid, hd, scale, stream);
+    case 1: return launch<1, kOutBF16>(base, plan, o, os, B, H, s_valid, hd, scale, stream);
+    case 2: return launch<2, kOutBF16>(base, plan, o, os, B, H, s_valid, hd, scale, stream);
+    case 3: return launch<3, kOutBF16>(base, plan, o, os, B, H, s_valid, hd, scale, stream);
+    case 4: return launch<4, kOutBF16>(base, plan, o, os, B, H, s_valid, hd, scale, stream);
+    case 5: return launch<5, kOutBF16>(base, plan, o, os, B, H, s_valid, hd, scale, stream);
+    case 6: return launch<6, kOutBF16>(base, plan, o, os, B, H, s_valid, hd, scale, stream);
+    case 7: return launch<7, kOutBF16>(base, plan, o, os, B, H, s_valid, hd, scale, stream);
+    default: return launch<8, kOutBF16>(base, plan, o, os, B, H, s_valid, hd, scale, stream);
   }
 }
 
@@ -305,25 +406,25 @@ cudaError_t dispatch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_
 
 extern "C" {
 
-// Largest hd the kernel takes; the wrapper checks against it.
-int novic_attention_bf16_max_hd() { return kMaxHd; }
-
 // Launch on `stream`; returns the CUDA error of the launch (0 = success).
-// strides: 12 element strides, (batch, seq, head) of q, k, v and o in turn.
+// plan: the tensor maps of q, k and v in turn, 11 values each: dims (hd,
+// s_valid, H, B), byte strides of dims 1-3, box (64, rows, 1, 1): for q the
+// query block, 128 rows where hd <= 64, else 192; 64 for k and v. ostrides: o's (batch, seq, head) element strides.
 int novic_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                         const long long* strides, int B, int H, int s_valid, int hd,
-                         float scale, int out_bf16, void* stream) {
+                         const long long* plan, const long long* ostrides, int B, int H,
+                         int s_valid, int hd, float scale, int out_bf16, void* stream) {
   if (B <= 0 || H <= 0 || s_valid <= 0 || hd <= 0 || hd > kMaxHd || hd % 8 != 0 ||
-      strides == nullptr)
+      plan == nullptr || ostrides == nullptr)
     return (int)cudaErrorInvalidValue;
-  Strides st[4];
-  for (int i = 0; i < 4; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  if (!plan_matches(plan, B, H, s_valid, hd, q_tile(hd <= kAtom ? 1 : 2)) ||
+      !plan_matches(plan + kPlanLen, B, H, s_valid, hd, kKTile) ||
+      !plan_matches(plan + 2 * kPlanLen, B, H, s_valid, hd, kKTile))
+    return (int)cudaErrorInvalidValue;
+  const void* const base[3] = {q, k, v};
+  const Strides os{ostrides[0], ostrides[1], ostrides[2]};
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(out_bf16 ? dispatch<true>(qb, kb, vb, o, st, B, H, s_valid, hd, scale, s)
-                        : dispatch<false>(qb, kb, vb, o, st, B, H, s_valid, hd, scale, s));
+  return (int)(out_bf16 ? dispatch<true>(base, plan, o, os, B, H, s_valid, hd, scale, s)
+                        : dispatch<false>(base, plan, o, os, B, H, s_valid, hd, scale, s));
 }
 
 }  // extern "C"

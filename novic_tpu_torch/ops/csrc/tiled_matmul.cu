@@ -15,8 +15,7 @@
 //         shared memory as cp.async lands it (its 16-byte chunks XOR-swizzled
 //         by row), and each thread gathers the four k bytes of its fragment's
 //         column with byte loads and packs them.
-//   bf16  mma.sync m16n8k16 bf16 -> f32, B fragments by ldmatrix.trans from
-//         the row-major (k, n) tile.
+//   bf16  wgmma m64n256k16 bf16 -> f32 fed by TMA (below).
 //   f32   exact float32 FMA on the CUDA cores: Hopper's tensor cores have no
 //         full float32 mode, and TF32 is not the product the probe computes.
 // Epilogue 0 stores (M, N): int32 for s8, float32 otherwise. Epilogue 1, the
@@ -31,12 +30,30 @@
 // of 16 (the wrapper checks); any M >= 1; the checksum's bn a multiple of 8
 // that divides N.
 //
-// Design (right and simple first): blocks of 8 warps own a 128 x 128 output
-// tile. s8 and bf16 walk K 64 bytes at a time through a 4-stage cp.async ring,
+// Design. s8 (right and simple first): blocks of 8 warps own a 128 x 128
+// output tile and walk K 64 bytes at a time through a 4-stage cp.async ring,
 // each warp 64 x 32 outputs in 4 x 4 m16n8 accumulators, A fragments by
-// ldmatrix.x4, as in K2. f32 walks K 8 at a time, register-staged into a
-// double buffer (A transposed on the way in), each thread 8 x 8 outputs from
-// float4 shared-memory reads.
+// ldmatrix.x4, as in K2. f32: the same tile, K 8 at a time, register-staged
+// into a double buffer (A transposed on the way in), each thread 8 x 8 outputs
+// from float4 shared-memory reads. bf16 (Hopper): persistent blocks of three
+// warpgroups, one block an SM, in clusters of two; each cluster walks pairs
+// of 128 x 256 output tiles that share their columns (tile rows 2i, 2i + 1).
+// Warpgroup 2 is the producer: one thread streams its x tile (128 rows x 64
+// k, K-major) and half of the pair's w stage (two of its four 64-column
+// boxes of 64 k-rows: the MN-major B operand) by TMA through a 4-stage ring
+// of 48 KB stages, 128-byte swizzled; the w boxes are multicast into both
+// blocks of the cluster, so each stage of w is read from L2 once for two
+// tiles. A stage is complete on its `full` mbarrier when its 48 KB have
+// landed, and free on its `empty` one when every consumer warp of both
+// blocks has released it. Warpgroups 0 and 1 each own 64 rows x 256 columns
+// in 128 float32 registers a thread and issue four wgmma m64n256k16 a stage
+// (w with the transpose bit), keeping one stage's products in flight while
+// the next is issued; the producer runs ahead into the next tile while they
+// store. The tensor maps' extents zero-fill the ragged M, K and N edges (a
+// tile row past M is all zero-fill); stores are masked. The bf16 checksum
+// is taken in registers: each thread sums its columns along the row until a
+// bn-block ends, the four threads of a row combine by shuffles, and one
+// atomic per row and block adds it to out.
 //
 // Bound on the H100 at `make_matmul`'s (16384, 1280) . (1280, 5120), 214.7 GOP:
 // s8 0.1085 ms at the 1,979 TOPS int8 peak (its bytes, 363 MB with the int32
@@ -44,13 +61,14 @@
 // ms). `make_mm` at M = 8192, 107.4 GOP, writes almost nothing: f32 1.603 ms at
 // the 67 TFLOP/s float32 rate, bf16 0.1086 ms, s8 0.0543 ms, all operations.
 // The design keeps x and w in L2 and writes each output once; mma.sync (not
-// wgmma), the s8 byte gathers and the f32 path's shared-memory reads hold it
-// below those rates. wgmma + TMA is later work.
+// wgmma) and the s8 byte gathers, and the f32 path's shared-memory reads, hold
+// those two paths below their rates.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -92,7 +110,7 @@ __device__ __forceinline__ void checksum_flush(const Acc* part, Acc* __restrict_
   if (cur >= 0) atomicAdd(out + (size_t)row * groups + cur, sum);
 }
 
-// ---- tensor-core paths (s8, bf16) ----------------------------------------
+// ---- s8 path (mma.sync) -----------------------------------------------------
 
 constexpr int kBKBytes = 64;  // K bytes per stage
 constexpr int kStages = 4;
@@ -110,13 +128,6 @@ struct TC<kS8> {
   using Acc = int;
   static constexpr int kBK = 64;   // k per stage
   static constexpr int kLdB = kBN;  // B row stride in bytes (chunks swizzled by row)
-};
-template <>
-struct TC<kBF16> {
-  using T = __nv_bfloat16;
-  using Acc = float;
-  static constexpr int kBK = 32;
-  static constexpr int kLdB = (kBN + 8) * 2;  // ldmatrix.trans rows conflict-free
 };
 
 template <int kIn>
@@ -157,8 +168,8 @@ __device__ __forceinline__ void load_stage(uint8_t* stage, const uint8_t* __rest
     const int r = i / kRowChunks, cb = 16 * (i % kRowChunks);
     const int gk = kt * kBK + r, gn = n0 * (int)sizeof(T) + cb;
     const bool valid = gk < K && gn < nbytes;
-    const int off = kIn == kS8 ? s8_b_offset(r, cb) : r * TC<kIn>::kLdB + cb;
-    cp_async16(smem_u32(bs + off), valid ? w + (size_t)gk * nbytes + gn : w, valid ? 16 : 0);
+    cp_async16(smem_u32(bs + s8_b_offset(r, cb)), valid ? w + (size_t)gk * nbytes + gn : w,
+               valid ? 16 : 0);
   }
 }
 
@@ -205,11 +216,8 @@ tc_gemm_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
   // ldmatrix.x4 row addresses of A: lanes 0-15 rows 0-15 at bytes 0-15 of the
-  // 32-byte k-step, lanes 16-31 the same rows at bytes 16-31 -> a0..a3. bf16 B
-  // (transposed): lanes 0-7 / 8-15 k rows 0-7 / 8-15 at columns 0-7, lanes
-  // 16-31 the same at columns 8-15 -> (b0, b1) of two n8 fragments.
+  // 32-byte k-step, lanes 16-31 the same rows at bytes 16-31 -> a0..a3.
   const int a_row = warp_m * kWM + (lane % 16), a_col = (lane / 16) * 16;
-  const int b_krow = (lane & 7) + ((lane >> 3) & 1) * 8, b_ncol = (lane >> 4) * 8;
 
   for (int kt = 0; kt < ktiles; ++kt) {
     cp_async_wait<kStages - 2>();  // stage kt has landed
@@ -225,28 +233,13 @@ tc_gemm_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
       for (int i = 0; i < kMFrags; ++i)
         ldmatrix_x4(af[i], as + (a_row + i * 16) * kLdA + ks * 32 + a_col);
-      if constexpr (kIn == kS8) {
-        const int8_t* bs = reinterpret_cast<const int8_t*>(st + kABytes);
+      const int8_t* bs = reinterpret_cast<const int8_t*>(st + kABytes);
 #pragma unroll
-        for (int j = 0; j < kNFrags; ++j) {
-          uint32_t b0, b1;
-          s8_b_frag(bs, ks * 32, c, warp_n * kWN + j * 8 + g, b0, b1);
+      for (int j = 0; j < kNFrags; ++j) {
+        uint32_t b0, b1;
+        s8_b_frag(bs, ks * 32, c, warp_n * kWN + j * 8 + g, b0, b1);
 #pragma unroll
-          for (int i = 0; i < kMFrags; ++i) mma_s8(acc[i][j], af[i], b0, b1);
-        }
-      } else {
-        const uint32_t bs = as + kABytes;
-#pragma unroll
-        for (int jj = 0; jj < kNFrags / 2; ++jj) {
-          uint32_t bf[4];
-          ldmatrix_x4_trans(bf, bs + (ks * 16 + b_krow) * TC<kIn>::kLdB +
-                                    (warp_n * kWN + jj * 16 + b_ncol) * 2);
-#pragma unroll
-          for (int i = 0; i < kMFrags; ++i) {
-            mma_bf16(acc[i][2 * jj], af[i], bf[0], bf[1]);
-            mma_bf16(acc[i][2 * jj + 1], af[i], bf[2], bf[3]);
-          }
-        }
+        for (int i = 0; i < kMFrags; ++i) mma_s8(acc[i][j], af[i], b0, b1);
       }
     }
   }
@@ -280,13 +273,165 @@ tc_gemm_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
         for (int j = 0; j < kNFrags; ++j) {
           const int col = n0 + warp_n * kWN + j * 8 + 2 * c;
           if (col >= N) continue;
-          Acc* o = out + (size_t)row * N + col;
-          if constexpr (kIn == kS8)
-            *reinterpret_cast<int2*>(o) = make_int2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
-          else
-            *reinterpret_cast<float2*>(o) = make_float2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
+          *reinterpret_cast<int2*>(out + (size_t)row * N + col) =
+              make_int2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
         }
       }
+  }
+}
+
+// ---- bf16 path (TMA + wgmma) ------------------------------------------------
+
+constexpr int kHBM = 128, kHBN = 256, kHBK = 64;  // block tile, k per stage
+constexpr int kHStages = 4;
+constexpr int kHThreads = 384;                    // consumer warpgroups 0, 1; producer 2
+constexpr int kHChunks = kHBN / 8;                // 8-column chunks of a tile row (checksum)
+constexpr int kXBytes = kHBM * kHBK * 2;          // x tile: 128 rows of 128 bytes
+constexpr int kWBoxBytes = kHBK * 128;            // w box: 64 k-rows of 64 columns
+constexpr int kWBytes = (kHBN / 64) * kWBoxBytes;
+constexpr int kHStageBytes = kXBytes + kWBytes;   // 48 KB
+constexpr int kHBarOffset = kHStages * kHStageBytes;
+constexpr int kHSmemBytes = kHBarOffset + 2 * kHStages * 8 + 1024;  // + alignment
+constexpr int kPlanLen = 5;                       // per map: 2 dims, 1 stride, 2 box
+constexpr int kCluster = 2;                       // blocks of a cluster: tile rows that share w
+
+template <bool kChecksum>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kHThreads, 1)
+bf16_gemm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                 float* __restrict__ out, int M, int N, int K, int bn) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kHBarOffset);
+  uint64_t* empty = full + kHStages;
+  const int wg = threadIdx.x / 128;
+  // The cluster's two blocks take tile rows 2i and 2i + 1 of one tile column
+  // (a row past M is all zero-fill and stores nothing) and each loads half
+  // of the shared w stage, multicast into both
+  const uint32_t rank = cluster_rank(), peer = rank ^ 1;
+  const int tiles_n = (N + kHBN - 1) / kHBN;
+  const int pairs = (M + kCluster * kHBM - 1) / (kCluster * kHBM) * tiles_n;
+  const int cluster = blockIdx.x / kCluster, clusters = gridDim.x / kCluster;
+  const int ktiles = (K + kHBK - 1) / kHBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kHStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 8);  // each consumer warp of both blocks
+    }
+    mbar_fence_init();
+  }
+  cluster_sync();  // the peer's barriers are initialised before anything reaches them
+
+  if (wg == 2) {
+    // ---- producer: one thread issues every load ----
+    regs_dealloc<40>();
+    if (threadIdx.x == 256) {
+      prefetch_map(&xmap);
+      prefetch_map(&wmap);
+      int it = 0;  // ring slot, counted across tiles
+      for (int pair = cluster; pair < pairs; pair += clusters) {
+        const int m0 = (pair / tiles_n * kCluster + rank) * kHBM, n0 = pair % tiles_n * kHBN;
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int st = it % kHStages;
+          // Both blocks' consumers have released the stage: the peer's copy
+          // of it is free for this block's half of w too
+          mbar_wait(&empty[st], ((it / kHStages) & 1) ^ 1);
+          uint8_t* stage = smem + st * kHStageBytes;
+          mbar_arrive_expect_tx(&full[st], kHStageBytes);
+          tma_load_2d(stage, &xmap, &full[st], kt * kHBK, m0);
+          for (int a = rank * 2; a < rank * 2 + 2; ++a)
+            tma_load_2d_multicast(stage + kXBytes + a * kWBoxBytes, &wmap, &full[st],
+                                  n0 + 64 * a, kt * kHBK, 0x3);
+        }
+      }
+    }
+    __syncwarp();
+    cluster_sync();  // the peer no longer reads this block's barriers
+  } else {
+    // ---- consumers: warpgroup wg owns rows [64 wg, +64) of each 128 x 256 tile ----
+    regs_alloc<232>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int r0 = wg * 64 + 16 * (t / 32) + lane / 4, c2 = 2 * (lane % 4);
+    int it = 0;
+    // A stage is released by lane 0 of each warp, to this block and the peer
+    auto release = [&](int slot) {
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive_cluster(&empty[slot % kHStages], rank);
+        mbar_arrive_cluster(&empty[slot % kHStages], peer);
+      }
+    };
+    for (int pair = cluster; pair < pairs; pair += clusters) {
+      const int m0 = (pair / tiles_n * kCluster + rank) * kHBM, n0 = pair % tiles_n * kHBN;
+      float acc[kHBN / 2];
+#pragma unroll
+      for (int i = 0; i < kHBN / 2; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < ktiles; ++kt, ++it) {
+        const int st = it % kHStages;
+        mbar_wait(&full[st], (it / kHStages) & 1);
+        const uint32_t a_base = smem_addr(smem + st * kHStageBytes) + wg * 64 * 128;
+        const uint32_t b_base = smem_addr(smem + st * kHStageBytes + kXBytes);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kHBK / 16; ++kk)
+          wgmma_ss<kHBN, 1>(acc, desc_b128(a_base + kk * 32, 16, 1024),
+                            desc_b128(b_base + kk * 16 * 128, kWBoxBytes, 1024), 1);
+        wgmma_commit();
+        // Keep this stage's products in flight; the previous stage's are done
+        wgmma_wait<1>();
+        if (kt > 0) release(it - 1);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(it - 1);  // the tile's last stage
+
+      // acc: rows r0 (4j + 0, 1) and r0 + 8 (4j + 2, 3), columns 8j + c2 + (0, 1)
+      if constexpr (kChecksum) {
+        // Each row's sums over its bn-blocks, in registers: the thread's two
+        // columns of each 8-column chunk, summed along the row until a block
+        // ends, then over the four threads of the row (lanes 4g .. 4g + 3),
+        // whose chunk walk is the same; one atomic per row and block
+        const int groups = N / bn;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = m0 + r0 + 8 * hh;
+          int blk = n0 / bn, blk_end = (blk + 1) * bn;  // warp-uniform
+          float run = 0.f;
+#pragma unroll
+          for (int j = 0; j < kHChunks; ++j) {
+            const int col = n0 + 8 * j;
+            if (col >= N) break;
+            if (col >= blk_end) {
+              run += __shfl_xor_sync(0xffffffffu, run, 1);
+              run += __shfl_xor_sync(0xffffffffu, run, 2);
+              if (c2 == 0 && row < M) atomicAdd(out + (size_t)row * groups + blk, run);
+              run = 0.f;
+              ++blk;
+              blk_end += bn;
+            }
+            run += acc[4 * j + 2 * hh] + acc[4 * j + 2 * hh + 1];
+          }
+          run += __shfl_xor_sync(0xffffffffu, run, 1);
+          run += __shfl_xor_sync(0xffffffffu, run, 2);
+          if (c2 == 0 && row < M) atomicAdd(out + (size_t)row * groups + blk, run);
+        }
+      } else {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = m0 + r0 + 8 * hh;
+          if (row >= M) continue;
+#pragma unroll
+          for (int j = 0; j < kHChunks; ++j) {
+            const int col = n0 + 8 * j + c2;
+            if (col >= N) continue;
+            *reinterpret_cast<float2*>(out + (size_t)row * N + col) =
+                make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+          }
+        }
+      }
+    }  // tile
+    cluster_sync();  // the peer no longer reads this block's barriers or writes its ring
   }
 }
 
@@ -412,6 +557,43 @@ cudaError_t launch_tc(const void* x, const void* w, void* out, int M, int N, int
   return cudaGetLastError();
 }
 
+// The plans agree with what the kernel loads: x dims (K, M), box (64, 128);
+// w dims (N, K), box (64, 64)
+bool bf16_plan_matches(const long long* p, int M, int N, int K) {
+  return p[0] == K && p[1] == M && p[3] == kHBK && p[4] == kHBM && p[5] == N && p[6] == K &&
+         p[8] == 64 && p[9] == kHBK;
+}
+
+template <bool kChecksum>
+cudaError_t launch_bf16(const void* x, const void* w, const long long* plan, void* out, int M,
+                        int N, int K, int bn, cudaStream_t stream) {
+  auto kernel = bf16_gemm_kernel<kChecksum>;
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = set_smem(kernel, kHSmemBytes, configured);
+  if (err != cudaSuccess) return err;
+  CUtensorMap xmap, wmap;
+  err = encode_bf16_map(&xmap, x, 2, plan);
+  if (err == cudaSuccess) err = encode_bf16_map(&wmap, w, 2, plan + kPlanLen);
+  if (err != cudaSuccess) return err;
+  // Persistent: at most one block an SM, each cluster walking pairs of
+  // output tiles (n fastest)
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static int sms[kMaxDevices] = {};
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const long long pairs =
+      (long long)((M + kCluster * kHBM - 1) / (kCluster * kHBM)) * ((N + kHBN - 1) / kHBN);
+  if (pairs > INT32_MAX / kCluster) return cudaErrorInvalidValue;
+  const int grid = kCluster * (int)(pairs < sms[dev] / kCluster ? pairs : sms[dev] / kCluster);
+  kernel<<<grid, kHThreads, kHSmemBytes, stream>>>(xmap, wmap, static_cast<float*>(out), M, N, K,
+                                                   bn);
+  return cudaGetLastError();
+}
+
 template <bool kChecksum>
 cudaError_t launch_f32(const void* x, const void* w, void* out, int M, int N, int K, int bn,
                        cudaStream_t stream) {
@@ -430,10 +612,13 @@ extern "C" {
 // in_kind: 0 s8 (out int32), 1 bf16 (out float32), 2 float32 (out float32).
 // bn = 0 stores (M, N); bn > 0 adds each row's bn-block sums into the
 // (M, N / bn) out, which the caller has zeroed (int32 for s8).
-int novic_tiled_matmul(const void* x, const void* w, void* out, int M, int N, int K, int in_kind,
-                       int bn, void* stream) {
+// plan (bf16 only, else unused): the tensor maps of x and w, 5 values each:
+// dims (K, M) / (N, K), the byte stride of dim 1, box (64, 128) / (64, 64).
+int novic_tiled_matmul(const void* x, const void* w, const long long* plan, void* out, int M,
+                       int N, int K, int in_kind, int bn, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 || N % 16 != 0 || out == nullptr ||
-      M > 65535 * kBM || bn < 0 || (bn > 0 && (bn % 8 != 0 || N % bn != 0)))
+      M > 65535 * kBM || bn < 0 || (bn > 0 && (bn % 8 != 0 || N % bn != 0)) ||
+      (in_kind == kBF16 && (plan == nullptr || !bf16_plan_matches(plan, M, N, K))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const bool sum = bn > 0;
@@ -442,8 +627,8 @@ int novic_tiled_matmul(const void* x, const void* w, void* out, int M, int N, in
       return (int)(sum ? launch_tc<kS8, true>(x, w, out, M, N, K, bn, st)
                        : launch_tc<kS8, false>(x, w, out, M, N, K, bn, st));
     case kBF16:
-      return (int)(sum ? launch_tc<kBF16, true>(x, w, out, M, N, K, bn, st)
-                       : launch_tc<kBF16, false>(x, w, out, M, N, K, bn, st));
+      return (int)(sum ? launch_bf16<true>(x, w, plan, out, M, N, K, bn, st)
+                       : launch_bf16<false>(x, w, plan, out, M, N, K, bn, st));
     case kF32:
       return (int)(sum ? launch_f32<true>(x, w, out, M, N, K, bn, st)
                        : launch_f32<false>(x, w, out, M, N, K, bn, st));

@@ -13,8 +13,10 @@ is). The TPU's bm and bk were VMEM tilings; the kernel picks its own tiles.
   product cast to int32; bfloat16 as a float32 product of its (exact) float32
   values; float32 as a float32 product.
 * On CUDA tensors it launches the kernel in csrc/tiled_matmul.cu, or raises:
-  s8 and bf16 on the tensor cores (mma.sync), float32 as exact float32 FMA on
-  the CUDA cores (no TF32). It never falls back to the plain version.
+  s8 on the tensor cores by mma.sync; bf16 by wgmma in a persistent kernel
+  whose clusters of two blocks share each w stage by TMA multicast, through
+  tensor maps that `_tma_plan` lays out; float32 as exact float32 FMA on the
+  CUDA cores (no TF32). It never falls back to the plain version.
 
 The kernel is compiled with nvcc for sm_90a at first use into
 build/novic_tpu_torch/ and loaded through ctypes. `LAUNCHES` counts its launches.
@@ -71,7 +73,7 @@ def _library():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.novic_tiled_matmul.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+            lib.novic_tiled_matmul.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                                                + [ctypes.c_void_p])
             lib.novic_tiled_matmul.restype = ctypes.c_int
             _lib = lib
@@ -92,6 +94,20 @@ def _check(x: torch.Tensor, w: torch.Tensor, bn: Optional[int]) -> None:
         raise ValueError(f"tiled_matmul: bn={bn} must be a positive multiple of 8 dividing N={N}")
 
 
+TMA_ATOM = 64                 # bf16 per 128-byte swizzled row: a box's innermost extent
+BLOCK_M, BLOCK_K = 128, 64    # the bf16 kernel's x box (k, rows); its w boxes are (64, BLOCK_K)
+
+
+def _tma_plan(x: torch.Tensor, w: torch.Tensor) -> list[int]:
+    """The bf16 kernel's tensor maps: x (M, K) K-major, dims (K, M), the byte
+    stride of a row, box (64, 128); w (K, N) row-major, read as the MN-major
+    operand, dims (N, K), box (64, 64): four such boxes make a 256-column
+    stage. The dims' extents zero-fill the ragged edges."""
+    (M, K), N = x.shape, w.shape[1]
+    return ([K, M, x.stride(0) * x.element_size(), TMA_ATOM, BLOCK_M]
+            + [N, K, w.stride(0) * w.element_size(), TMA_ATOM, BLOCK_K])
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, bn: Optional[int]) -> torch.Tensor:
     global LAUNCHES
     (M, K), N = x.shape, w.shape[1]
@@ -100,6 +116,11 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bn: Optional[int]) -> torch.Tensor
     for name, t in (("x", x), ("w", w)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"tiled_matmul: {name} must be contiguous and 16-byte aligned")
+    plan = None
+    if x.dtype == torch.bfloat16:
+        # TMA reads rows whose byte strides are multiples of 16 (K and N
+        # multiples of 16 give 32) from 16-byte aligned bases
+        plan = ctypes.cast((ctypes.c_longlong * 10)(*_tma_plan(x, w)), ctypes.c_void_p)
     if bn:
         # The kernel adds into the checksum: int32 sums for int8, cast after
         out = torch.zeros((M, N // bn), dtype=out_dtype(x.dtype), device=x.device)
@@ -107,7 +128,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bn: Optional[int]) -> torch.Tensor
         out = torch.empty((M, N), dtype=out_dtype(x.dtype), device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
-        err = lib.novic_tiled_matmul(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
+        err = lib.novic_tiled_matmul(x.data_ptr(), w.data_ptr(), plan, out.data_ptr(), M, N, K,
                                      _KINDS[x.dtype], bn or 0,
                                      torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

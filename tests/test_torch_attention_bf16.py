@@ -174,3 +174,73 @@ def test_non_cpu_tensors_never_take_the_plain_path(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel library unavailable"):
         port._launch(q, q, q, 8, 1.0, torch.float32)
     assert not called
+
+
+# -- the kernel's tensor maps (planned in Python, encoded on the card) ---------
+
+
+def _meta(shape, stride=None):
+    t = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    return t if stride is None else t.as_strided(shape, stride)
+
+
+@pytest.mark.parametrize("case", ["x1", "fullseq", "allheads", "direct"])
+def test_tma_plan_of_each_harness_layout(case):
+    """dims (hd, s_valid, H, B), byte strides of seq, head and batch, box one
+    64-wide atom by the query block (q: 128 rows at hd 64, 192 at hd 80) or
+    64 key rows (k, v); each harness's layout is read in place."""
+    if case == "x1":  # (B, S, E) projections viewed as (B, S, H, hd)
+        t = _meta((256, 196, 768)).view(256, 196, 12, 64)
+        sv, want = 196, [64, 196, 12, 256, 1536, 128, 196 * 1536]
+    elif case == "fullseq":  # (B*H, 768, 1, hd): the head dimension has size 1
+        t = _meta((32, 768, 16, 80)).transpose(1, 2).reshape(512, 768, 1, 80)
+        sv, want = 730, [80, 730, 1, 512, 160, 160 * 730, 768 * 160]
+    else:  # (B, 736, H, hd) projections, s_valid 730 < S
+        t = _meta((32, 736, 16, 80))
+        sv, want = 730, [80, 730, 16, 32, 2560, 160, 736 * 2560]
+    rows = 128 if case == "x1" else 192
+    assert port.q_rows(want[0]) == rows
+    assert port._tma_plan(t, sv, port.q_rows(want[0])) == want + [64, rows, 1, 1]
+    assert port._tma_plan(t, sv, port.KV_ROWS) == want + [64, 64, 1, 1]
+
+
+@pytest.mark.parametrize("hd", [8, 64, 72, 80, 128])
+def test_tma_plan_hd_extent_and_atoms(hd):
+    """Dimension 0 spans hd exactly, so the 64-wide boxes that cover it
+    (ceil(hd / 64) of them, the last zero-filled past hd) never read the next
+    head's features; s_valid < S is the seq extent."""
+    t = _meta((2, 40, 3, hd))
+    plan = port._tma_plan(t, 33, port.KV_ROWS)
+    assert plan[:4] == [hd, 33, 3, 2]
+    assert plan[4:7] == [3 * hd * 2, hd * 2, 40 * 3 * hd * 2]
+    box = plan[7]
+    assert box == port.TMA_ATOM and -(-hd // box) * box >= hd and -(-hd // box) <= 2
+    assert all(s % 16 == 0 for s in plan[4:7])
+
+
+def test_tma_plan_size_one_dims_get_positive_strides():
+    """A size-1 dimension (one query row, one head, one batch) is never stepped;
+    its stride is the byte span of the dimensions inside it, never 0."""
+    t = _meta((1, 5, 1, 16), (7, 64, 3, 1))
+    plan = port._tma_plan(t, 1, port.q_rows(16))
+    assert plan[:4] == [16, 1, 1, 1]
+    assert plan[4:7] == [32, 32, 32]
+    t = _meta((1, 5, 2, 16))
+    assert port._tma_plan(t, 5, port.q_rows(16))[4:7] == [64, 32, 320]
+
+
+@pytest.mark.parametrize("bad", ["seq_stride", "head_stride", "base"])
+def test_launch_refuses_what_a_tensor_map_cannot_take(monkeypatch, bad):
+    """A stride that is not a multiple of 16 bytes or a base that is not
+    16-byte aligned raises before the kernel's library is touched."""
+    def no_library():
+        raise AssertionError("the launch went past the checks")
+
+    monkeypatch.setattr(port, "_library", no_library)
+    good = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
+    flat = torch.zeros(1024, dtype=torch.bfloat16)
+    t = {"seq_stride": flat.as_strided((1, 8, 2, 16), (512, 36, 16, 1)),
+         "head_stride": flat.as_strided((1, 8, 2, 16), (512, 64, 20, 1)),
+         "base": flat[1:].as_strided((1, 8, 2, 16), (256, 32, 16, 1))}[bad]
+    with pytest.raises(ValueError, match="16-byte aligned with strides that are multiples of 16"):
+        port._launch(good, t, good, 8, 1.0, torch.float32)

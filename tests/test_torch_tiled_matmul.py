@@ -135,3 +135,34 @@ def test_non_cpu_tensors_never_take_the_plain_path(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel library unavailable"):
         port._launch(torch.zeros(32, 16), torch.zeros(16, 32), None)
     assert not called
+
+
+@pytest.mark.parametrize("M,K,N", [(16384, 1280, 5120), (8192, 1280, 5120), (1000, 272, 400),
+                                   (129, 1040, 272), (1, 16, 16)])
+def test_bf16_tma_plan(M, K, N):
+    """x (M, K) K-major: dims (K, M), row stride K*2 bytes, box 64 k by 128
+    rows; w (K, N) read as the MN-major operand: dims (N, K), row stride N*2
+    bytes, box 64 columns by 64 k-rows. The extents zero-fill ragged edges."""
+    x = torch.empty(M, K, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(K, N, dtype=torch.bfloat16, device="meta")
+    assert port._tma_plan(x, w) == [K, M, 2 * K, 64, 128, N, K, 2 * N, 64, 64]
+
+
+@pytest.mark.parametrize("bad", ["x_base", "w_base", "x_strided"])
+def test_launch_refuses_what_a_tensor_map_cannot_take(monkeypatch, bad):
+    """A base that is not 16-byte aligned or a row stride other than the
+    row's own raises before the kernel's library is touched."""
+    def no_library():
+        raise AssertionError("the launch went past the checks")
+
+    monkeypatch.setattr(port, "_library", no_library)
+    flat = torch.zeros(4096, dtype=torch.bfloat16)
+    x, w = torch.zeros(32, 64, dtype=torch.bfloat16), torch.zeros(64, 48, dtype=torch.bfloat16)
+    if bad == "x_base":
+        x = flat[1:1 + 32 * 64].view(32, 64)
+    elif bad == "w_base":
+        w = flat[3:3 + 64 * 48].view(64, 48)
+    else:
+        x = flat.view(32, 128)[:, :64]
+    with pytest.raises(ValueError, match="contiguous and 16-byte aligned"):
+        port._launch(x, w, None)
