@@ -7,9 +7,10 @@ Phases, each printing JSON lines; any failure exits nonzero:
   2. build: compile every kernel (attention.cu, dropout.cu, int8_matmul.cu,
      beam_reorder.cu, attention_bf16.cu, tiled_matmul.cu, flash_attention.cu)
      from the checkout's sources, one nvcc each, started together; count
-     HGMMA (wgmma), UTMALDG (TMA load) and SYNCS (mbarrier) instructions in
-     the SASS of the Hopper designs (attention_bf16, tiled_matmul), and fail
-     if either has no HGMMA or no UTMALDG;
+     HGMMA / IGMMA (wgmma on bf16 / s8), UTMALDG (TMA load) and SYNCS
+     (mbarrier) instructions in the SASS of the Hopper designs
+     (attention_bf16, tiled_matmul, int8_matmul), and fail if one has no
+     wgmma or no UTMALDG;
   3. kernel: the attention kernel against its plain PyTorch version on the
      card, at the serving shape, at the DFN5B-H-378 tower's (32,730,16,80) and
      at two more (stated tolerance), with its time, the plain version's time,
@@ -18,6 +19,14 @@ Phases, each printing JSON lines; any failure exits nonzero:
   3b. dropout kernel: bit-identical to its plain version at the three FT0
      site shapes and a ragged size, rates 0.1 and 0.5; its backward mask is
      the forward's; the keep share is within 5 sigma of 1 - rate; times;
+  3c. int8 GEMM (K2): bit-identical to its plain version in the int32 and
+     float32+bias epilogues at the int8 towers' shapes and the Hopper
+     instance's tile edges (M=1, M=129, N=200, N=199, K=16), and in the int32
+     and bfloat16 ones at X4's; each shape through the instance its shape
+     picks (the wgmma one; the mma.sync one at K=70 and from an unaligned
+     base), counted; times beside the bound and torch._int_mm; then
+     exp/pallas_int8_mlp_chain.py's 10-step chain (X4's path, 20 launches,
+     all wgmma) bit-identical to its plain version;
   3d. beam-reorder kernel (X5): bit-identical to its plain version, per-cache
      and many forms, at the exp/beam_reorder_kernel.py harness shape and the FT0
      serving shape; times; the harness's 11-step x 12-cache loop (GB/s);
@@ -29,8 +38,9 @@ Phases, each printing JSON lines; any failure exits nonzero:
   3f. tiled GEMM kernel (X3): bit-identical for s8, within 1e-5 of a float64
      product (relative to sum |x*w|) for bf16 and float32, at make_matmul's
      (16384,1280,5120) s8 and bf16, make_mm's (8192,1280,5120) checksum in
-     float32, bf16 and s8, ragged shapes, and bf16 edges ((1,16,16) and
-     (129,1040,272), whole and bn=16); times beside the bound and
+     float32, bf16 and s8, ragged shapes, and bf16 and float32 edges
+     ((1,16,16) and (129,1040,272), whole and bn=16; float32 also
+     (300,1040,512) at bn=256); times beside the bound and
      torch._int_mm / torch.mm; the int32 wrap of the s8 checksum;
   3g. one-pass flash-attention kernel (X6): against its plain version at the
      kernel's blocking (64 keys) and at the harnesses' (256, 768: JAX's
@@ -46,9 +56,11 @@ Phases, each printing JSON lines; any failure exits nonzero:
      every kernel launched on this path (12 attention launches per tower forward);
   4b. int8 serving path: a TorchEmbedder with vision.quant="int8:pallas" (the
      same seeded weights) embeds the 2 x 64 frames, NOVICModel.classify_embeds
-     labels them unguided and guided; 72 K2 and 12 attention launches per
-     tower forward; card vs CPU and int8 vs bf16 cosines; tower ms and K2's
-     share of the tower's device time;
+     labels them unguided and guided; 72 K2 launches (all of its wgmma
+     instance) and 12 attention launches per tower forward; card vs CPU and
+     int8 vs bf16 cosines; tower ms and K2's share of the tower's device time,
+     read by kernel name (the share must be nonzero, and the mma.sync
+     instance absent);
   4c. text towers: SigLIP-B/16's (bidirectional, last pool) and OpenAI
      ViT-B/16's (causal, argmax pool) at full width, B=256, bf16 and int8,
      through inference_tokens (seeded ids) and inference_text (FT0 nouns,
@@ -56,9 +68,10 @@ Phases, each printing JSON lines; any failure exits nonzero:
   4e. the DFN5B-H-14-378 embedder at full width (32-layer vision tower at
      378 px, S=730; 24-layer causal text tower), random weights from a seed,
      bf16 and int8: 2 x 32 seeded uint8 frames preprocessed on the card, 32
-     fused_attention and (int8) 192 int8_matmul launches per vision forward;
-     texts at B=256; card vs CPU on 1 frame and 4 texts; int8 vs bf16; ms per
-     batch, images/s, texts/s, peak memory, K1's and K2's device shares;
+     fused_attention and (int8) 192 int8_matmul launches per vision forward,
+     every one of K2's wgmma instance; texts at B=256; card vs CPU on 1 frame
+     and 4 texts; int8 vs bf16; ms per batch, images/s, texts/s, peak memory,
+     K1's and K2's device shares (K2's read as in 4b);
   4f. the harness paths at their own sizes: exp/dfn5b_attention's tower (B=32,
      32 layers) with the plain chain, X2's three schedules and the flash
      variant (X6; 32 kernel launches a pass each), and its bf16-residual runs
@@ -384,18 +397,27 @@ def int8_bound_ms(M: int, N: int, K: int, out_bytes: int, scales: bool,
 
 
 # (label, M, K, N): the int8 towers' GEMMs (vision at B=64: 64 x 196 tokens;
-# the SigLIP text tower at B=256: 256 x 64 tokens), a ragged shape, and the
-# DFN5B-H MLP pair of exp/pallas_int8_mlp_chain.py (X4)
+# the SigLIP text tower at B=256: 256 x 64 tokens), the edges of the Hopper
+# instance's 128 x 128 tiles and 128-byte K stages (one row; a tile row past a
+# whole number; N not a multiple of the tile, even and odd; the least K it
+# takes), the shapes that keep the mma.sync instance (K % 16 != 0; a base
+# that is not 16-byte aligned), and the DFN5B-H MLP pair of
+# exp/pallas_int8_mlp_chain.py (X4)
 INT8_SHAPES = [("vision q/k/v/o", 12544, 768, 768), ("vision fc1", 12544, 768, 3072),
                ("vision fc2", 12544, 3072, 768), ("text fc1", 16384, 768, 3072),
-               ("ragged", 257, 70, 200)]
+               ("edge M=1", 1, 768, 768), ("edge M=129", 129, 768, 768),
+               ("edge N=200", 1000, 768, 200), ("edge N=199", 300, 768, 199),
+               ("edge K=16", 512, 16, 384), ("ragged", 257, 70, 200),
+               ("unaligned base", 257, 768, 256)]
 X4_SHAPES = [("x4 fc1", 16384, 1280, 5120), ("x4 fc2", 16384, 5120, 1280)]
 
 
 def phase_int8(int8mm) -> tuple[dict, dict]:
     """Phase 3c: K2 against its plain version on the card, every epilogue
-    bit-identical; then exp/pallas_int8_mlp_chain.py's fused chain (X4's path).
-    Returns the kernels-line sources: (vision fc1 int32, x4 fc1 bfloat16)."""
+    bit-identical, each shape through the instance its shape picks (counted);
+    then exp/pallas_int8_mlp_chain.py's fused chain (X4's path). Returns the
+    kernels-line sources: (vision fc1 int32, x4 fc1 bfloat16, ragged int32: the
+    mma.sync instance)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -403,6 +425,10 @@ def phase_int8(int8mm) -> tuple[dict, dict]:
     for label, M, K, N in INT8_SHAPES + X4_SHAPES:
         xq = torch.randint(-127, 128, (M, K), device="cuda", generator=gen, dtype=torch.int8)
         wq = torch.randint(-127, 128, (N, K), device="cuda", generator=gen, dtype=torch.int8)
+        if label == "unaligned base":  # the same values, one byte into a buffer
+            xq = torch.cat([xq.new_zeros(1), xq.reshape(-1)])[1:].view(M, K)
+        want_instance = ("wgmma" if K % 16 == 0 and xq.data_ptr() % 16 == 0
+                         and wq.data_ptr() % 16 == 0 else "mma_sync")
         sx = torch.rand(M, device="cuda", generator=gen) * 1e-2 + 1e-4
         sw = torch.rand(N, device="cuda", generator=gen) * 1e-2 + 1e-4
         b = torch.randn(N, device="cuda", generator=gen)
@@ -419,23 +445,28 @@ def phase_int8(int8mm) -> tuple[dict, dict]:
         names = ["int32", "bfloat16"] if label.startswith("x4") else ["int32", "float32+bias"]
         for epi in names:
             run, plain, out_bytes, scales, bias = epilogues[epi]
+            before = dict(int8mm.INSTANCE_LAUNCHES)
             out = run()
             torch.cuda.synchronize()
+            ran = [k for k, n in int8mm.INSTANCE_LAUNCHES.items() if n != before[k]]
             ref = plain()
             err = (out.double() - ref.double()).abs().max().item()
-            ok = torch.equal(out, ref)
+            ok = torch.equal(out, ref) and ran == [want_instance]
             library_ms = None
-            if epi == "int32" and M > 16 and K % 8 == 0 and N % 8 == 0:
+            if epi == "int32" and M > 16 and K % 8 == 0 and N % 8 == 0 and ran == ["wgmma"]:
                 library_ms = device_ms(lambda: torch._int_mm(xq, wq.t()))
             bound_ms, bound_by = int8_bound_ms(M, N, K, out_bytes, scales, bias)
             line = {"phase": "kernel", "name": "int8_matmul", "shape": label, "mkn": [M, K, N],
-                    "epilogue": epi, "max_abs_err": err, "tol": "bit-identical (0)", "ok": ok,
+                    "epilogue": epi, "instance": ran, "expected_instance": want_instance,
+                    "max_abs_err": err, "tol": "bit-identical (0)", "ok": ok,
                     "ms": device_ms(run), "plain_ms": device_ms(plain, iters=3, warmup=1),
                     "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
             emit(line)
             if not ok:
-                raise SystemExit(f"int8_matmul ({epi}) disagrees with its plain version at {label}")
-            if (label, epi) in (("vision fc1", "int32"), ("x4 fc1", "bfloat16")):
+                raise SystemExit(f"int8_matmul ({epi}) disagrees with its plain version at {label} "
+                                 f"or ran the {ran} instance (expected {want_instance})")
+            if (label, epi) in (("vision fc1", "int32"), ("x4 fc1", "bfloat16"),
+                                ("ragged", "int32")):
                 picked[label] = line
             del out, ref
 
@@ -467,21 +498,23 @@ def phase_int8(int8mm) -> tuple[dict, dict]:
         return h
 
     int8mm.LAUNCHES = 0
+    int8mm.INSTANCE_LAUNCHES = dict.fromkeys(int8mm.INSTANCE_LAUNCHES, 0)
     out = int8_chain(int8mm.int8_matmul_dequant)
     torch.cuda.synchronize()
     launches = int8mm.LAUNCHES
-    ok = torch.equal(out, int8_chain(int8mm.int8_matmul_dequant_reference)) and launches == 20
+    ok = (torch.equal(out, int8_chain(int8mm.int8_matmul_dequant_reference)) and launches == 20
+          and int8mm.INSTANCE_LAUNCHES["wgmma"] == launches)
     line = {"phase": "x4_chain", "steps": 10, "rows": 16384, "launches": launches,
-            "bit_identical_to_plain": ok,
+            "instance_launches": dict(int8mm.INSTANCE_LAUNCHES), "bit_identical_to_plain": ok,
             "int8_ms_per_step": cuda_ms(lambda: int8_chain(int8mm.int8_matmul_dequant),
                                         iters=3, warmup=1) / 10,
             "bf16_ms_per_step": cuda_ms(bf16_chain, iters=3, warmup=1) / 10}
     emit(line)
     if not ok:
         raise SystemExit("the int8 MLP chain disagrees with its plain version or launched "
-                         f"{launches} times (expected 20)")
+                         f"{int8mm.INSTANCE_LAUNCHES} times (expected 20, all wgmma)")
     picked["x4 fc1"]["path_launches"] = launches
-    return picked["vision fc1"], picked["x4 fc1"]
+    return picked["vision fc1"], picked["x4 fc1"], picked["ragged"]
 
 
 def reorder_bound_ms(n: int, rows_read: int, rows: int, row_bytes: int,
@@ -600,12 +633,13 @@ def phase_beam_reorder(reorder) -> tuple[dict, dict]:
 
 def sass_counts(lib) -> dict:
     """Instructions in a library's SASS (cuobjdump from the CUDA toolkit):
-    HGMMA (wgmma), UTMALDG (TMA loads), SYNCS (mbarrier operations)."""
+    HGMMA (wgmma on floating-point inputs), IGMMA (wgmma on s8), UTMALDG (TMA
+    loads), SYNCS (mbarrier operations)."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([exe, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
     return {op: sum(line.count(op) for line in text.splitlines()) for op in
-            ("HGMMA", "UTMALDG", "SYNCS")}
+            ("HGMMA", "IGMMA", "UTMALDG", "SYNCS")}
 
 
 def attention_bf16_bound_ms(B, S, H, hd, out_bytes: int) -> tuple[float, str]:
@@ -712,9 +746,9 @@ def matmul_bound_ms(M: int, N: int, K: int, in_bytes: int, out_elems: int,
 
 # (label, input form, M, K, N, bn): exp/pallas_int8_matmul.py make_matmul's
 # shape (full output), exp/pallas_int8_rate_pin.py make_mm's (checksum over
-# bn=512 column blocks), ragged shapes (other bn), and the bf16 kernel's
-# edges (one row; a tile row and K stage past a whole number, whole and with
-# bn = 16)
+# bn=512 column blocks), ragged shapes (other bn), and the bf16 and float32
+# kernels' edges (one row; a tile row and K stage past a whole number, whole
+# and with bn = 16; float32 also a 256-wide bn, whose blocks hold whole tiles)
 TILED_CASES = [("make_matmul", "s8", 16384, 1280, 5120, None),
                ("make_matmul", "bf16", 16384, 1280, 5120, None),
                ("make_mm", "f32", 8192, 1280, 5120, 512), ("make_mm", "bf16", 8192, 1280, 5120, 512),
@@ -722,7 +756,10 @@ TILED_CASES = [("make_matmul", "s8", 16384, 1280, 5120, None),
                ("ragged", "s8", 1000, 272, 400, None), ("ragged", "bf16", 1000, 272, 400, 80),
                ("ragged", "f32", 1000, 272, 400, 40), ("ragged", "s8", 1000, 272, 400, 16),
                ("edge", "bf16", 1, 16, 16, None), ("edge", "bf16", 1, 16, 16, 16),
-               ("edge", "bf16", 129, 1040, 272, None), ("edge", "bf16", 129, 1040, 272, 16)]
+               ("edge", "bf16", 129, 1040, 272, None), ("edge", "bf16", 129, 1040, 272, 16),
+               ("ragged", "f32", 1000, 272, 400, None), ("edge", "f32", 1, 16, 16, None),
+               ("edge", "f32", 1, 16, 16, 16), ("edge", "f32", 129, 1040, 272, None),
+               ("edge", "f32", 129, 1040, 272, 16), ("edge", "f32", 300, 1040, 512, 256)]
 TILED_FORMS = {"s8": (torch.int8, 1, INT8_OP_PER_S), "bf16": (torch.bfloat16, 2, BF16_FLOP_PER_S),
                "f32": (torch.float32, 4, FP32_FLOP_PER_S)}
 
@@ -941,6 +978,24 @@ def device_profile(fn, match: tuple = ("dropout_f32", "dropout_bf16")) -> dict:
                                 for e in events if any(m in e.key for m in match)]}
 
 
+# K2's two instances by kernel name in a profile: the Hopper instance, which
+# every tower shape takes, and the mma.sync one
+K2_KERNELS = ("int8_wgmma_kernel", "int8_gemm_kernel")
+
+
+def k2_share(prof: dict, launches: int) -> tuple[float, dict]:
+    """K2's device ms in a tower profile (matched on K2_KERNELS), all of it
+    the Hopper instance's. Raises where the tower launched K2 but the profile
+    shows none of it, or shows the mma.sync instance: a renamed kernel cannot
+    drop out of the tower's account."""
+    by_kernel = {name: sum(m[1] for m in prof["matched_kernels"] if name in m[0])
+                 for name in K2_KERNELS}
+    if launches and (by_kernel["int8_wgmma_kernel"] <= 0 or by_kernel["int8_gemm_kernel"] > 0):
+        raise SystemExit(f"K2 in the tower's profile: {by_kernel} after {launches} launches "
+                         "(expected the Hopper instance alone)")
+    return by_kernel["int8_wgmma_kernel"], by_kernel
+
+
 def check_output(out, n: int, guide: set | None, k: int = 10) -> None:
     lp = np.asarray(out.logprobs, dtype=np.float64)
     if lp.shape != (n, k) or len(out.preds) != n or any(len(r) != k for r in out.preds):
@@ -978,11 +1033,13 @@ def phase_int8_serving(model, frames: list, nouns: list, guided_cfg: str, name: 
     emb = torch_embedder(SPEC, arch8, nouns, "cuda", BATCH)
     pixels = [model.transform_images(frames[i:i + BATCH]) for i in range(0, len(frames), BATCH)]
     attention.LAUNCHES = int8_matmul.LAUNCHES = 0
+    int8_matmul.INSTANCE_LAUNCHES = dict.fromkeys(int8_matmul.INSTANCE_LAUNCHES, 0)
     t0 = time.perf_counter()
     embeds = np.concatenate([emb.inference_image(p) for p in pixels])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     k2, k1 = int8_matmul.LAUNCHES, attention.LAUNCHES
+    k2_instances = dict(int8_matmul.INSTANCE_LAUNCHES)
     forwards = len(pixels)
     labels = {}
     for label, gencfg in (("unguided", None), ("guided", guided_cfg)):
@@ -998,10 +1055,11 @@ def phase_int8_serving(model, frames: list, nouns: list, guided_cfg: str, name: 
     cos_bf16 = cosines(embeds[:BATCH], model.embedder.inference_image(pixels[0]))
     bf16_ms = cuda_ms(lambda: model.embedder.embed_image_tensor(pixels[0]), iters=5, warmup=1)
     int8_ms = cuda_ms(lambda: emb.embed_image_tensor(pixels[0]), iters=5, warmup=1)
-    prof = device_profile(lambda: emb.embed_image_tensor(pixels[0]), match=("int8_gemm_kernel",))
-    k2_ms = sum(m[1] for m in prof["matched_kernels"])
+    prof = device_profile(lambda: emb.embed_image_tensor(pixels[0]), match=K2_KERNELS)
+    k2_ms, k2_by_kernel = k2_share(prof, k2)
     line = {"phase": "int8_serving", "device": name, "nvidia_smi": smi, "quant": "int8:pallas",
             "images": len(frames), "tower_forwards": forwards, "int8_matmul_launches": k2,
+            "int8_matmul_instance_launches": k2_instances,
             "fused_attention_launches": k1, "first_call_s": seconds, "labels": labels,
             "card_vs_cpu_cosine": cos_cpu.tolist(), "top1_cpu": top1_cpu, "top1_gpu": top1_gpu,
             "int8_vs_bf16_cosine_min": float(cos_bf16.min()),
@@ -1009,13 +1067,15 @@ def phase_int8_serving(model, frames: list, nouns: list, guided_cfg: str, name: 
             "tower_ms_per_batch": int8_ms, "bf16_tower_ms_per_batch": bf16_ms,
             "profile_wall_ms": prof["wall_ms"], "profile_device_busy_ms": prof["device_busy_ms"],
             "int8_matmul_device_ms": k2_ms, "int8_matmul_share": k2_ms / prof["device_busy_ms"],
+            "int8_matmul_device_ms_by_kernel": k2_by_kernel,
             "top_device_kernels_ms": prof["top_device_kernels_ms"]}
     emit(line)
     del emb
     torch.cuda.empty_cache()
-    if k2 != 72 * forwards or k1 != 12 * forwards:
-        raise SystemExit(f"int8 tower: {k2} int8_matmul and {k1} fused_attention launches over "
-                         f"{forwards} forwards (expected 72 and 12 per forward)")
+    if k2 != 72 * forwards or k1 != 12 * forwards or k2_instances["wgmma"] != k2:
+        raise SystemExit(f"int8 tower: {k2_instances} int8_matmul and {k1} fused_attention "
+                         f"launches over {forwards} forwards (expected 72, all wgmma, and 12 "
+                         "per forward)")
     if cos_cpu.min() < COSINE_MIN or top1_cpu != top1_gpu:
         raise SystemExit("int8 tower: card and CPU disagree")
     if cos_bf16.min() < INT8_VS_BF16_VISION:
@@ -1211,19 +1271,21 @@ def phase_dfn5b(nouns: list, name: str, smi: str) -> dict:
         transform = emb.get_image_transform()
         torch.cuda.reset_peak_memory_stats()
         attention.LAUNCHES = int8_matmul.LAUNCHES = 0
+        int8_matmul.INSTANCE_LAUNCHES = dict.fromkeys(int8_matmul.INSTANCE_LAUNCHES, 0)
         t0 = time.perf_counter()
         pixels = [transform(frames[i:i + DFN5B_BATCH]) for i in range(0, len(frames), DFN5B_BATCH)]
         image_embeds = np.concatenate([emb.inference_image(p) for p in pixels])
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         k1, k2 = attention.LAUNCHES, int8_matmul.LAUNCHES
+        k2_wgmma = int8_matmul.INSTANCE_LAUNCHES["wgmma"]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         vision_ms = cuda_ms(lambda: emb.embed_image_tensor(pixels[0]), iters=3, warmup=1)
         preprocess_ms = cuda_ms(lambda: transform(frames[:DFN5B_BATCH]), iters=3, warmup=1)
         prof = device_profile(lambda: emb.embed_image_tensor(pixels[0]),
-                              match=("attention_kernel", "int8_gemm_kernel"))
+                              match=("attention_kernel",) + K2_KERNELS)
         k1_dev = sum(m[1] for m in prof["matched_kernels"] if "attention_kernel" in m[0])
-        k2_dev = sum(m[1] for m in prof["matched_kernels"] if "int8_gemm_kernel" in m[0])
+        k2_dev, _ = k2_share(prof, k2)
         attention.LAUNCHES = int8_matmul.LAUNCHES = 0
         text_embeds = emb.inference_tokens({"input_ids": ids})
         torch.cuda.synchronize()
@@ -1255,6 +1317,7 @@ def phase_dfn5b(nouns: list, name: str, smi: str) -> dict:
                 "preprocess_on_card": True, "init_s": init_s, "first_call_s": first_s,
                 "vision_launches": [k1, k2], "expected_vision_launches": [want[0] * forwards,
                                                                           want[1] * forwards],
+                "vision_int8_matmul_wgmma_launches": k2_wgmma,
                 "text_launches": [tk1, tk2], "expected_text_launches": list(want_text),
                 "vision_ms_per_batch": vision_ms, "images_per_s": DFN5B_BATCH / (vision_ms / 1e3),
                 "preprocess_ms_per_batch": preprocess_ms,
@@ -1270,9 +1333,11 @@ def phase_dfn5b(nouns: list, name: str, smi: str) -> dict:
                 "card_vs_cpu_bars": [image_bar, text_bar], "cpu_side_s": cpu_s,
                 "cpu_side_layers": [layers, tlayers], "finite": bool(finite)}
         emit(line)
-        if (k1, k2) != (want[0] * forwards, want[1] * forwards) or (tk1, tk2) != want_text:
-            raise SystemExit(f"DFN5B {label}: launches vision {(k1, k2)}, text {(tk1, tk2)}; expected "
-                             f"{want} per vision forward and {want_text} per text forward")
+        if ((k1, k2) != (want[0] * forwards, want[1] * forwards) or (tk1, tk2) != want_text
+                or k2_wgmma != k2):
+            raise SystemExit(f"DFN5B {label}: launches vision {(k1, k2)} ({k2_wgmma} of K2's "
+                             f"wgmma), text {(tk1, tk2)}; expected {want} per vision forward, "
+                             f"every K2 launch wgmma, and {want_text} per text forward")
         if not finite:
             raise SystemExit(f"DFN5B {label}: bad embeddings")
         # Both modes report before a disagreement fails the phase
@@ -1674,7 +1739,7 @@ def main() -> int:
     libs = build.build_all(sources, force=True)
     # The Hopper designs (wgmma, TMA, mbarriers) are what was built
     sass = {build.library_path(s).name: sass_counts(build.library_path(s))
-            for s in (attention_bf16.SOURCE, tiled_matmul.SOURCE)}
+            for s in (attention_bf16.SOURCE, tiled_matmul.SOURCE, int8_matmul.SOURCE)}
     emit({"phase": "build", "kernels": [os.path.relpath(str(s), REPO) for s in sources],
           "libraries": [os.path.relpath(str(lib), REPO) for lib in libs],
           "seconds": time.perf_counter() - t0,
@@ -1682,13 +1747,14 @@ def main() -> int:
                              if "registers" in line or "spill" in line] for s in sources},
           "sass": sass})
     for lib, counts in sass.items():
-        if not counts["HGMMA"] or not counts["UTMALDG"]:
-            raise SystemExit(f"{lib}: no wgmma (HGMMA) or no TMA load (UTMALDG) in its SASS: {counts}")
+        if not counts["HGMMA"] + counts["IGMMA"] or not counts["UTMALDG"]:
+            raise SystemExit(f"{lib}: no wgmma (HGMMA, IGMMA) or no TMA load (UTMALDG) in its "
+                             f"SASS: {counts}")
 
     # 3. kernels vs plain
     k1, k1_dfn5b = phase_kernel(attention)
     k3 = phase_dropout(dropout)
-    k2, x4 = phase_int8(int8_matmul)
+    k2, x4, k2_mma_sync = phase_int8(int8_matmul)
     x5, x5_many = phase_beam_reorder(beam_reorder)
     x12 = phase_attention_bf16(attention_bf16, k1_dfn5b)
     x3 = phase_tiled_matmul(tiled_matmul)
@@ -1838,12 +1904,21 @@ def main() -> int:
         "launches": train_line["dropout_launches"], "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}, {
-        "name": "int8_matmul", "route": "cuda",
+        "name": "int8_matmul", "route": "cuda", "instance": "wgmma",
         "source": "novic_tpu_torch/ops/csrc/int8_matmul.cu",
         "replaces": "novic_tpu/ops/int8_matmul.py:73",
-        "launches": int8_line["int8_matmul_launches"], "max_abs_err": k2["max_abs_err"],
+        "launches": int8_line["int8_matmul_instance_launches"]["wgmma"],
+        "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]}, {
+        # The mma.sync instance, for shapes no tower has (phase 3c's ragged K)
+        "name": "int8_matmul_mma_sync", "route": "cuda", "instance": "mma_sync",
+        "source": "novic_tpu_torch/ops/csrc/int8_matmul.cu",
+        "replaces": "novic_tpu/ops/int8_matmul.py:73",
+        "launches": int8_line["int8_matmul_instance_launches"]["mma_sync"],
+        "max_abs_err": k2_mma_sync["max_abs_err"], "ms": k2_mma_sync["ms"],
+        "plain_ms": k2_mma_sync["plain_ms"], "bound_ms": k2_mma_sync["bound_ms"],
+        "bound_by": k2_mma_sync["bound_by"], "library_ms": k2_mma_sync["library_ms"]}, {
         "name": "int8_matmul_dequant_bf16", "route": "cuda",
         "source": "novic_tpu_torch/ops/csrc/int8_matmul.cu",
         "replaces": "exp/pallas_int8_mlp_chain.py:97",

@@ -367,7 +367,7 @@ cudaError_t launch(const void* const (&base)[3], const long long* plan, void* o,
   }
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
-    err = encode_bf16_map(&maps[i], base[i], 4, plan + kPlanLen * i);
+    err = encode_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base[i], 4, plan + kPlanLen * i);
     if (err != cudaSuccess) return err;
   }
   // Persistent: at most blocks_per_sm blocks an SM, each walking items

@@ -2,18 +2,20 @@
 // mbarrier ring, TMA tensor loads (and their multicast into a cluster),
 // cluster barriers, warpgroup MMAs (wgmma) with their shared-memory matrix
 // descriptors, and register rebalancing between warpgroups. Included by
-// attention_bf16.cu and tiled_matmul.cu, each into its own anonymous
-// namespace; the mma.sync kernels keep mma_common.cuh. The wgmma wrappers
-// are written out for the shapes the kernels use (each names its output
-// registers one by one, as inline PTX must).
+// attention_bf16.cu, tiled_matmul.cu and int8_matmul.cu, each into its own
+// anonymous namespace; the mma.sync kernels keep mma_common.cuh. The wgmma
+// wrappers are written out for the shapes the kernels use (each names its
+// output registers one by one, as inline PTX must).
 //
 // Tensor maps are encoded on the host through cuTensorMapEncodeTiled, whose
 // address cudaGetDriverEntryPoint gives at run time, so the libraries link
-// against the CUDA runtime alone (no -lcuda). Every map here is bf16 with a
-// 128-byte swizzle: a box's innermost extent is 64 elements (one 128-byte
-// row), and a tile of R such rows lands as R x 128 bytes, 16-byte chunks XOR-ed
-// by (row % 8) within each 1024-byte group of 8 rows, which is what a wgmma
-// descriptor of layout B128 reads.
+// against the CUDA runtime alone (no -lcuda). Every map here has a 128-byte
+// swizzle, whatever its element type (bf16, s8 or float32): a box's innermost
+// extent is one 128-byte row (64 bf16, 128 s8 or 32 float32 elements), and a
+// tile of R such rows lands as R x 128 bytes, 16-byte chunks XOR-ed by
+// (row % 8) within each 1024-byte group of 8 rows, which is what a wgmma
+// descriptor of layout B128 reads (and what the CUDA-core float32 GEMM
+// un-swizzles by hand).
 #pragma once
 
 #include <cuda.h>
@@ -48,14 +50,23 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// One bf16 tensor map with a 128-byte swizzle, from a plan of `rank` dims
-// (innermost first, in elements), rank - 1 strides (bytes, of dims 1..) and
-// `rank` box extents, as the wrapper's _tma_plan lays them out one after the
-// other. Elements outside the dims are zero-filled on load.
-inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank,
-                                   const long long* plan) {
+// One tensor map of `dtype` elements with a 128-byte swizzle, from a plan of
+// `rank` dims (innermost first, in elements), rank - 1 strides (bytes, of dims
+// 1..) and `rank` box extents, as the wrappers' _tma_plan lay them out one
+// after the other. The innermost box extent must span 128 bytes. Elements
+// outside the dims are zero-filled on load.
+inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* base,
+                              int rank, const long long* plan) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
+  long long elem_bytes = 0;
+  switch (dtype) {
+    case CU_TENSOR_MAP_DATA_TYPE_UINT8: elem_bytes = 1; break;
+    case CU_TENSOR_MAP_DATA_TYPE_BFLOAT16: elem_bytes = 2; break;
+    case CU_TENSOR_MAP_DATA_TYPE_FLOAT32: elem_bytes = 4; break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (plan[2 * rank - 1] * elem_bytes != 128) return cudaErrorInvalidValue;
   cuuint64_t dims[5], strides[4];
   cuuint32_t box[5], elem[5];
   for (int i = 0; i < rank; ++i) {
@@ -64,9 +75,8 @@ inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank,
     elem[i] = 1;
   }
   for (int i = 0; i < rank - 1; ++i) strides[i] = (cuuint64_t)plan[rank + i];
-  CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                    const_cast<void*>(base), dims, strides, box, elem,
-                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult res = fn(map, dtype, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box,
+                    elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -157,6 +167,12 @@ __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorM
       : "memory");
 }
 
+// Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads of the
+// block, a multiple of 32: a warpgroup's own barrier
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- device: thread block clusters -------------------------------------------
 
 __device__ __forceinline__ uint32_t cluster_rank() {
@@ -225,6 +241,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // D (64 x N, float32, N / 2 registers a thread) += A (64 x 16, bf16) . B (16 x
 // N, bf16); D is overwritten when scale_d is 0. Accumulator layout: thread t
@@ -241,6 +262,12 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
                                          int scale_d);
+// The s8 form: D (64 x N, s32, the same layout) += A (64 x 32, s8) . B (32 x
+// N, s8), both from shared memory by descriptor and both K-major (8-bit wgmma
+// has no transpose); the k-step of 32 elements moves a start 32 bytes. The
+// s32 sum wraps (no .satfinite), so it is exact while |D| < 2^31.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(int (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64, 0>(float (&d)[32], uint64_t a, uint64_t b,
@@ -289,6 +316,27 @@ __device__ __forceinline__ void wgmma_ss<256, 1>(float (&d)[128], uint64_t a, ui
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

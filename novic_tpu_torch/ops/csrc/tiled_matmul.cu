@@ -16,8 +16,9 @@
 //         by row), and each thread gathers the four k bytes of its fragment's
 //         column with byte loads and packs them.
 //   bf16  wgmma m64n256k16 bf16 -> f32 fed by TMA (below).
-//   f32   exact float32 FMA on the CUDA cores: Hopper's tensor cores have no
-//         full float32 mode, and TF32 is not the product the probe computes.
+//   f32   exact float32 FMA on the CUDA cores, fed by TMA (below): Hopper's
+//         tensor cores have no full float32 mode, and TF32 is not the product
+//         the probe computes.
 // Epilogue 0 stores (M, N): int32 for s8, float32 otherwise. Epilogue 1, the
 // checksum: each block sums its tile's outputs per row and 8-column chunk in
 // shared memory, then per bn-block, and adds that into out[m, n / bn] with one
@@ -33,9 +34,25 @@
 // Design. s8 (right and simple first): blocks of 8 warps own a 128 x 128
 // output tile and walk K 64 bytes at a time through a 4-stage cp.async ring,
 // each warp 64 x 32 outputs in 4 x 4 m16n8 accumulators, A fragments by
-// ldmatrix.x4, as in K2. f32: the same tile, K 8 at a time, register-staged
-// into a double buffer (A transposed on the way in), each thread 8 x 8 outputs
-// from float4 shared-memory reads. bf16 (Hopper): persistent blocks of three
+// ldmatrix.x4, as K2's mma.sync instance does. f32 (Hopper): persistent blocks,
+// one an SM, of two consumer warpgroups and a producer warpgroup, walking 128 x
+// 128 output tiles (n fastest); setmaxnreg gives the consumers 232 registers a
+// thread and the producer 40 (ptxas holds a block of 9 warps to 168 registers a
+// thread, and the FMA warps spill there). One producer thread streams each tile's
+// stages by TMA through a 4-stage mbarrier ring of 32 KB stages: x as 128 rows
+// of 32 k (one 128-byte row each, K-major as x lies) and w as four boxes of 32
+// k-rows by 32 columns, all 128-byte swizzled. A stage is complete on its
+// `full` barrier when its 32 KB have landed and free on its `empty` one when
+// each consumer warp has read it, so the consumers never meet at a block
+// barrier and the producer runs into the next tile while they finish this one.
+// Each consumer thread owns 8 rows x 8 columns of the tile and, for each 4 k,
+// reads one float4 along k from each of its rows of x (no transposed copy; the
+// swizzle puts the warp's two rows in other banks) and two float4 of w per k,
+// then issues 256 FMAs; each output is one FMA chain in k order. Every shared-
+// memory read is a per-thread offset plus a constant. The checksum is taken in
+// registers and shuffles (a tile row lies in 16 lanes of one warp): one atomic
+// per row and tile where bn is a multiple of 128, else
+// one per row and 8 columns. bf16 (Hopper): persistent blocks of three
 // warpgroups, one block an SM, in clusters of two; each cluster walks pairs
 // of 128 x 256 output tiles that share their columns (tile rows 2i, 2i + 1).
 // Warpgroup 2 is the producer: one thread streams its x tile (128 rows x 64
@@ -61,8 +78,9 @@
 // ms). `make_mm` at M = 8192, 107.4 GOP, writes almost nothing: f32 1.603 ms at
 // the 67 TFLOP/s float32 rate, bf16 0.1086 ms, s8 0.0543 ms, all operations.
 // The design keeps x and w in L2 and writes each output once; mma.sync (not
-// wgmma) and the s8 byte gathers, and the f32 path's shared-memory reads, hold
-// those two paths below their rates.
+// wgmma) and the s8 byte gathers hold the s8 path below its rate. The f32
+// path issues 16 shared-memory float4 reads per 256 FMAs a thread, so its
+// issue slots, not shared memory, set its ceiling near 94% of the FMA rate.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -83,19 +101,18 @@ enum In { kS8 = 0, kBF16 = 1, kF32 = 2 };
 __device__ __forceinline__ int add(int a, int b) {  // int32 sum that wraps, as the plain version's
   return (int)((unsigned)a + (unsigned)b);
 }
-__device__ __forceinline__ float add(float a, float b) { return a + b; }
 
-// Checksum epilogue, second half: `part` holds (kBM rows, kChunks) sums of 8
-// columns; each row's chunks are summed per bn-block and added to out.
-template <typename Acc>
-__device__ __forceinline__ void checksum_flush(const Acc* part, Acc* __restrict__ out, int m0,
+// The s8 checksum epilogue, second half: `part` holds (kBM rows, kChunks)
+// sums of 8 columns; each row's chunks are summed per bn-block and added to
+// out.
+__device__ __forceinline__ void checksum_flush(const int* part, int* __restrict__ out, int m0,
                                                int n0, int M, int N, int bn) {
   __syncthreads();
   if (threadIdx.x >= kBM) return;
   const int row = m0 + threadIdx.x;
   if (row >= M) return;
   const int groups = N / bn;
-  Acc sum = 0;
+  int sum = 0;
   int cur = -1;
   for (int q = 0; q < kChunks; ++q) {
     const int col = n0 + 8 * q;
@@ -261,7 +278,7 @@ tc_gemm_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
           if (c == 0)
             part[(warp_m * kWM + i * 16 + g + 8 * hh) * kChunks + (warp_n * kWN + j * 8) / 8] = s;
         }
-    checksum_flush<Acc>(part, out, m0, n0, M, N, bn);
+    checksum_flush(part, out, m0, n0, M, N, bn);
   } else {
 #pragma unroll
     for (int i = 0; i < kMFrags; ++i)
@@ -435,97 +452,172 @@ bf16_gemm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant
   }
 }
 
-// ---- float32 path (CUDA cores) ---------------------------------------------
+// ---- float32 path (TMA ring + CUDA-core FMA) ---------------------------------
 
-constexpr int kBKF = 8;        // k per stage
-constexpr int kLdAF = kBM + 4;  // transposed A row stride (floats): conflict-free stores
+constexpr int kFBM = 128, kFBN = 128;             // block tile
+constexpr int kFBK = 32;                          // k per stage: one 128-byte row of x
+constexpr int kFStages = 4;
+constexpr int kFConsumers = 256;                  // warpgroups 0, 1: 8 x 8 outputs a thread
+constexpr int kFThreads = kFConsumers + 128;      // + producer warpgroup 2
+constexpr int kFXBytes = kFBM * kFBK * 4;         // x tile: 128 rows of 128 bytes
+constexpr int kFWBoxBytes = kFBK * 128;           // w box: 32 k-rows of 32 columns
+constexpr int kFWBytes = (kFBN / 32) * kFWBoxBytes;
+constexpr int kFStageBytes = kFXBytes + kFWBytes;  // 32 KB
+constexpr int kFBarOffset = kFStages * kFStageBytes;
+constexpr int kFSmemBytes = kFBarOffset + 2 * kFStages * 8 + 1024;  // + alignment
+
+// 16 bytes of shared memory at a shared-window address
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
 
 template <bool kChecksum>
-__global__ void __launch_bounds__(kThreads)
-f32_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ out,
-                int M, int N, int K, int bn) {
-  __shared__ __align__(16) float as[2][kBKF][kLdAF];  // (k, m): A transposed
-  __shared__ __align__(16) float bs[2][kBKF][kBN];    // (k, n)
-  __shared__ float part[kChecksum ? kBM * kChunks : 1];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  // Loader: A float4 x[m0 + am][k + ak .. + 3]; B float4 w[k + bk][n0 + bn4 .. + 3]
-  const int am = tid / 2, ak = (tid % 2) * 4;
-  const int bk = tid / 32, bn4 = (tid % 32) * 4;
-  const int ktiles = (K + kBKF - 1) / kBKF;
-  float4 ra, rb;
-  auto fetch = [&](int kt) {
-    const int k0 = kt * kBKF;
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    ra = m0 + am < M && k0 + ak < K ? *reinterpret_cast<const float4*>(x + (size_t)(m0 + am) * K + k0 + ak) : zero;
-    rb = k0 + bk < K && n0 + bn4 < N ? *reinterpret_cast<const float4*>(w + (size_t)(k0 + bk) * N + n0 + bn4) : zero;
-  };
-  auto stash = [&](int buf) {
-    as[buf][ak + 0][am] = ra.x;
-    as[buf][ak + 1][am] = ra.y;
-    as[buf][ak + 2][am] = ra.z;
-    as[buf][ak + 3][am] = ra.w;
-    *reinterpret_cast<float4*>(&bs[buf][bk][bn4]) = rb;
-  };
+__global__ void __launch_bounds__(kFThreads, 1)
+f32_gemm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                float* __restrict__ out, int M, int N, int K, int bn) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kFBarOffset);
+  uint64_t* empty = full + kFStages;
+  const int tiles_n = (N + kFBN - 1) / kFBN;
+  const int tiles = (M + kFBM - 1) / kFBM * tiles_n;
+  const int ktiles = (K + kFBK - 1) / kFBK;
 
-  // This thread's outputs: rows ty*4 + i and 64 + ty*4 + i, columns tx*4 + j and 64 + tx*4 + j
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  fetch(0);
-  stash(0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kFConsumers / 32);  // each consumer warp
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < ktiles) fetch(kt + 1);
+
+  if (threadIdx.x >= kFConsumers) {
+    // ---- producer: one thread streams every tile's stages ----
+    regs_dealloc<40>();
+    if (threadIdx.x == kFConsumers) {
+      prefetch_map(&xmap);
+      prefetch_map(&wmap);
+      int it = 0;  // ring slot, counted across tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * kFBM, n0 = tile % tiles_n * kFBN;
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int st = it % kFStages;
+          mbar_wait(&empty[st], ((it / kFStages) & 1) ^ 1);
+          uint8_t* stage = smem + st * kFStageBytes;
+          mbar_arrive_expect_tx(&full[st], kFStageBytes);
+          tma_load_2d(stage, &xmap, &full[st], kt * kFBK, m0);
+          for (int a = 0; a < kFBN / 32; ++a)
+            tma_load_2d(stage + kFXBytes + a * kFWBoxBytes, &wmap, &full[st], n0 + 32 * a,
+                        kt * kFBK);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: thread (ty, tx) owns rows 4 ty + i and 64 + 4 ty + i,
+    // and columns 4 tx + j and 64 + 4 tx + j (i, j < 4), of each tile ----
+    regs_alloc<232>();
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, lane = threadIdx.x % 32;
+    // Every read of a stage is a per-thread offset plus a constant. x row r =
+    // 4 ty + (i & 3) (+ 64) keeps k-chunk c at chunk c ^ (r & 7) = c ^ (i & 3)
+    // ^ 4 (ty & 1): bit 6 of (c ^ (i & 3)) << 4 is bit 2 of c, so the odd
+    // ty's XOR with 64 is + 64 where c < 4 and - 64 where c >= 4. w column
+    // chunk tx of k-row k sits at chunk (tx & 7) ^ (k & 7) of its box: one
+    // offset for each k & 7.
+    const uint32_t x_lo = 512 * ty + 64 * (ty & 1), x_hi = 512 * ty - 64 * (ty & 1);
+    uint32_t w_at[8];
 #pragma unroll
-    for (int kk = 0; kk < kBKF; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[cur][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[cur][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[cur][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[cur][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int k7 = 0; k7 < 8; ++k7)
+      w_at[k7] = kFXBytes + (tx >> 3) * kFWBoxBytes + (((tx & 7) ^ k7) << 4);
+    const uint32_t sbase = smem_addr(smem);
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / tiles_n * kFBM, n0 = tile % tiles_n * kFBN;
+      float acc[8][8];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (kt + 1 < ktiles) stash(cur ^ 1);
-    __syncthreads();
-  }
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  if constexpr (kChecksum) {
-    // Columns tx*4 .. +3 lie in 8-column chunk tx / 2 (and 8 + tx / 2): sum
-    // the 4, add the neighbouring thread's (tx ^ 1, lane ^ 1), even tx stores
+      for (int kt = 0; kt < ktiles; ++kt, ++it) {
+        const int st = it % kFStages;
+        mbar_wait(&full[st], (it / kFStages) & 1);
+        const uint32_t stage = sbase + st * kFStageBytes;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int rl = (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
+        for (int c = 0; c < kFBK / 4; ++c) {
+          // Four k of each of the thread's 8 rows, one float4 a row
+          float4 a4[8];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float s = acc[i][4 * half] + acc[i][4 * half + 1] + acc[i][4 * half + 2] + acc[i][4 * half + 3];
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        if ((tx & 1) == 0) part[rl * kChunks + 8 * half + tx / 2] = s;
+          for (int i = 0; i < 8; ++i)
+            a4[i] = lds128(stage + (c < 4 ? x_lo : x_hi) + ((i & 3) + (i < 4 ? 0 : 64)) * 128 +
+                           ((c ^ (i & 3)) << 4));
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const int k = 4 * c + kk;
+            const uint32_t w = stage + w_at[k & 7] + k * 128;
+            const float4 b0 = lds128(w), b1 = lds128(w + 2 * kFWBoxBytes);
+            const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float a = kk == 0 ? a4[i].x : kk == 1 ? a4[i].y : kk == 2 ? a4[i].z : a4[i].w;
+#pragma unroll
+              for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);  // this warp has read the stage
       }
-    }
-    checksum_flush<float>(part, out, m0, n0, M, N, bn);
-  } else {
+
+      if constexpr (kChecksum) {
+        // A tile row's 128 columns lie in the 16 lanes of one warp that share
+        // ty. Where bn is a multiple of 128 the tile lies in one bn-block: the
+        // row's sum over those lanes, one atomic per row. Else per 8-column
+        // chunk: the pair of lanes (tx, tx ^ 1) that holds it, one atomic each.
+        const int groups = N / bn;
+        const bool whole = bn % kFBN == 0;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = m0 + (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
-      if (row >= M) continue;
+        for (int i = 0; i < 8; ++i) {
+          const int row = m0 + (i < 4 ? 0 : 64) + 4 * ty + (i & 3);
+          float s[2];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int col = n0 + 64 * half + tx * 4;
-        if (col >= N) continue;
-        *reinterpret_cast<float4*>(out + (size_t)row * N + col) =
-            make_float4(acc[i][4 * half], acc[i][4 * half + 1], acc[i][4 * half + 2],
-                        acc[i][4 * half + 3]);
+          for (int h = 0; h < 2; ++h)
+            s[h] = acc[i][4 * h] + acc[i][4 * h + 1] + acc[i][4 * h + 2] + acc[i][4 * h + 3];
+          if (whole) {
+            float r = s[0] + s[1];
+#pragma unroll
+            for (int o = 1; o < 16; o *= 2) r += __shfl_xor_sync(0xffffffffu, r, o);
+            if (tx == 0 && row < M) atomicAdd(out + (size_t)row * groups + n0 / bn, r);
+          } else {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float r = s[h] + __shfl_xor_sync(0xffffffffu, s[h], 1);
+              const int col = n0 + 64 * h + 4 * tx;
+              if ((tx & 1) == 0 && row < M && col < N)
+                atomicAdd(out + (size_t)row * groups + col / bn, r);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int row = m0 + (i < 4 ? 0 : 64) + 4 * ty + (i & 3);
+          if (row >= M) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int col = n0 + 64 * h + 4 * tx;
+            if (col >= N) continue;
+            *reinterpret_cast<float4*>(out + (size_t)row * N + col) =
+                make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+          }
+        }
       }
-    }
+    }  // tile
   }
 }
 
@@ -543,6 +635,21 @@ cudaError_t set_smem(Kernel kernel, int bytes, bool (&configured)[kMaxDevices]) 
   return cudaSuccess;
 }
 
+// The device's SM count, read once per device
+cudaError_t sm_count(int& n) {
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  n = sms[dev];
+  return cudaSuccess;
+}
+
 template <int kIn, bool kChecksum>
 cudaError_t launch_tc(const void* x, const void* w, void* out, int M, int N, int K, int bn,
                       cudaStream_t stream) {
@@ -557,11 +664,12 @@ cudaError_t launch_tc(const void* x, const void* w, void* out, int M, int N, int
   return cudaGetLastError();
 }
 
-// The plans agree with what the kernel loads: x dims (K, M), box (64, 128);
-// w dims (N, K), box (64, 64)
-bool bf16_plan_matches(const long long* p, int M, int N, int K) {
-  return p[0] == K && p[1] == M && p[3] == kHBK && p[4] == kHBM && p[5] == N && p[6] == K &&
-         p[8] == 64 && p[9] == kHBK;
+// The plans agree with what the kernels load: x dims (K, M), box (one
+// 128-byte row, the block's rows); w dims (N, K), box (one 128-byte row, the
+// k of a stage): bf16 (64, 128) and (64, 64), float32 (32, 128) and (32, 32)
+bool plan_matches(const long long* p, int M, int N, int K, int atom, int rows, int bk) {
+  return p[0] == K && p[1] == M && p[3] == atom && p[4] == rows && p[5] == N && p[6] == K &&
+         p[8] == atom && p[9] == bk;
 }
 
 template <bool kChecksum>
@@ -572,35 +680,47 @@ cudaError_t launch_bf16(const void* x, const void* w, const long long* plan, voi
   cudaError_t err = set_smem(kernel, kHSmemBytes, configured);
   if (err != cudaSuccess) return err;
   CUtensorMap xmap, wmap;
-  err = encode_bf16_map(&xmap, x, 2, plan);
-  if (err == cudaSuccess) err = encode_bf16_map(&wmap, w, 2, plan + kPlanLen);
+  err = encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, 2, plan);
+  if (err == cudaSuccess)
+    err = encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, 2, plan + kPlanLen);
   if (err != cudaSuccess) return err;
   // Persistent: at most one block an SM, each cluster walking pairs of
   // output tiles (n fastest)
-  int dev = 0;
-  err = cudaGetDevice(&dev);
+  int sms = 0;
+  err = sm_count(sms);
   if (err != cudaSuccess) return err;
-  static int sms[kMaxDevices] = {};
-  if (sms[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
   const long long pairs =
       (long long)((M + kCluster * kHBM - 1) / (kCluster * kHBM)) * ((N + kHBN - 1) / kHBN);
   if (pairs > INT32_MAX / kCluster) return cudaErrorInvalidValue;
-  const int grid = kCluster * (int)(pairs < sms[dev] / kCluster ? pairs : sms[dev] / kCluster);
+  const int grid = kCluster * (int)(pairs < sms / kCluster ? pairs : sms / kCluster);
   kernel<<<grid, kHThreads, kHSmemBytes, stream>>>(xmap, wmap, static_cast<float*>(out), M, N, K,
                                                    bn);
   return cudaGetLastError();
 }
 
 template <bool kChecksum>
-cudaError_t launch_f32(const void* x, const void* w, void* out, int M, int N, int K, int bn,
-                       cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  f32_gemm_kernel<kChecksum><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out), M, N,
-      K, bn);
+cudaError_t launch_f32(const void* x, const void* w, const long long* plan, void* out, int M,
+                       int N, int K, int bn, cudaStream_t stream) {
+  auto kernel = f32_gemm_kernel<kChecksum>;
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = set_smem(kernel, kFSmemBytes, configured);
+  if (err != cudaSuccess) return err;
+  CUtensorMap xmap, wmap;
+  err = encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, 2, plan);
+  if (err == cudaSuccess)
+    err = encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, w, 2, plan + kPlanLen);
+  if (err != cudaSuccess) return err;
+  // Persistent: one block an SM (its ring takes 128 KB, its consumers 232
+  // registers a thread), each walking tiles
+  // blockIdx.x, + gridDim.x, ... (n fastest)
+  int sms = 0;
+  err = sm_count(sms);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)((M + kFBM - 1) / kFBM) * ((N + kFBN - 1) / kFBN);
+  if (tiles > INT32_MAX) return cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  kernel<<<grid, kFThreads, kFSmemBytes, stream>>>(xmap, wmap, static_cast<float*>(out), M, N, K,
+                                                   bn);
   return cudaGetLastError();
 }
 
@@ -612,13 +732,17 @@ extern "C" {
 // in_kind: 0 s8 (out int32), 1 bf16 (out float32), 2 float32 (out float32).
 // bn = 0 stores (M, N); bn > 0 adds each row's bn-block sums into the
 // (M, N / bn) out, which the caller has zeroed (int32 for s8).
-// plan (bf16 only, else unused): the tensor maps of x and w, 5 values each:
-// dims (K, M) / (N, K), the byte stride of dim 1, box (64, 128) / (64, 64).
+// plan (bf16 and float32, else unused): the tensor maps of x and w, 5 values
+// each: dims (K, M) / (N, K), the byte stride of dim 1, box (one 128-byte row,
+// 128 rows) / (one 128-byte row, the stage's k): bf16 (64, 128) / (64, 64),
+// float32 (32, 128) / (32, 32).
 int novic_tiled_matmul(const void* x, const void* w, const long long* plan, void* out, int M,
                        int N, int K, int in_kind, int bn, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 || N % 16 != 0 || out == nullptr ||
       M > 65535 * kBM || bn < 0 || (bn > 0 && (bn % 8 != 0 || N % bn != 0)) ||
-      (in_kind == kBF16 && (plan == nullptr || !bf16_plan_matches(plan, M, N, K))))
+      (in_kind == kBF16 &&
+       (plan == nullptr || !plan_matches(plan, M, N, K, 64, kHBM, kHBK))) ||
+      (in_kind == kF32 && (plan == nullptr || !plan_matches(plan, M, N, K, 32, kFBM, kFBK))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const bool sum = bn > 0;
@@ -630,8 +754,8 @@ int novic_tiled_matmul(const void* x, const void* w, const long long* plan, void
       return (int)(sum ? launch_bf16<true>(x, w, plan, out, M, N, K, bn, st)
                        : launch_bf16<false>(x, w, plan, out, M, N, K, bn, st));
     case kF32:
-      return (int)(sum ? launch_f32<true>(x, w, out, M, N, K, bn, st)
-                       : launch_f32<false>(x, w, out, M, N, K, bn, st));
+      return (int)(sum ? launch_f32<true>(x, w, plan, out, M, N, K, bn, st)
+                       : launch_f32<false>(x, w, plan, out, M, N, K, bn, st));
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -20,8 +20,22 @@ torch ops. On a CUDA tensor they launch the kernel in csrc/int8_matmul.cu, or
 raise; they never fall back. The quantizers are plain torch on every device, as
 in the JAX package, where they are XLA ops outside the Pallas kernel.
 
+The kernel has two instances, and the wrapper picks one by shape (`_instance`),
+never by what a launch returns:
+* "wgmma", the Hopper instance (TMA + s8 wgmma, persistent, two consumer
+  warpgroups taking alternate tiles so that one stores while the other
+  multiplies, clusters of 2 x 2 blocks sharing each A and B stage by TMA
+  multicast), where tensor maps can take both operands: K a positive
+  multiple of 16 (the rows' byte stride) and both bases 16-byte aligned.
+  Every GEMM of the int8 towers and of X4 is such a shape. `_tma_plan` lays
+  out its maps.
+* "mma_sync", the first (mma.sync) instance, for every other shape: K not a
+  multiple of 16, an unaligned base (a view into a larger buffer), K = 0.
+A CUDA tensor that the chosen instance refuses raises.
+
 The kernel is compiled with nvcc for sm_90a at first use into
-build/novic_tpu_torch/ and loaded through ctypes. `LAUNCHES` counts its launches.
+build/novic_tpu_torch/ and loaded through ctypes. `LAUNCHES` counts its
+launches, and `INSTANCE_LAUNCHES` each instance's.
 """
 
 from __future__ import annotations
@@ -36,6 +50,7 @@ import torch
 from novic_tpu_torch.ops import build as _build
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
+INSTANCE_LAUNCHES = {"wgmma": 0, "mma_sync": 0}  # the same, by instance
 
 SOURCE = _build.CSRC / "int8_matmul.cu"
 _EPILOGUES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
@@ -95,7 +110,7 @@ def _library():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.novic_int8_matmul.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+            lib.novic_int8_matmul.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                                               + [ctypes.c_void_p])
             lib.novic_int8_matmul.restype = ctypes.c_int
             _lib = lib
@@ -123,6 +138,28 @@ def _device_kind(*tensors: Optional[torch.Tensor]) -> str:
     return kind
 
 
+TMA_BOX = 128  # 128 K bytes: one swizzled row, the Hopper instance's box width and tile
+
+
+def _instance(xq: torch.Tensor, wq: torch.Tensor) -> str:
+    """The kernel instance for these contiguous operands: "wgmma" where tensor
+    maps can take them (K a positive multiple of 16, both bases 16-byte
+    aligned), else "mma_sync"."""
+    K = xq.shape[1]
+    aligned = xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
+    return "wgmma" if K > 0 and K % 16 == 0 and aligned else "mma_sync"
+
+
+def _tma_plan(xq: torch.Tensor, wq: torch.Tensor) -> list[int]:
+    """The Hopper instance's tensor maps: xq (M, K) and wq (N, K), both
+    contiguous and K-major: dims (K, rows), rows K bytes apart, a box of 128 K
+    bytes by 64 rows, half of a 128-row tile (each block of a 2 x 2 cluster
+    loads half of its tiles and multicasts it to the block that shares the
+    tile). The dims' extents zero-fill the ragged edges."""
+    (M, K), N = xq.shape, wq.shape[0]
+    return [K, M, K, TMA_BOX, TMA_BOX // 2, K, N, K, TMA_BOX, TMA_BOX // 2]
+
+
 def _launch(xq, wq, sx, sw, bias, out_dtype: torch.dtype) -> torch.Tensor:
     global LAUNCHES
     M, N, K = _check_operands(xq, wq)
@@ -139,15 +176,21 @@ def _launch(xq, wq, sx, sw, bias, out_dtype: torch.dtype) -> torch.Tensor:
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
+    instance = _instance(xq, wq)
+    plan = None
+    if instance == "wgmma":
+        plan = ctypes.cast((ctypes.c_longlong * 10)(*_tma_plan(xq, wq)), ctypes.c_void_p)
     lib = _library()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
-        err = lib.novic_int8_matmul(xq.data_ptr(), wq.data_ptr(), ptr(sx), ptr(sw), ptr(bias),
-                                    out.data_ptr(), M, N, K, _EPILOGUES[out_dtype],
+        err = lib.novic_int8_matmul(xq.data_ptr(), wq.data_ptr(), plan, ptr(sx), ptr(sw),
+                                    ptr(bias), out.data_ptr(), M, N, K, _EPILOGUES[out_dtype],
                                     torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"int8_matmul kernel launch failed ({instance} instance): "
+                           f"CUDA error {err}")
     LAUNCHES += 1
+    INSTANCE_LAUNCHES[instance] += 1
     return out
 
 

@@ -14,9 +14,11 @@ is). The TPU's bm and bk were VMEM tilings; the kernel picks its own tiles.
   values; float32 as a float32 product.
 * On CUDA tensors it launches the kernel in csrc/tiled_matmul.cu, or raises:
   s8 on the tensor cores by mma.sync; bf16 by wgmma in a persistent kernel
-  whose clusters of two blocks share each w stage by TMA multicast, through
-  tensor maps that `_tma_plan` lays out; float32 as exact float32 FMA on the
-  CUDA cores (no TF32). It never falls back to the plain version.
+  whose clusters of two blocks share each w stage by TMA multicast; float32
+  as exact float32 FMA on the CUDA cores (no TF32) in a persistent kernel
+  whose producer warp feeds the FMA warps by TMA through an mbarrier ring.
+  The bf16 and float32 forms read x and w through tensor maps that
+  `_tma_plan` lays out. It never falls back to the plain version.
 
 The kernel is compiled with nvcc for sm_90a at first use into
 build/novic_tpu_torch/ and loaded through ctypes. `LAUNCHES` counts its launches.
@@ -94,18 +96,22 @@ def _check(x: torch.Tensor, w: torch.Tensor, bn: Optional[int]) -> None:
         raise ValueError(f"tiled_matmul: bn={bn} must be a positive multiple of 8 dividing N={N}")
 
 
-TMA_ATOM = 64                 # bf16 per 128-byte swizzled row: a box's innermost extent
-BLOCK_M, BLOCK_K = 128, 64    # the bf16 kernel's x box (k, rows); its w boxes are (64, BLOCK_K)
+TMA_ROW = 128  # bytes of a 128-byte swizzled row: a box's innermost extent
+BLOCK_M = 128  # the bf16 and float32 kernels' x box rows
 
 
 def _tma_plan(x: torch.Tensor, w: torch.Tensor) -> list[int]:
-    """The bf16 kernel's tensor maps: x (M, K) K-major, dims (K, M), the byte
-    stride of a row, box (64, 128); w (K, N) row-major, read as the MN-major
-    operand, dims (N, K), box (64, 64): four such boxes make a 256-column
-    stage. The dims' extents zero-fill the ragged edges."""
+    """The bf16 and float32 kernels' tensor maps. A box's innermost extent
+    is one 128-byte row, `atom` elements (64 bf16, 32 float32), which is also
+    the k of a stage. x (M, K) K-major: dims (K, M), the byte stride of a
+    row, box (atom, 128). w (K, N) row-major: dims (N, K), box (atom, atom),
+    atom columns by a stage's k-rows; the kernels load 256 / atom (bf16, the
+    MN-major wgmma operand) or 128 / atom (float32) of them a stage. The
+    dims' extents zero-fill the ragged edges."""
     (M, K), N = x.shape, w.shape[1]
-    return ([K, M, x.stride(0) * x.element_size(), TMA_ATOM, BLOCK_M]
-            + [N, K, w.stride(0) * w.element_size(), TMA_ATOM, BLOCK_K])
+    atom = TMA_ROW // x.element_size()
+    return ([K, M, x.stride(0) * x.element_size(), atom, BLOCK_M]
+            + [N, K, w.stride(0) * w.element_size(), atom, atom])
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, bn: Optional[int]) -> torch.Tensor:
@@ -117,9 +123,9 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bn: Optional[int]) -> torch.Tensor
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"tiled_matmul: {name} must be contiguous and 16-byte aligned")
     plan = None
-    if x.dtype == torch.bfloat16:
+    if x.dtype != torch.int8:
         # TMA reads rows whose byte strides are multiples of 16 (K and N
-        # multiples of 16 give 32) from 16-byte aligned bases
+        # multiples of 16 give 32 or 64) from 16-byte aligned bases
         plan = ctypes.cast((ctypes.c_longlong * 10)(*_tma_plan(x, w)), ctypes.c_void_p)
     if bn:
         # The kernel adds into the checksum: int32 sums for int8, cast after

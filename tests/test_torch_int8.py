@@ -196,3 +196,102 @@ def test_wrappers_raise_off_the_cpu_and_never_fall_back(monkeypatch):
     with pytest.raises(ValueError, match="out_dtype"):
         port.int8_matmul_dequant(xq, sx, wq, sw, None, torch.int32)
     assert not called
+
+
+@pytest.mark.parametrize("M,K,N", [(12544, 768, 3072), (12544, 3072, 768), (16384, 1280, 5120),
+                                   (1, 16, 16), (129, 768, 200), (300, 1040, 199)])
+def test_k2_tma_plan(M, K, N):
+    """xq (M, K) and wq (N, K), both K-major: dims (K, rows), rows K bytes
+    apart, a box of 128 K bytes (one swizzled row) by 64 rows (half a tile,
+    multicast into the blocks of a cluster that share it); the extents
+    zero-fill the ragged edges."""
+    xq = torch.empty(M, K, dtype=torch.int8, device="meta")
+    wq = torch.empty(N, K, dtype=torch.int8, device="meta")
+    assert port._tma_plan(xq, wq) == [K, M, K, 128, 64, K, N, K, 128, 64]
+
+
+class _FakeLibrary:
+    """Records each launch's arguments and returns a CUDA error code."""
+
+    def __init__(self, err: int = 0):
+        self.err, self.calls = err, []
+
+    def novic_int8_matmul(self, *args):
+        self.calls.append(args)
+        return self.err
+
+
+@pytest.fixture
+def fake_launch(monkeypatch):
+    """The kernel's library replaced by a recorder, CPU tensors standing in
+    for CUDA ones, and the plain versions made to fail if reached."""
+    import contextlib
+    import types
+
+    lib = _FakeLibrary()
+    monkeypatch.setattr(port, "_library", lambda: lib)
+    monkeypatch.setattr(port.torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(port.torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+
+    def plain(*args):
+        raise AssertionError("a kernel launch reached the plain version")
+
+    monkeypatch.setattr(port, "int8_matmul_reference", plain)
+    monkeypatch.setattr(port, "int8_matmul_dequant_reference", plain)
+    monkeypatch.setattr(port, "INSTANCE_LAUNCHES", {"wgmma": 0, "mma_sync": 0})
+    return lib
+
+
+def _aligned_int8(rows: int, K: int, offset: int = 0) -> torch.Tensor:
+    """A contiguous (rows, K) int8 tensor whose base lies `offset` bytes past a
+    16-byte boundary."""
+    flat = torch.zeros(rows * K + 32, dtype=torch.int8)
+    start = (-flat.data_ptr()) % 16 + offset
+    return flat[start:start + rows * K].view(rows, K)
+
+
+@pytest.mark.parametrize("case,want", [("aligned", "wgmma"), ("k16", "wgmma"), ("k70", "mma_sync"),
+                                       ("k0", "mma_sync"), ("x_unaligned", "mma_sync"),
+                                       ("w_unaligned", "mma_sync")])
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.float32, torch.bfloat16])
+def test_k2_instance_by_shape(fake_launch, case, want, out_dtype):
+    """The wrapper picks K2's instance by shape and alignment alone: the
+    Hopper (wgmma) instance, with its tensor-map plan, where K is a positive
+    multiple of 16 and both bases are 16-byte aligned; else the mma.sync
+    instance, with no plan. Each launch is counted under its instance."""
+    import ctypes
+
+    M, N = 40, 24
+    K = {"k16": 16, "k70": 70, "k0": 0}.get(case, 768)
+    xq = _aligned_int8(M, K, 1 if case == "x_unaligned" else 0)
+    wq = _aligned_int8(N, K, 3 if case == "w_unaligned" else 0)
+    assert port._instance(xq, wq) == want
+    sx, sw = torch.ones(M), torch.ones(N)
+    if out_dtype == torch.int32:
+        out = port._launch(xq, wq, None, None, None, out_dtype)
+    else:
+        out = port._launch(xq, wq, sx, sw, None, out_dtype)
+    assert out.shape == (M, N) and out.dtype == out_dtype
+    (args,) = fake_launch.calls
+    plan = args[2]
+    if want == "wgmma":
+        assert list((ctypes.c_longlong * 10).from_address(plan.value)) == port._tma_plan(xq, wq)
+    else:
+        assert plan is None
+    assert args[7:11] == (M, N, K, {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}[out_dtype])
+    assert port.INSTANCE_LAUNCHES == {"wgmma": int(want == "wgmma"), "mma_sync": int(want != "wgmma")}
+
+
+@pytest.mark.parametrize("case", ["aligned", "k70"])
+def test_k2_refused_launch_raises_and_never_falls_back(fake_launch, case):
+    """A launch that the chosen instance refuses (a nonzero CUDA error) raises,
+    names the instance, counts nothing and never reaches the plain version."""
+    fake_launch.err = 1  # cudaErrorInvalidValue
+    K = 70 if case == "k70" else 768
+    xq, wq = _aligned_int8(8, K), _aligned_int8(16, K)
+    launches = port.LAUNCHES
+    instance = "mma_sync" if case == "k70" else "wgmma"
+    with pytest.raises(RuntimeError, match=f"{instance} instance"):
+        port._launch(xq, wq, None, None, None, torch.int32)
+    assert port.LAUNCHES == launches and port.INSTANCE_LAUNCHES == {"wgmma": 0, "mma_sync": 0}

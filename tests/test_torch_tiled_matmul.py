@@ -166,3 +166,78 @@ def test_launch_refuses_what_a_tensor_map_cannot_take(monkeypatch, bad):
         x = flat.view(32, 128)[:, :64]
     with pytest.raises(ValueError, match="contiguous and 16-byte aligned"):
         port._launch(x, w, None)
+
+
+@pytest.mark.parametrize("M,K,N", [(8192, 1280, 5120), (16384, 1280, 5120), (1000, 272, 400),
+                                   (129, 1040, 272), (1, 16, 16)])
+def test_f32_tma_plan(M, K, N):
+    """The float32 kernel's maps: x (M, K) K-major, dims (K, M), row stride
+    K*4 bytes, box 32 k (one 128-byte row) by 128 rows; w (K, N) row-major,
+    dims (N, K), row stride N*4 bytes, box 32 columns by 32 k-rows (four
+    such boxes make a 128-column stage). The extents zero-fill ragged edges."""
+    x = torch.empty(M, K, dtype=torch.float32, device="meta")
+    w = torch.empty(K, N, dtype=torch.float32, device="meta")
+    assert port._tma_plan(x, w) == [K, M, 4 * K, 32, 128, N, K, 4 * N, 32, 32]
+
+
+@pytest.mark.parametrize("bad", ["x_base", "w_base", "x_strided", "k_not_16", "n_not_16"])
+def test_f32_launch_refuses_what_a_tensor_map_cannot_take(monkeypatch, bad):
+    """For float32 as for bf16: a base that is not 16-byte aligned, a row
+    stride other than the row's own, or K or N not a multiple of 16 raises
+    before the kernel's library is touched."""
+    def no_library():
+        raise AssertionError("the launch went past the checks")
+
+    monkeypatch.setattr(port, "_library", no_library)
+    flat = torch.zeros(8192, dtype=torch.float32)
+    x, w = torch.zeros(32, 64), torch.zeros(64, 48)
+    if bad == "x_base":
+        x = flat[1:1 + 32 * 64].view(32, 64)
+    elif bad == "w_base":
+        w = flat[2:2 + 64 * 48].view(64, 48)
+    elif bad == "x_strided":
+        x = flat.view(32, 256)[:, :64]
+    elif bad == "k_not_16":
+        x, w = torch.zeros(32, 40), torch.zeros(40, 48)
+    else:
+        w = torch.zeros(64, 40)
+    match = "multiples of 16" if bad in ("k_not_16", "n_not_16") else "contiguous and 16-byte aligned"
+    with pytest.raises(ValueError, match=match):
+        port._launch(x, w, None)
+
+
+@pytest.mark.parametrize("dtype,plan", [(torch.int8, None),
+                                        (torch.bfloat16, [256, 32, 512, 64, 128, 48, 256, 96, 64, 64]),
+                                        (torch.float32, [256, 32, 1024, 32, 128, 48, 256, 192, 32, 32])])
+def test_launch_passes_each_form_its_plan(monkeypatch, dtype, plan):
+    """The bf16 and float32 forms reach the library with their tensor-map
+    plan, the s8 form with none; a refused launch raises and counts nothing."""
+    import contextlib
+    import ctypes
+    import types
+
+    calls = []
+
+    class Lib:
+        def novic_tiled_matmul(self, *args):
+            calls.append(args)
+            return 1 if len(calls) > 1 else 0
+
+    monkeypatch.setattr(port, "_library", lambda: Lib())
+    monkeypatch.setattr(port.torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(port.torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(port, "tiled_matmul_reference", lambda *a: pytest.fail("plain version"))
+    x, w = torch.zeros(32, 256, dtype=dtype), torch.zeros(256, 48, dtype=dtype)
+    launches = port.LAUNCHES
+    port._launch(x, w, 16)
+    got = calls[0][2]
+    if plan is None:
+        assert got is None
+    else:
+        assert list((ctypes.c_longlong * 10).from_address(got.value)) == plan
+    assert calls[0][4:9] == (32, 48, 256, port._KINDS[dtype], 16)
+    assert port.LAUNCHES == launches + 1
+    with pytest.raises(RuntimeError, match="launch failed"):
+        port._launch(x, w, None)
+    assert port.LAUNCHES == launches + 1
