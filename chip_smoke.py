@@ -8,14 +8,18 @@ Phases, each printing JSON lines; any failure exits nonzero:
      beam_reorder.cu, attention_bf16.cu, tiled_matmul.cu, flash_attention.cu)
      from the checkout's sources, one nvcc each, started together; count
      HGMMA / IGMMA (wgmma on bf16 / s8), UTMALDG (TMA load) and SYNCS
-     (mbarrier) instructions in the SASS of the Hopper designs
-     (attention_bf16, tiled_matmul, int8_matmul), and fail if one has no
-     wgmma or no UTMALDG;
-  3. kernel: the attention kernel against its plain PyTorch version on the
-     card, at the serving shape, at the DFN5B-H-378 tower's (32,730,16,80) and
-     at two more (stated tolerance), with its time, the plain version's time,
-     the time of one PyTorch library call for the same function, and the least
-     time the card could take (bound);
+     (mbarrier) instructions in the SASS of the Hopper designs (attention,
+     attention_bf16, flash_attention, tiled_matmul, int8_matmul), and fail if
+     one has no wgmma or no UTMALDG, or if ptxas reports a spill or a wgmma
+     serialisation ("Potential Performance Loss") in attention.cu or
+     flash_attention.cu;
+  3. kernel: the attention kernel (K1: a bf16 pre-pass and a TMA + wgmma
+     kernel) against its plain PyTorch version on the card, at the serving
+     shape, at the DFN5B-H-378 tower's (32,730,16,80), at two more, and at
+     edge shapes (S=1, S=65 with the causal bias, hd 8 and 128; stated
+     tolerance), with its time and the pre-pass's share, the plain version's
+     time, the time of one PyTorch library call for the same function, and
+     the least time the card could take (bound);
   3b. dropout kernel: bit-identical to its plain version at the three FT0
      site shapes and a ragged size, rates 0.1 and 0.5; its backward mask is
      the forward's; the keep share is within 5 sigma of 1 - rate; times;
@@ -42,14 +46,14 @@ Phases, each printing JSON lines; any failure exits nonzero:
      ((1,16,16) and (129,1040,272), whole and bn=16; float32 also
      (300,1040,512) at bn=256); times beside the bound and
      torch._int_mm / torch.mm; the int32 wrap of the s8 checksum;
-  3g. one-pass flash-attention kernel (X6): against its plain version at the
-     kernel's blocking (64 keys) and at the harnesses' (256, 768: JAX's
-     multi-step and single-step bodies), at the DFN5B harness's (32,16,768,80)
-     and attn_variants' (256,12,256,64), both read in place from the padded
-     (B,Sp,H,hd) projections with segment ids, and at edge cases (S=1, S=100
-     with hd 8/64/80/128, Sq != Skv, two packed segments, a query with every
-     key masked, no segment ids); times beside the bound, SDPA with the
-     segment mask and, at the DFN5B shape, attention_bf16's;
+  3g. one-pass flash-attention kernel (X6, TMA + wgmma): against its plain
+     version at the kernel's blocking (64 keys) and at the harnesses' (256,
+     768: JAX's multi-step and single-step bodies), at the DFN5B harness's
+     (32,16,768,80) and attn_variants' (256,12,256,64), both read in place
+     from the padded (B,Sp,H,hd) projections with segment ids, and at edge
+     cases (S=1, S=100 with hd 8/64/80/128, Sq != Skv, two packed segments, a
+     query with every key masked, no segment ids); times beside the bound,
+     SDPA with the segment mask and, at the DFN5B shape, attention_bf16's;
   4. serving path: NOVICModel serving SigLIP-B/16 (random weights from a seed)
      + the FT0 decoder with beam k=10, unguided and guided over all 42,919
      nouns, 2 batches of 64 seeded 224x224 frames; checks the outputs and that
@@ -71,7 +75,8 @@ Phases, each printing JSON lines; any failure exits nonzero:
      fused_attention and (int8) 192 int8_matmul launches per vision forward,
      every one of K2's wgmma instance; texts at B=256; card vs CPU on 1 frame
      and 4 texts; int8 vs bf16; ms per batch, images/s, texts/s, peak memory,
-     K1's and K2's device shares (K2's read as in 4b);
+     K1's (its pre-pass and attention kernel, by name) and K2's device shares
+     (K2's read as in 4b);
   4f. the harness paths at their own sizes: exp/dfn5b_attention's tower (B=32,
      32 layers) with the plain chain, X2's three schedules and the flash
      variant (X6; 32 kernel launches a pass each), and its bf16-residual runs
@@ -286,15 +291,27 @@ def attention_bound_ms(B, S, H, hd, bias: bool) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# K1's two kernels by name in a profile: the bf16 pre-pass and the attention
+# kernel (attention_bf16.cu's is attention_bf16_kernel, which neither matches)
+K1_KERNELS = ("::to_bf16_kernel(", "::attention_kernel<")
+
+
 def phase_kernel(attention) -> tuple[dict, dict]:
     """Phase 3: fused_attention (kernel) against attention_reference (plain) on
-    the card. Returns the lines of the serving shape and the DFN5B shape."""
+    the card, at the towers' shapes (timed, with the pre-pass's share of the
+    device time) and at edge shapes. Returns the lines of the serving shape and
+    the DFN5B shape."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     result = dfn5b = None
-    for B, S, H, hd, causal in [(BATCH, 196, 12, 64, False), (32, 730, 16, 80, False),
-                                (8, 729, 16, 72, False), (8, 77, 8, 64, True)]:
+    for B, S, H, hd, causal, timed in [
+            (BATCH, 196, 12, 64, False, True), (32, 730, 16, 80, False, True),
+            (8, 729, 16, 72, False, True), (8, 77, 8, 64, True, True),
+            # edges: one key; a ragged tile with the causal bias; hd 8 (one
+            # k-step, zero-filled past hd) and 128 (two atoms, three consumers)
+            (2, 1, 3, 64, False, False), (2, 65, 3, 64, True, False),
+            (2, 100, 3, 8, False, False), (2, 129, 3, 128, True, False)]:
         q, k, v = (torch.randn(B, S, H, hd, device="cuda", generator=gen) for _ in range(3))
         bias = None
         if causal:
@@ -308,16 +325,23 @@ def phase_kernel(attention) -> tuple[dict, dict]:
         vmax = v.to(torch.bfloat16).float().abs().amax(dim=1, keepdim=True)  # over keys
         rel_fro = ((out - ref).norm() / ref.norm()).item()
         ok = bool((diff <= KERNEL_ATOL + 2.0 ** -7 * vmax).all()) and rel_fro <= KERNEL_REL_FRO
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        ms = cuda_ms(lambda: attention.fused_attention(q, k, v, bias))
-        plain_ms = cuda_ms(lambda: attention.attention_reference(q, k, v, bias))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias))
-        bound_ms, bound_by = attention_bound_ms(B, S, H, hd, causal)
-        line = {"phase": "kernel", "name": "fused_attention", "shape": [B, S, H, hd],
-                "causal_bias": causal, "max_abs_err": err, "rel_fro_err": rel_fro,
-                "tol": f"|d| <= {KERNEL_ATOL} + 2^-7 max|v|, rel_fro <= {KERNEL_REL_FRO}", "ok": ok,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by}
+        line = {"phase": "kernel", "name": "fused_attention", "instance": "wgmma",
+                "shape": [B, S, H, hd], "causal_bias": causal, "max_abs_err": err,
+                "rel_fro_err": rel_fro,
+                "tol": f"|d| <= {KERNEL_ATOL} + 2^-7 max|v|, rel_fro <= {KERNEL_REL_FRO}", "ok": ok}
+        if timed:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            run = lambda: attention.fused_attention(q, k, v, bias)  # noqa: E731
+            prof = device_profile(run, match=K1_KERNELS)
+            bound_ms, bound_by = attention_bound_ms(B, S, H, hd, causal)
+            line.update(ms=cuda_ms(run), plain_ms=cuda_ms(
+                lambda: attention.attention_reference(q, k, v, bias)),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                          attn_mask=bias)),
+                bound_ms=bound_ms, bound_by=bound_by,
+                device_ms_by_kernel={name.strip(":(<"): sum(m[1] for m in prof["matched_kernels"]
+                                                           if name in m[0])
+                                     for name in K1_KERNELS})
         emit(line)
         if not ok:
             raise SystemExit(f"fused_attention disagrees with its plain version at {line['shape']}")
@@ -901,7 +925,7 @@ def phase_flash_attention(fa, ab) -> dict:
         out = run().float()
         torch.cuda.synchronize()
         vmax = v.float().abs().amax(dim=2, keepdim=True)  # over keys
-        line = {"phase": "kernel", "name": "flash_attention", "case": label,
+        line = {"phase": "kernel", "name": "flash_attention", "instance": "wgmma", "case": label,
                 "shape": [B, H, sq, skv, hd], "q_strides": list(q.stride()),
                 "segments": seg_kind if seg_kind is None or isinstance(seg_kind, str)
                 else f"1 over {seg_kind} tokens, 0 over the padding", "blockings": {}}
@@ -1283,8 +1307,8 @@ def phase_dfn5b(nouns: list, name: str, smi: str) -> dict:
         vision_ms = cuda_ms(lambda: emb.embed_image_tensor(pixels[0]), iters=3, warmup=1)
         preprocess_ms = cuda_ms(lambda: transform(frames[:DFN5B_BATCH]), iters=3, warmup=1)
         prof = device_profile(lambda: emb.embed_image_tensor(pixels[0]),
-                              match=("attention_kernel",) + K2_KERNELS)
-        k1_dev = sum(m[1] for m in prof["matched_kernels"] if "attention_kernel" in m[0])
+                              match=K1_KERNELS + K2_KERNELS)
+        k1_dev = sum(m[1] for m in prof["matched_kernels"] if any(n in m[0] for n in K1_KERNELS))
         k2_dev, _ = k2_share(prof, k2)
         attention.LAUNCHES = int8_matmul.LAUNCHES = 0
         text_embeds = emb.inference_tokens({"input_ids": ids})
@@ -1738,18 +1762,27 @@ def main() -> int:
                attention_bf16.SOURCE, tiled_matmul.SOURCE, flash_attention.SOURCE]
     libs = build.build_all(sources, force=True)
     # The Hopper designs (wgmma, TMA, mbarriers) are what was built
-    sass = {build.library_path(s).name: sass_counts(build.library_path(s))
-            for s in (attention_bf16.SOURCE, tiled_matmul.SOURCE, int8_matmul.SOURCE)}
+    hopper = (attention.SOURCE, attention_bf16.SOURCE, flash_attention.SOURCE,
+              tiled_matmul.SOURCE, int8_matmul.SOURCE)
+    sass = {build.library_path(s).name: sass_counts(build.library_path(s)) for s in hopper}
+    ptxas = {s.name: build.ptxas_path(s).read_text().splitlines() for s in sources}
     emit({"phase": "build", "kernels": [os.path.relpath(str(s), REPO) for s in sources],
           "libraries": [os.path.relpath(str(lib), REPO) for lib in libs],
           "seconds": time.perf_counter() - t0,
-          "ptxas": {s.name: [line for line in build.ptxas_path(s).read_text().splitlines()
-                             if "registers" in line or "spill" in line] for s in sources},
+          "ptxas": {name: [line for line in lines if "Used " in line or "spill" in line
+                           or "Potential Performance Loss" in line]
+                    for name, lines in ptxas.items()},
           "sass": sass})
     for lib, counts in sass.items():
         if not counts["HGMMA"] + counts["IGMMA"] or not counts["UTMALDG"]:
             raise SystemExit(f"{lib}: no wgmma (HGMMA, IGMMA) or no TMA load (UTMALDG) in its "
                              f"SASS: {counts}")
+    # The attention kernels redesigned for Hopper: no spill, no serialised wgmma
+    for s in (attention.SOURCE, flash_attention.SOURCE):
+        bad = [line for line in ptxas[s.name] if "Potential Performance Loss" in line
+               or ("spill" in line and " 0 bytes spill stores" not in line)]
+        if bad:
+            raise SystemExit(f"{s.name}: ptxas reports {bad[:3]}")
 
     # 3. kernels vs plain
     k1, k1_dfn5b = phase_kernel(attention)

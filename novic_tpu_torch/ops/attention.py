@@ -10,9 +10,14 @@ rounded to bf16, float32 accumulation of P·v.
 * On a CUDA tensor it launches the kernel in csrc/attention.cu, or raises. It
   never falls back to the plain version.
 
-The kernel is compiled with nvcc for sm_90a at first use into
-build/novic_tpu_torch/ at the root of the checkout and loaded through ctypes.
-`LAUNCHES` counts the kernel's launches.
+The kernel (csrc/attention.cu) runs a pre-pass that rounds q * scale, k and
+v to bf16 once into a scratch buffer, then a persistent TMA + wgmma kernel
+that reads them through the tensor maps `_tma_plans` lays out. q, k and v
+must start on 16-byte boundaries (every tower's tensors do); a view that does
+not is refused before any launch. The kernel is compiled with nvcc for
+sm_90a at first use into build/novic_tpu_torch/ at the root of the checkout
+and loaded through ctypes. `LAUNCHES` counts its launches (each runs the
+pre-pass and the attention kernel).
 """
 
 from __future__ import annotations
@@ -26,11 +31,13 @@ from typing import Optional
 import torch
 
 from novic_tpu_torch.ops import build as _build
+from novic_tpu_torch.ops.attention_bf16 import KV_ROWS, _tma_plan, q_rows
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
 SOURCE = _build.CSRC / "attention.cu"
 BUILD_DIR = _build.BUILD_DIR
+MAX_HD = 128  # the largest hd the kernel takes (a multiple of 8)
 _lib = None
 _lib_lock = threading.Lock()
 
@@ -62,12 +69,22 @@ def _library():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.novic_attention_f32.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
-            lib.novic_attention_f32.restype = ctypes.c_int
-            lib.novic_attention_max_hd.restype = ctypes.c_int
+            lib.novic_attention.argtypes = (
+                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+            lib.novic_attention.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def _tma_plans(scratch: torch.Tensor) -> list[int]:
+    """The kernel's tensor maps of the pre-pass's bf16 q, k and v (scratch
+    (3, B, S, H, hd), contiguous), 11 values each, as
+    `attention_bf16._tma_plan` lays them out: dims (hd, S, H, B), the byte
+    strides of S, H and B, a box of one 64-wide atom by the query block (q:
+    128 rows where hd <= 64, else 192) or the 64-key tile (k, v)."""
+    _, _, S, _, hd = scratch.shape
+    return (_tma_plan(scratch[0], S, q_rows(hd)) + _tma_plan(scratch[1], S, KV_ROWS)
+            + _tma_plan(scratch[2], S, KV_ROWS))
 
 
 def _launch(q, k, v, bias):
@@ -79,20 +96,24 @@ def _launch(q, k, v, bias):
             raise ValueError(f"fused_attention: {name} must be contiguous float32 on {q.device}")
         if t.shape != q.shape:
             raise ValueError(f"fused_attention: {name} shape {tuple(t.shape)} != q {tuple(q.shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_attention: {name} must start on a 16-byte boundary")
     if bias is not None:
         if (bias.dtype != torch.float32 or not bias.is_contiguous() or bias.device != q.device
                 or tuple(bias.shape) != (S, S)):
             raise ValueError(f"fused_attention: bias must be contiguous float32 ({S}, {S}) "
                              f"on {q.device}")
-    if hd > lib.novic_attention_max_hd() or hd % 8:
+    if hd > MAX_HD or hd % 8:
         raise ValueError(f"fused_attention: unsupported hd={hd} (a multiple of 8, at most "
-                         f"{lib.novic_attention_max_hd()})")
+                         f"{MAX_HD})")
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scratch = torch.empty((3, B, S, H, hd), dtype=torch.bfloat16, device=q.device)
+    plan = ctypes.cast((ctypes.c_longlong * 33)(*_tma_plans(scratch)), ctypes.c_void_p)
     with torch.cuda.device(q.device):
-        err = lib.novic_attention_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                      bias.data_ptr() if bias is not None else None,
-                                      out.data_ptr(), B, S, H, hd, 1.0 / math.sqrt(hd), stream)
+        err = lib.novic_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  bias.data_ptr() if bias is not None else None, out.data_ptr(),
+                                  scratch.data_ptr(), plan, B, S, H, hd, 1.0 / math.sqrt(hd),
+                                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_attention kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

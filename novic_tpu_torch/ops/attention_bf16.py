@@ -129,13 +129,14 @@ def _tma_plan(t: torch.Tensor, s_valid: int, rows: int) -> list[int]:
     return dims + strides + [TMA_ATOM, rows, 1, 1]
 
 
-def _check_map(name: str, t: torch.Tensor, plan: list[int]) -> None:
-    """Raise where a tensor map cannot take the view: TMA reads from a 16-byte
-    aligned base with byte strides that are positive multiples of 16."""
+def _check_map(label: str, t: torch.Tensor, plan: list[int]) -> None:
+    """Raise where a tensor map cannot take the view `label` names: TMA reads
+    from a 16-byte aligned base with byte strides that are positive multiples
+    of 16."""
     strides = plan[4:7]
     if t.data_ptr() % 16 or any(s <= 0 or s % 16 for s in strides):
-        raise ValueError(f"attention_bf16: {name} must be 16-byte aligned with strides that are "
-                         f"multiples of 16 bytes, got element strides {tuple(t.stride())}")
+        raise ValueError(f"{label} must be 16-byte aligned with strides that are multiples of "
+                         f"16 bytes, got element strides {tuple(t.stride())}")
 
 
 def _launch(q, k, v, s_valid: int, scale: float, out_dtype: torch.dtype) -> torch.Tensor:
@@ -146,7 +147,7 @@ def _launch(q, k, v, s_valid: int, scale: float, out_dtype: torch.dtype) -> torc
     plan = []
     for name, t, rows in (("q", q, q_rows(hd)), ("k", k, KV_ROWS), ("v", v, KV_ROWS)):
         p = _tma_plan(t, s_valid, rows)
-        _check_map(name, t, p)
+        _check_map(f"attention_bf16: {name}", t, p)
         plan += p
     lib = _library()
     out = torch.empty((B, s_valid, H, hd), dtype=out_dtype, device=q.device)

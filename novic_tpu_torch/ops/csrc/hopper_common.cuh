@@ -1,11 +1,12 @@
 // Device and host helpers shared by the port's Hopper kernels (sm_90a): the
-// mbarrier ring, TMA tensor loads (and their multicast into a cluster),
-// cluster barriers, warpgroup MMAs (wgmma) with their shared-memory matrix
-// descriptors, and register rebalancing between warpgroups. Included by
-// attention_bf16.cu, tiled_matmul.cu and int8_matmul.cu, each into its own
-// anonymous namespace; the mma.sync kernels keep mma_common.cuh. The wgmma
-// wrappers are written out for the shapes the kernels use (each names its
-// output registers one by one, as inline PTX must).
+// mbarrier ring, TMA tensor loads (and their multicast into a cluster), bulk
+// copies, cluster barriers, warpgroup MMAs (wgmma) with their shared-memory
+// matrix descriptors, and register rebalancing between warpgroups. Included by
+// attention.cu, attention_bf16.cu, flash_attention.cu, tiled_matmul.cu and
+// int8_matmul.cu, each into its own anonymous namespace; the mma.sync kernels
+// keep mma_common.cuh. The wgmma wrappers are written out for the shapes the
+// kernels use (each names its output registers one by one, as inline PTX
+// must).
 //
 // Tensor maps are encoded on the host through cuTensorMapEncodeTiled, whose
 // address cudaGetDriverEntryPoint gives at run time, so the libraries link
@@ -164,6 +165,16 @@ __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorM
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, from a 16-byte aligned address)
+// into shared memory by the TMA unit, completing on `bar` like a tensor load
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

@@ -20,11 +20,14 @@ the result in bf16, (B, H, Sq, hd).
   block_k sets only the plain version's blocking. It never falls back to the
   plain version.
 
-q, k and v may be strided (batch, head, seq) views with hd contiguous. JAX's
-`ab` (an additive bias) and `causal` are not called by any caller in the repo
-and raise NotImplementedError. The kernel is compiled with nvcc for sm_90a at
-first use into build/novic_tpu_torch/ and loaded through ctypes. `LAUNCHES`
-counts its launches.
+q, k and v may be strided (batch, head, seq) views with hd contiguous; the
+kernel reads them in place through tensor maps (TMA) that `_tma_plans` lays
+out, and a view a map cannot take (a base or a stride that is not a multiple
+of 16 bytes) is refused before any launch. JAX's `ab` (an additive bias) and
+`causal` are not called by any caller in the repo and raise
+NotImplementedError. The kernel is compiled with nvcc for sm_90a at first use
+into build/novic_tpu_torch/ and loaded through ctypes. `LAUNCHES` counts its
+launches.
 """
 
 from __future__ import annotations
@@ -35,14 +38,17 @@ from pathlib import Path
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from novic_tpu_torch.ops import build as _build
+from novic_tpu_torch.ops.attention_bf16 import _check_map, _tma_plan, q_rows
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
 SOURCE = _build.CSRC / "flash_attention.cu"
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # flash_attention.py DEFAULT_MASK_VALUE
 KERNEL_BLOCK_K = 64  # the kernel's key tile, over which it updates the softmax online
+MAX_HD = 128  # the largest hd the kernel takes (a multiple of 8)
 _lib = None
 _lib_lock = threading.Lock()
 
@@ -107,9 +113,8 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             lib.novic_flash_attention.argtypes = (
-                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
             lib.novic_flash_attention.restype = ctypes.c_int
-            lib.novic_flash_attention_max_hd.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -136,38 +141,43 @@ def _check(q, k, v, segment_ids: Optional[SegmentIds]) -> None:
                                  f"on {q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _strides(t: torch.Tensor) -> list[int]:
-    """(batch, head, seq) element strides; a dimension of size 1 gets 0 (never stepped)."""
-    return [s if n > 1 else 0 for n, s in zip(t.shape[:3], t.stride()[:3])]
+def _tma_plans(q, k, v) -> list[int]:
+    """The kernel's tensor maps of q, k and v, 11 values each: every (B, H, S,
+    hd) view is read as its (B, S, H, hd) transpose through
+    `attention_bf16._tma_plan`, dims (hd, S, H, B) with the view's byte
+    strides, a box of one 64-wide atom by the query block (q) or the 64-key
+    tile (k, v). The harnesses' (B, H, Sp, hd) views of their (B, Sp, H, hd)
+    projections are so read in place."""
+    hd = q.shape[-1]
+    plan = []
+    for t, rows in ((q, q_rows(hd)), (k, KERNEL_BLOCK_K), (v, KERNEL_BLOCK_K)):
+        plan += _tma_plan(t.transpose(1, 2), t.shape[2], rows)
+    return plan
 
 
 def _launch(q, k, v, segment_ids: Optional[SegmentIds], sm_scale: float) -> torch.Tensor:
     global LAUNCHES
     B, H, sq, hd = q.shape
     skv = k.shape[2]
-    lib = _library()
-    if hd % 8 or hd > lib.novic_flash_attention_max_hd():
-        raise ValueError(f"flash_attention: unsupported hd={hd} (a multiple of 8, at most "
-                         f"{lib.novic_flash_attention_max_hd()})")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"flash_attention: B={B} and H={H} must be at most 65535")
-    out = torch.empty((B, H, sq, hd), dtype=torch.bfloat16, device=q.device)
-    strides = []
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        st = _strides(t)
-        if t.data_ptr() % 16 or any(s % 8 for s in st):
-            raise ValueError(f"flash_attention: {name} must be 16-byte aligned with strides "
-                             f"that are multiples of 8 elements, got {tuple(t.stride())}")
-        strides += st
+    if hd % 8 or hd > MAX_HD:
+        raise ValueError(f"flash_attention: unsupported hd={hd} (a multiple of 8, at most {MAX_HD})")
+    plan = _tma_plans(q, k, v)
+    for i, (name, t) in enumerate((("q", q), ("k", k), ("v", v))):
+        _check_map(f"flash_attention: {name}", t, plan[11 * i:11 * (i + 1)])
     seg_q = seg_kv = None
     if segment_ids is not None:
+        # The kernel reads the key ids a 64-key tile at a time: pad to whole tiles
         seg_q, seg_kv = (t.to(torch.int32).contiguous() for t in segment_ids)
+        seg_kv = F.pad(seg_kv, (0, -skv % KERNEL_BLOCK_K))
+    lib = _library()
+    out = torch.empty((B, H, sq, hd), dtype=torch.bfloat16, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.novic_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if seg_q is None else seg_q.data_ptr(),
             None if seg_kv is None else seg_kv.data_ptr(),
-            ctypes.cast((ctypes.c_longlong * 12)(*strides), ctypes.c_void_p),
+            ctypes.cast((ctypes.c_longlong * 33)(*plan), ctypes.c_void_p),
+            ctypes.cast((ctypes.c_longlong * 3)(*out.stride()[:3]), ctypes.c_void_p),
             B, H, sq, skv, hd, sm_scale, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")

@@ -143,3 +143,155 @@ def test_wrapper_checks():
     with pytest.raises(ValueError, match="segment_ids.kv"):
         seg = torch.ones((1, 8), dtype=torch.int32)
         port.flash_attention(q, q, q, segment_ids=(seg, seg[:, :4]))
+
+
+def test_kernel_block_k_is_the_sources_update_tile():
+    """KERNEL_BLOCK_K, the plain version's default blocking, is the key tile
+    over which csrc/flash_attention.cu updates the softmax online."""
+    import re
+
+    text = port.SOURCE.read_text()
+    (tile,) = re.findall(r"constexpr int kKTile = (\d+);", text)
+    assert int(tile) == port.KERNEL_BLOCK_K
+
+
+def _harness_views(B, S, H, hd):
+    """(B, S, H, hd) projections read as (B, H, S, hd) views, as the
+    harnesses' flash preps hand them over."""
+    return [torch.empty(B, S, H, hd, dtype=torch.bfloat16, device="meta").transpose(1, 2)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("case", ["dfn5b", "attn_variants", "sq_ne_skv", "one_key"])
+def test_x6_tma_plan(case):
+    """Each (B, H, S, hd) view is read in place through a 4-D map: dims (hd,
+    S, H, B), the view's byte strides of seq, head and batch (a size-1 seq is
+    never stepped and gets the span of a row), a box of one 64-wide atom by
+    the query block (128 rows where hd <= 64, else 192) for q and by the
+    64-key tile for k and v."""
+    if case in ("dfn5b", "attn_variants"):  # the harnesses' padded projections
+        B, S, H, hd = (32, 768, 16, 80) if case == "dfn5b" else (256, 256, 12, 64)
+        q, k, v = _harness_views(B, S, H, hd)
+        seq = [H * hd * 2, hd * 2, S * H * hd * 2]  # seq, head, batch strides in bytes
+        want = [[hd, S, H, B] + seq] * 3
+    elif case == "sq_ne_skv":  # contiguous (B, H, S, hd): Sq 70, Skv 200
+        B, H, hd = 2, 3, 80
+        q, k, v = (torch.empty(B, H, n, hd, dtype=torch.bfloat16, device="meta")
+                   for n in (70, 200, 200))
+        want = [[hd, n, H, B, hd * 2, n * hd * 2, H * n * hd * 2] for n in (70, 200, 200)]
+    else:  # one query and one key, read from the (B, 1, H, hd) projections
+        B, H, hd = 2, 3, 64
+        q, k, v = _harness_views(B, 1, H, hd)
+        want = [[hd, 1, H, B, hd * 2, hd * 2, H * hd * 2]] * 3
+    rows = (128 if hd <= 64 else 192, 64, 64)
+    plan = port._tma_plans(q, k, v)
+    assert plan == sum((w + [64, r, 1, 1] for w, r in zip(want, rows)), [])
+
+
+class _FakeLibrary:
+    """Records each launch's arguments, the plan and the output strides they
+    point at and the key segment ids as the kernel would read them, and
+    returns a CUDA error code."""
+
+    def __init__(self, err: int = 0):
+        self.err, self.calls, self.plans, self.kv_seg = err, [], [], []
+
+    def novic_flash_attention(self, *args):
+        import ctypes
+
+        self.calls.append(args)
+        self.plans.append(list((ctypes.c_longlong * 33).from_address(args[6].value)))
+        B, skv = args[8], args[11]
+        if args[5] is not None:
+            n = B * (-(-skv // port.KERNEL_BLOCK_K) * port.KERNEL_BLOCK_K)
+            self.kv_seg.append(list((ctypes.c_int * n).from_address(args[5])))
+        return self.err
+
+
+@pytest.fixture
+def fake_launch(monkeypatch):
+    """The kernel's library replaced by a recorder, CPU tensors standing in
+    for CUDA ones, and the plain version made to fail if reached."""
+    import contextlib
+    import types
+
+    lib = _FakeLibrary()
+    monkeypatch.setattr(port, "_library", lambda: lib)
+    monkeypatch.setattr(port.torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(port.torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+
+    def plain(*args):
+        raise AssertionError("a kernel launch reached the plain version")
+
+    monkeypatch.setattr(port, "flash_attention_reference", plain)
+    return lib
+
+
+def _projections(B, S, H, hd, offset: int = 0, pad: int = 0):
+    """A (B, S, H, hd) bf16 projection, rows hd + pad apart, its base `offset`
+    elements past a 16-byte boundary, read as a (B, H, S, hd) view."""
+    n = B * S * H * (hd + pad)
+    flat = torch.zeros(n + 16, dtype=torch.bfloat16)
+    start = (-flat.data_ptr() // 2) % 8 + offset
+    x = flat[start:start + n].view(B, S, H, hd + pad)[..., :hd]
+    return x.transpose(1, 2)
+
+
+@pytest.mark.parametrize("hd,sq,skv,seg", [(80, 768, 768, True), (64, 256, 256, True),
+                                           (80, 70, 200, True), (8, 1, 1, False),
+                                           (128, 100, 100, False)])
+def test_x6_instance_every_view_launches_the_wgmma_kernel(fake_launch, hd, sq, skv, seg):
+    """X6 has one instance, the TMA + wgmma kernel: every view the wrapper
+    takes launches it once, with the views' maps, a contiguous (B, H, Sq, hd)
+    bf16 output and its strides, and the key segment ids padded to whole
+    64-key tiles; the launch is counted."""
+    B, H = 2, 3
+    q, k, v = _projections(B, sq, H, hd), _projections(B, skv, H, hd), _projections(B, skv, H, hd)
+    segs = None
+    if seg:
+        segs = port.SegmentIds(torch.ones(B, sq, dtype=torch.int32),
+                               torch.arange(B * skv, dtype=torch.int32).view(B, skv))
+    launches = port.LAUNCHES
+    out = port._launch(q, k, v, segs, 0.125)  # as flash_attention does for CUDA tensors
+    assert out.shape == (B, H, sq, hd) and out.dtype == torch.bfloat16 and out.is_contiguous()
+    (args,) = fake_launch.calls
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    assert fake_launch.plans == [port._tma_plans(q, k, v)]
+    assert args[8:13] == (B, H, sq, skv, hd) and args[13] == 0.125
+    import ctypes
+
+    assert list((ctypes.c_longlong * 3).from_address(args[7].value)) == list(out.stride()[:3])
+    if seg:
+        pad = -skv % port.KERNEL_BLOCK_K
+        (kv,) = fake_launch.kv_seg
+        want = torch.nn.functional.pad(segs.kv, (0, pad)).flatten().tolist()
+        assert kv == want
+    else:
+        assert args[4] is None and args[5] is None
+    assert port.LAUNCHES == launches + 1
+
+
+@pytest.mark.parametrize("bad", ["unaligned", "row_stride", "hd12", "hd136"])
+def test_x6_refuses_what_a_tensor_map_cannot_take(fake_launch, bad):
+    """A view a tensor map cannot take (a base off a 16-byte boundary, a
+    stride that is not a multiple of 16 bytes) and an hd that is not a
+    multiple of 8 or is above 128 are refused before any launch."""
+    hd = {"hd12": 12, "hd136": 136}.get(bad, 64)
+    q = _projections(2, 10, 3, hd, offset=1 if bad == "unaligned" else 0,
+                     pad=4 if bad == "row_stride" else 0)
+    k = v = _projections(2, 10, 3, hd)
+    with pytest.raises(ValueError):
+        port._launch(q, k, v, None, 1.0)
+    assert not fake_launch.calls
+
+
+def test_x6_refused_launch_raises_and_never_falls_back(fake_launch):
+    """A launch the kernel refuses (a nonzero CUDA error) raises, counts
+    nothing and never reaches the plain version."""
+    fake_launch.err = 1
+    q = _projections(2, 10, 3, 64)
+    launches = port.LAUNCHES
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        port._launch(q, q, q, None, 1.0)
+    assert port.LAUNCHES == launches
