@@ -7,12 +7,14 @@ Phases, each printing JSON lines; any failure exits nonzero:
   2. build: compile every kernel (attention.cu, dropout.cu, int8_matmul.cu,
      beam_reorder.cu, attention_bf16.cu, tiled_matmul.cu, flash_attention.cu)
      from the checkout's sources, one nvcc each, started together; count
-     HGMMA / IGMMA (wgmma on bf16 / s8), UTMALDG (TMA load) and SYNCS
-     (mbarrier) instructions in the SASS of the Hopper designs (attention,
-     attention_bf16, flash_attention, tiled_matmul, int8_matmul), and fail if
-     one has no wgmma or no UTMALDG, or if ptxas reports a spill or a wgmma
-     serialisation ("Potential Performance Loss") in attention.cu or
-     flash_attention.cu;
+     HGMMA / IGMMA (wgmma on bf16 / s8), UTMALDG / UTMASTG (TMA load /
+     store) and SYNCS (mbarrier) instructions in the SASS of the Hopper
+     designs (attention, attention_bf16, flash_attention, tiled_matmul,
+     int8_matmul), and fail if one has no wgmma or no UTMALDG, if the s8
+     engine's libraries (tiled_matmul, int8_matmul) have no IGMMA or
+     tiled_matmul's no UTMASTG, or if ptxas reports a spill or a wgmma
+     serialisation ("Potential Performance Loss") in attention.cu,
+     flash_attention.cu, tiled_matmul.cu or int8_matmul.cu;
   3. kernel: the attention kernel (K1: a bf16 pre-pass and a TMA + wgmma
      kernel) against its plain PyTorch version on the card, at the serving
      shape, at the DFN5B-H-378 tower's (32,730,16,80), at two more, and at
@@ -39,13 +41,17 @@ Phases, each printing JSON lines; any failure exits nonzero:
      (fullseq), projection (direct) and bf16-out (allheads) layouts, and at
      edge cases (s_valid 1, 63, 65, 129; hd 72 and 128; one head); times
      beside the bound, SDPA's and K1's at the same shape;
-  3f. tiled GEMM kernel (X3): bit-identical for s8, within 1e-5 of a float64
-     product (relative to sum |x*w|) for bf16 and float32, at make_matmul's
+  3f. tiled GEMM kernels (X3): the s8 path's transpose bit-identical to its
+     plain version at the probes' w (1280,5120), a ragged one and edges;
+     the GEMM bit-identical for s8, within 1e-5 of a float64 product
+     (relative to sum |x*w|) for bf16 and float32, at make_matmul's
      (16384,1280,5120) s8 and bf16, make_mm's (8192,1280,5120) checksum in
-     float32, bf16 and s8, ragged shapes, and bf16 and float32 edges
-     ((1,16,16) and (129,1040,272), whole and bn=16; float32 also
-     (300,1040,512) at bn=256); times beside the bound and
-     torch._int_mm / torch.mm; the int32 wrap of the s8 checksum;
+     float32, bf16 and s8 (s8 also at bn 16, 256, 1024), ragged shapes, s8
+     edges (K=16, M=1, N=16) and bf16 and float32 edges ((1,16,16) and
+     (129,1040,272), whole and bn=16; float32 also (300,1040,512) at
+     bn=256); times beside the bound and torch._int_mm (on w as given and
+     column-major) / torch.mm, and the transpose's share of each s8 call's
+     device time; the int32 wrap of the s8 checksum;
   3g. one-pass flash-attention kernel (X6, TMA + wgmma): against its plain
      version at the kernel's blocking (64 keys) and at the harnesses' (256,
      768: JAX's multi-step and single-step bodies), at the DFN5B harness's
@@ -82,7 +88,8 @@ Phases, each printing JSON lines; any failure exits nonzero:
      variant (X6; 32 kernel launches a pass each), and its bf16-residual runs
      (the plain chain and flash768), exp/pallas_attn_v2's tower (B=256, 12
      layers) plain and with X1 (12 a pass), and the X3 probe loops (8
-     launches a loop);
+     launches a loop, each of its form's instance; an int8 loop's each after
+     its own transpose);
   4g. exp/attn_variants' ViT-B/16 tower (B=256, 12 layers) with each attention
      variant and tower_bhsd: ms per pass, X6 launches (12 a pass with
      attn_flash), cosine to attn_xla_f32's tower, and the file's flash-vs-xla
@@ -657,13 +664,13 @@ def phase_beam_reorder(reorder) -> tuple[dict, dict]:
 
 def sass_counts(lib) -> dict:
     """Instructions in a library's SASS (cuobjdump from the CUDA toolkit):
-    HGMMA (wgmma on floating-point inputs), IGMMA (wgmma on s8), UTMALDG (TMA
-    loads), SYNCS (mbarrier operations)."""
+    HGMMA (wgmma on floating-point inputs), IGMMA (wgmma on s8), UTMALDG /
+    UTMASTG (TMA loads / stores), SYNCS (mbarrier operations)."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([exe, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
     return {op: sum(line.count(op) for line in text.splitlines()) for op in
-            ("HGMMA", "IGMMA", "UTMALDG", "SYNCS")}
+            ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "SYNCS")}
 
 
 def attention_bf16_bound_ms(B, S, H, hd, out_bytes: int) -> tuple[float, str]:
@@ -770,13 +777,22 @@ def matmul_bound_ms(M: int, N: int, K: int, in_bytes: int, out_elems: int,
 
 # (label, input form, M, K, N, bn): exp/pallas_int8_matmul.py make_matmul's
 # shape (full output), exp/pallas_int8_rate_pin.py make_mm's (checksum over
-# bn=512 column blocks), ragged shapes (other bn), and the bf16 and float32
-# kernels' edges (one row; a tile row and K stage past a whole number, whole
-# and with bn = 16; float32 also a 256-wide bn, whose blocks hold whole tiles)
+# bn=512 column blocks; s8 also over the bn the probe's sweep and ragged
+# calls pass: 16, within a tile; 256; 1024, across tiles), ragged shapes
+# (other bn), the s8 engine's edges (K = 16, one partial 128-byte stage; one
+# row; N = 16, one partial store box), and the bf16 and float32 kernels'
+# edges (one row; a tile row and K stage past a whole number, whole and with
+# bn = 16; float32 also a 256-wide bn, whose blocks hold whole tiles)
 TILED_CASES = [("make_matmul", "s8", 16384, 1280, 5120, None),
                ("make_matmul", "bf16", 16384, 1280, 5120, None),
                ("make_mm", "f32", 8192, 1280, 5120, 512), ("make_mm", "bf16", 8192, 1280, 5120, 512),
                ("make_mm", "s8", 8192, 1280, 5120, 512),
+               ("make_mm bn16", "s8", 8192, 1280, 5120, 16),
+               ("make_mm bn256", "s8", 8192, 1280, 5120, 256),
+               ("make_mm bn1024", "s8", 8192, 1280, 5120, 1024),
+               ("edge K=16", "s8", 300, 16, 400, None), ("edge K=16", "s8", 300, 16, 400, 16),
+               ("edge M=1", "s8", 1, 272, 400, None), ("edge M=1", "s8", 1, 272, 400, 80),
+               ("edge N=16", "s8", 1000, 272, 16, None), ("edge N=16", "s8", 1000, 272, 16, 16),
                ("ragged", "s8", 1000, 272, 400, None), ("ragged", "bf16", 1000, 272, 400, 80),
                ("ragged", "f32", 1000, 272, 400, 40), ("ragged", "s8", 1000, 272, 400, 16),
                ("edge", "bf16", 1, 16, 16, None), ("edge", "bf16", 1, 16, 16, 16),
@@ -788,10 +804,67 @@ TILED_FORMS = {"s8": (torch.int8, 1, INT8_OP_PER_S), "bf16": (torch.bfloat16, 2,
                "f32": (torch.float32, 4, FP32_FLOP_PER_S)}
 
 
-def phase_tiled_matmul(tm) -> dict:
-    """Phase 3f: the tiled GEMM kernel (X3) against its plain version and a
-    float64 product on the card. Returns the lines by (label, form)."""
+TILED_INSTANCES = {"s8": "s8_wgmma", "bf16": "bf16_wgmma", "f32": "f32_fma"}
+# The s8 path's transpose, w (K, N) -> wᵀ (N, K): the probes' w, a ragged one,
+# and edges of its 128 x 128-byte tile (one 16 x 16 chunk; K past a tile)
+TRANSPOSE_SHAPES = [("probe", 1280, 5120), ("ragged", 272, 400), ("edge", 16, 16),
+                    ("edge", 1040, 272)]
+# The s8 wgmma engine that K2's Hopper instance and X3's s8 path include
+S8_ENGINE = "novic_tpu_torch/ops/csrc/int8_wgmma.cuh"
+# An s8 call's two kernels by name in a profile
+X3_S8_KERNELS = ("transpose_s8_kernel", "int8_wgmma_kernel")
+
+
+def yardstick_ms(fn) -> float | None:
+    """cuda_ms of a library call timed beside a kernel, or None where the
+    library refuses the inputs (torch._int_mm takes more than 16 rows, and
+    cuBLAS refuses some small int8 layouts, such as K = 16 with w row-major)."""
+    try:
+        return cuda_ms(fn)
+    except RuntimeError:
+        return None
+
+
+def phase_transpose(tm, gen) -> dict:
+    """Phase 3f, first: the s8 path's transpose kernel against its plain
+    version, bit-identical, timed (device time) at the probes' and a ragged
+    w, each call finding the L2 cache cold (w's 6.5 MB would stay in the 50 MB
+    L2 between calls, and the bound counts device-memory bytes), and warm.
+    Returns the probes' line."""
+    picked = None
+    for label, K, N in TRANSPOSE_SHAPES:
+        w = torch.randint(-128, 128, (K, N), device="cuda", generator=gen, dtype=torch.int8)
+        before = tm.TRANSPOSE_LAUNCHES
+        out = tm.transpose_s8(w)
+        torch.cuda.synchronize()
+        ref = tm.transpose_s8_reference(w)
+        ok = torch.equal(out, ref) and tm.TRANSPOSE_LAUNCHES == before + 1
+        line = {"phase": "kernel", "name": "transpose_s8", "case": label, "kn": [K, N],
+                "max_abs_err": (out.int() - ref.int()).abs().max().item(),
+                "tol": "bit-identical (0)", "ok": ok}
+        if label != "edge":
+            line.update(ms=device_ms(lambda: tm.transpose_s8(w), cold=True),
+                        plain_ms=device_ms(lambda: tm.transpose_s8_reference(w), cold=True),
+                        library_ms=device_ms(lambda: w.t().contiguous(), cold=True),
+                        library_call="w.t().contiguous(), which is also the plain version",
+                        bound_ms=2 * K * N / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                        ms_warm_l2=device_ms(lambda: tm.transpose_s8(w)),
+                        call_ms=cuda_ms(lambda: tm.transpose_s8(w)))
+        emit(line)
+        if not ok:
+            raise SystemExit(f"transpose_s8 disagrees with its plain version at {(K, N)}")
+        if label == "probe":
+            picked = line
+    return picked
+
+
+def phase_tiled_matmul(tm) -> tuple[dict, dict]:
+    """Phase 3f: the transpose kernel, then the tiled GEMM (X3) against its
+    plain version and a float64 product on the card, each call through its
+    form's instance (an s8 call also through one transpose). Returns the GEMM
+    lines by (label, form) and the transpose's line."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    transpose = phase_transpose(tm, gen)
     picked = {}
     for label, form, M, K, N, bn in TILED_CASES:
         dt, in_bytes, peak = TILED_FORMS[form]
@@ -801,11 +874,15 @@ def phase_tiled_matmul(tm) -> dict:
         x, w = ((xf * 10).to(dt), (wf * 10).to(dt)) if dt == torch.int8 else (xf.to(dt), wf.to(dt))
         del xf, wf
         run = lambda: tm.tiled_matmul(x, w, bn)  # noqa: E731
+        before, transposes = dict(tm.INSTANCE_LAUNCHES), tm.TRANSPOSE_LAUNCHES
         out = run()
         torch.cuda.synchronize()
+        ran = {k: n - before[k] for k, n in tm.INSTANCE_LAUNCHES.items() if n != before[k]}
+        transposes = tm.TRANSPOSE_LAUNCHES - transposes
+        launched_ok = ran == {TILED_INSTANCES[form]: 1} and transposes == (dt == torch.int8)
         ref = tm.tiled_matmul_reference(x, w, bn)
         line = {"phase": "kernel", "name": "tiled_matmul", "case": label, "form": form,
-                "mkn": [M, K, N], "bn": bn}
+                "mkn": [M, K, N], "bn": bn, "instance": ran, "transposes": transposes}
         if dt == torch.int8:
             ok = torch.equal(out, ref)
             line.update(max_abs_err=(out.double() - ref.double()).abs().max().item(),
@@ -821,24 +898,32 @@ def phase_tiled_matmul(tm) -> dict:
                         plain_rel_err=((ref.double() - y64).abs() / a64).max().item(),
                         tol=f"|d| <= {MATMUL_REL} sum|x*w| vs a float64 product")
             del y64, a64
+        ok = ok and launched_ok
         # One library call on the same inputs: the full product (make_mm's
         # block sums are one more op on top of it)
         if dt == torch.int8:
-            library = lambda: torch._int_mm(x, w)  # noqa: E731
             w_cm = w.t().contiguous().t()  # the same values, column-major as cuBLAS wants them
-            line["int_mm_w_column_major_ms"] = cuda_ms(lambda: torch._int_mm(x, w_cm))
+            library = lambda: torch._int_mm(x, w)  # noqa: E731
+            line["int_mm_w_column_major_ms"] = yardstick_ms(lambda: torch._int_mm(x, w_cm))
+            # The transpose's share of the call's device time
+            prof = device_profile(run, match=X3_S8_KERNELS)
+            split = {k: sum(m[1] for m in prof["matched_kernels"] if k in m[0])
+                     for k in X3_S8_KERNELS}
+            line.update(device_ms_by_kernel=split,
+                        transpose_share=split["transpose_s8_kernel"] / sum(split.values()))
         elif dt == torch.bfloat16:
             library = lambda: torch.mm(x, w, out_dtype=torch.float32)  # noqa: E731
         else:
             library = lambda: torch.mm(x, w)  # noqa: E731
         bound_ms, bound_by = matmul_bound_ms(M, N, K, in_bytes, M * (N // bn if bn else N), peak)
         line.update(ok=ok, ms=cuda_ms(run), plain_ms=cuda_ms(lambda: tm.tiled_matmul_reference(
-            x, w, bn), iters=3, warmup=1), library_ms=cuda_ms(library),
+            x, w, bn), iters=3, warmup=1), library_ms=yardstick_ms(library),
             library_call="torch._int_mm" if dt == torch.int8 else "torch.mm",
             bound_ms=bound_ms, bound_by=bound_by)
         emit(line)
         if not ok:
-            raise SystemExit(f"tiled_matmul ({label}, {form}) disagrees with its plain version")
+            raise SystemExit(f"tiled_matmul ({label}, {form}) disagrees with its plain version "
+                             f"or launched {ran} and {transposes} transposes")
         if label in ("make_matmul", "make_mm"):
             picked[(label, form)] = line
         del x, w, out, ref
@@ -851,7 +936,7 @@ def phase_tiled_matmul(tm) -> dict:
           "got": got[0, 0].item(), "ok": torch.equal(got, want)})
     if not torch.equal(got, want):
         raise SystemExit("tiled_matmul: the s8 checksum does not wrap as int32")
-    return picked
+    return picked, transpose
 
 
 def flash_bound_ms(B, H, sq, skv, hd, seg: bool) -> tuple[float, str]:
@@ -1480,19 +1565,31 @@ def phase_harnesses(name: str, smi: str) -> dict:
                  for form, acc in (("f32", torch.float32), ("bf16", torch.float32),
                                    ("int8", torch.int32))]
     for key, fn, (x, w) in runs:
-        tm.LAUNCHES = 0
+        tm.LAUNCHES = tm.TRANSPOSE_LAUNCHES = 0
+        tm.INSTANCE_LAUNCHES = dict.fromkeys(tm.INSTANCE_LAUNCHES, 0)
         loop(fn, x, w).item()
-        n = tm.LAUNCHES
+        n, instances, transposes = tm.LAUNCHES, dict(tm.INSTANCE_LAUNCHES), tm.TRANSPOSE_LAUNCHES
         ms = cuda_ms(lambda: loop(fn, x, w), iters=3, warmup=1) / probe.INNER
-        line["loops"][key] = {"launches": n, "ms_per_call": ms,
+        line["loops"][key] = {"launches": n, "instance_launches": instances,
+                              "transpose_launches": transposes, "ms_per_call": ms,
                               "tflops": 2 * x.shape[0] * x.shape[1] * w.shape[1] / (ms / 1e3) / 1e12}
     emit(line)
     del big, small, runs
     torch.cuda.empty_cache()
-    if any(v["launches"] != probe.INNER for v in line["loops"].values()):
-        raise SystemExit(f"X3 probes: launches {[v['launches'] for v in line['loops'].values()]}, "
-                         f"expected {probe.INNER} per loop")
+    # Each loop launches only its form's instance, INNER times; an int8 loop
+    # one transpose before each of its launches (the entry point launches both)
+    bad = []
+    for key, v in line["loops"].items():
+        form = "s8" if " int8" in key else "bf16" if " bf16" in key else "f32"
+        want = {k: probe.INNER if k == TILED_INSTANCES[form] else 0 for k in v["instance_launches"]}
+        if (v["launches"], v["instance_launches"], v["transpose_launches"]) != (
+                probe.INNER, want, probe.INNER if form == "s8" else 0):
+            bad.append(key)
+    if bad:
+        raise SystemExit(f"X3 probes: {bad} launched other than {probe.INNER} calls of their "
+                         "form's instance (and, for int8, as many transposes)")
     launches.update({key: v["launches"] for key, v in line["loops"].items()})
+    launches["transpose_s8"] = sum(v["transpose_launches"] for v in line["loops"].values())
     return launches
 
 
@@ -1765,6 +1862,8 @@ def main() -> int:
     hopper = (attention.SOURCE, attention_bf16.SOURCE, flash_attention.SOURCE,
               tiled_matmul.SOURCE, int8_matmul.SOURCE)
     sass = {build.library_path(s).name: sass_counts(build.library_path(s)) for s in hopper}
+    s8_engine = (build.library_path(tiled_matmul.SOURCE).name,
+                 build.library_path(int8_matmul.SOURCE).name)
     ptxas = {s.name: build.ptxas_path(s).read_text().splitlines() for s in sources}
     emit({"phase": "build", "kernels": [os.path.relpath(str(s), REPO) for s in sources],
           "libraries": [os.path.relpath(str(lib), REPO) for lib in libs],
@@ -1777,8 +1876,12 @@ def main() -> int:
         if not counts["HGMMA"] + counts["IGMMA"] or not counts["UTMALDG"]:
             raise SystemExit(f"{lib}: no wgmma (HGMMA, IGMMA) or no TMA load (UTMALDG) in its "
                              f"SASS: {counts}")
-    # The attention kernels redesigned for Hopper: no spill, no serialised wgmma
-    for s in (attention.SOURCE, flash_attention.SOURCE):
+        if (lib in s8_engine and not counts["IGMMA"]) or (lib == s8_engine[0]
+                                                            and not counts["UTMASTG"]):
+            raise SystemExit(f"{lib}: no s8 wgmma (IGMMA), or X3's int32 epilogue without its TMA "
+                             f"store (UTMASTG), in its SASS: {counts}")
+    # The Hopper designs that must not spill or serialise a wgmma
+    for s in (attention.SOURCE, flash_attention.SOURCE, tiled_matmul.SOURCE, int8_matmul.SOURCE):
         bad = [line for line in ptxas[s.name] if "Potential Performance Loss" in line
                or ("spill" in line and " 0 bytes spill stores" not in line)]
         if bad:
@@ -1790,7 +1893,7 @@ def main() -> int:
     k2, x4, k2_mma_sync = phase_int8(int8_matmul)
     x5, x5_many = phase_beam_reorder(beam_reorder)
     x12 = phase_attention_bf16(attention_bf16, k1_dfn5b)
-    x3 = phase_tiled_matmul(tiled_matmul)
+    x3, x3_transpose = phase_tiled_matmul(tiled_matmul)
     x6 = phase_flash_attention(flash_attention, attention_bf16)
 
     # 4. main path
@@ -1938,7 +2041,7 @@ def main() -> int:
         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}, {
         "name": "int8_matmul", "route": "cuda", "instance": "wgmma",
-        "source": "novic_tpu_torch/ops/csrc/int8_matmul.cu",
+        "source": "novic_tpu_torch/ops/csrc/int8_matmul.cu", "engine": S8_ENGINE,
         "replaces": "novic_tpu/ops/int8_matmul.py:73",
         "launches": int8_line["int8_matmul_instance_launches"]["wgmma"],
         "max_abs_err": k2["max_abs_err"],
@@ -1991,12 +2094,21 @@ def main() -> int:
         "library_ms": line["library_ms"]} for case, line in x6.items()] + [{
         "name": f"tiled_matmul_{label}_{form}", "route": "cuda",
         "source": "novic_tpu_torch/ops/csrc/tiled_matmul.cu",
+        **({"engine": S8_ENGINE} if form == "s8" else {}),
         "replaces": ("exp/pallas_int8_matmul.py:46" if label == "make_matmul"
                      else "exp/pallas_int8_rate_pin.py:46"),
         "launches": harness_launches[x3_loop_key(label, form)], "max_abs_err": line["max_abs_err"],
         "ms": line["ms"],
         "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
-        "library_ms": line["library_ms"]} for (label, form), line in x3.items()]})
+        "library_ms": line["library_ms"]} for (label, form), line in x3.items()] + [{
+        # The s8 path's K-major copy of w, which each s8 call above launches first
+        "name": "transpose_s8", "route": "cuda",
+        "source": "novic_tpu_torch/ops/csrc/tiled_matmul.cu",
+        "replaces": "exp/pallas_int8_matmul.py:46",
+        "launches": harness_launches["transpose_s8"], "max_abs_err": x3_transpose["max_abs_err"],
+        "ms": x3_transpose["ms"], "plain_ms": x3_transpose["plain_ms"],
+        "bound_ms": x3_transpose["bound_ms"], "bound_by": x3_transpose["bound_by"],
+        "library_ms": x3_transpose["library_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,9 +1,10 @@
 // Device and host helpers shared by the port's Hopper kernels (sm_90a): the
-// mbarrier ring, TMA tensor loads (and their multicast into a cluster), bulk
-// copies, cluster barriers, warpgroup MMAs (wgmma) with their shared-memory
+// mbarrier ring, TMA tensor loads (and their multicast into a cluster) and
+// stores, bulk copies, cluster barriers, warpgroup MMAs (wgmma) with their shared-memory
 // matrix descriptors, and register rebalancing between warpgroups. Included by
 // attention.cu, attention_bf16.cu, flash_attention.cu, tiled_matmul.cu and
-// int8_matmul.cu, each into its own anonymous namespace; the mma.sync kernels
+// int8_matmul.cu (the last two through int8_wgmma.cuh, the s8 wgmma engine),
+// each into its own anonymous namespace; the mma.sync kernels
 // keep mma_common.cuh. The wgmma wrappers are written out for the shapes the
 // kernels use (each names its output registers one by one, as inline PTX
 // must).
@@ -11,8 +12,9 @@
 // Tensor maps are encoded on the host through cuTensorMapEncodeTiled, whose
 // address cudaGetDriverEntryPoint gives at run time, so the libraries link
 // against the CUDA runtime alone (no -lcuda). Every map here has a 128-byte
-// swizzle, whatever its element type (bf16, s8 or float32): a box's innermost
-// extent is one 128-byte row (64 bf16, 128 s8 or 32 float32 elements), and a
+// swizzle, whatever its element type (bf16, s8, float32 or int32): a box's
+// innermost extent is one 128-byte row (64 bf16, 128 s8 or 32 4-byte
+// elements), and a
 // tile of R such rows lands as R x 128 bytes, 16-byte chunks XOR-ed by
 // (row % 8) within each 1024-byte group of 8 rows, which is what a wgmma
 // descriptor of layout B128 reads (and what the CUDA-core float32 GEMM
@@ -55,7 +57,7 @@ inline EncodeTiledFn encode_tiled_fn() {
 // `rank` dims (innermost first, in elements), rank - 1 strides (bytes, of dims
 // 1..) and `rank` box extents, as the wrappers' _tma_plan lay them out one
 // after the other. The innermost box extent must span 128 bytes. Elements
-// outside the dims are zero-filled on load.
+// outside the dims are zero-filled on load and dropped on store.
 inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* base,
                               int rank, const long long* plan) {
   EncodeTiledFn fn = encode_tiled_fn();
@@ -64,7 +66,8 @@ inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType dtype, const
   switch (dtype) {
     case CU_TENSOR_MAP_DATA_TYPE_UINT8: elem_bytes = 1; break;
     case CU_TENSOR_MAP_DATA_TYPE_BFLOAT16: elem_bytes = 2; break;
-    case CU_TENSOR_MAP_DATA_TYPE_FLOAT32: elem_bytes = 4; break;
+    case CU_TENSOR_MAP_DATA_TYPE_FLOAT32:
+    case CU_TENSOR_MAP_DATA_TYPE_INT32: elem_bytes = 4; break;
     default: return cudaErrorInvalidValue;
   }
   if (plan[2 * rank - 1] * elem_bytes != 128) return cudaErrorInvalidValue;
@@ -176,6 +179,42 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// A box of `map` from shared memory at `src` (laid out as a load of the same
+// box lands) to global coordinates (c0, c1) by the TMA unit, in this
+// thread's current bulk async-group; parts outside the map's dims are not
+// written. The writes to `src` must come before it in the async proxy: each
+// writing thread calls fence_proxy_async() and the threads meet before one
+// issues the store.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+// Makes this thread's writes to shared memory visible to the async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Closes this thread's current bulk async-group (the stores issued since)
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk async-groups are still reading
+// their shared-memory source (the source may then be rewritten)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk async-groups are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads of the

@@ -1,7 +1,8 @@
 // Device helpers shared by the port's mma.sync kernels (sm_90a): shared-memory
 // addresses, cp.async copies, ldmatrix loads, the s8 and bf16 warp MMAs and
-// bf16 packing. Included by int8_matmul.cu, tiled_matmul.cu and
-// attention_bf16.cu; each includes it into its own anonymous namespace.
+// bf16 packing. Included by int8_matmul.cu (its mma.sync instance),
+// attention.cu, attention_bf16.cu and flash_attention.cu; each includes it
+// into its own anonymous namespace.
 #pragma once
 
 #include <cuda_runtime.h>

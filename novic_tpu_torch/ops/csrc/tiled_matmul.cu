@@ -9,32 +9,39 @@
 // summed over each bn-wide column block of each row into (M, N / bn) float32
 // (`make_mm`, whose int32 sums are cast to float32 after the sum). The TPU's
 // bm, bn and bk were VMEM tilings; here bn only names the checksum's column
-// blocks, and the kernel picks its own tiles:
-//   s8    mma.sync m16n8k32 s8 -> s32 (K2's core, int8_matmul.cu). ldmatrix
-//         has no 8-bit transpose, so the s8 B tile stays row-major (k, n) in
-//         shared memory as cp.async lands it (its 16-byte chunks XOR-swizzled
-//         by row), and each thread gathers the four k bytes of its fragment's
-//         column with byte loads and packs them.
+// blocks, and the kernels pick their own tiles:
+//   s8    two kernels, launched by one call of the entry point:
+//         `transpose_s8_kernel` copies w into a K-major w^T (N, K) (below),
+//         then the port's s8 wgmma engine (int8_wgmma.cuh,
+//         K2's Hopper instance) multiplies x by it, as K2 multiplies by a
+//         torch-layout weight. 8-bit wgmma takes no transposed operand, and
+//         w's rows run along N, so w must be K-major somewhere; a copy in
+//         global memory costs 2 K N bytes (4% of make_matmul's bound) and
+//         keeps the engine's shared-memory reads as K2's. w^T is made anew on
+//         every call, as the Pallas kernel reads w on every call. Its two
+//         epilogues here: the int32 out by TMA store (kInt32Tma), and the
+//         checksum (kChecksum) by one int32 atomic per row, tile and bn-block.
 //   bf16  wgmma m64n256k16 bf16 -> f32 fed by TMA (below).
 //   f32   exact float32 FMA on the CUDA cores, fed by TMA (below): Hopper's
 //         tensor cores have no full float32 mode, and TF32 is not the product
 //         the probe computes.
 // Epilogue 0 stores (M, N): int32 for s8, float32 otherwise. Epilogue 1, the
-// checksum: each block sums its tile's outputs per row and 8-column chunk in
-// shared memory, then per bn-block, and adds that into out[m, n / bn] with one
-// atomic per row, block and bn-block. The s8 sums are int32 (the wrapper
-// zeroes the buffer and casts it to float32 after), so their wrap is the
-// plain version's and they are exact; the float32 sums run in an order that
+// checksum: the entry point zeroes out, and each row's sums over its
+// bn-blocks are added into out[m, n / bn] by atomics. The s8 sums are int32
+// (the wrapper casts them to float32 after), so their wrap is the plain
+// version's and they are exact; the float32 sums run in an order that
 // varies from run to run.
 //
 // Layout: x (M, K) and w (K, N) row-major, 16-byte aligned, K and N multiples
 // of 16 (the wrapper checks); any M >= 1; the checksum's bn a multiple of 8
 // that divides N.
 //
-// Design. s8 (right and simple first): blocks of 8 warps own a 128 x 128
-// output tile and walk K 64 bytes at a time through a 4-stage cp.async ring,
-// each warp 64 x 32 outputs in 4 x 4 m16n8 accumulators, A fragments by
-// ldmatrix.x4, as K2's mma.sync instance does. f32 (Hopper): persistent blocks,
+// Design. s8: the transpose moves 128 x 128-byte tiles through 16 KB of
+// shared memory: each thread loads four k-rows of 16 n-bytes (16-byte loads,
+// 8 lanes a 128-byte row), transposes each 4 x 4 byte block in registers with
+// four byte permutes and stores the words n-major, 16-byte chunks XOR-ed by
+// (n / 16) % 8 so that a warp's 32 words fall in 32 banks; then 8 lanes read
+// and store each 128-byte row of w^T. f32 (Hopper): persistent blocks,
 // one an SM, of two consumer warpgroups and a producer warpgroup, walking 128 x
 // 128 output tiles (n fastest); setmaxnreg gives the consumers 232 registers a
 // thread and the producer 40 (ptxas holds a block of 9 warps to 168 registers a
@@ -74,227 +81,106 @@
 //
 // Bound on the H100 at `make_matmul`'s (16384, 1280) . (1280, 5120), 214.7 GOP:
 // s8 0.1085 ms at the 1,979 TOPS int8 peak (its bytes, 363 MB with the int32
-// out, 0.1084 ms at 3.35 TB/s); bf16 0.2171 ms at 989 TFLOP/s (bytes 0.1166
-// ms). `make_mm` at M = 8192, 107.4 GOP, writes almost nothing: f32 1.603 ms at
-// the 67 TFLOP/s float32 rate, bf16 0.1086 ms, s8 0.0543 ms, all operations.
-// The design keeps x and w in L2 and writes each output once; mma.sync (not
-// wgmma) and the s8 byte gathers hold the s8 path below its rate. The f32
-// path issues 16 shared-memory float4 reads per 256 FMAs a thread, so its
-// issue slots, not shared memory, set its ceiling near 94% of the FMA rate.
+// out, 0.1084 ms at 3.35 TB/s: the int32 out is 335.5 MB of it, so the s8
+// store stream decides it and runs beside the tensor cores by TMA); bf16
+// 0.2171 ms at 989 TFLOP/s (bytes 0.1166 ms). `make_mm` at M = 8192, 107.4
+// GOP, writes almost nothing: f32 1.603 ms at the 67 TFLOP/s float32 rate,
+// bf16 0.1086 ms, s8 0.0543 ms, all operations. The w^T copy moves 13.1 MB,
+// 3.9 us at 3.35 TB/s. The f32 path issues 16 shared-memory float4 reads per
+// 256 FMAs a thread, so its issue slots, not shared memory, set its ceiling
+// near 94% of the FMA rate.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "hopper_common.cuh"
-#include "mma_common.cuh"
+#include "int8_wgmma.cuh"
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128;  // block tile
-constexpr int kThreads = 256;
-constexpr int kChunks = kBN / 8;     // 8-column chunks of a tile row (checksum)
 constexpr int kMaxDevices = 64;
+constexpr int kMaxM = 65535 * 128;  // rows the entry point takes
 
 enum In { kS8 = 0, kBF16 = 1, kF32 = 2 };
 
-__device__ __forceinline__ int add(int a, int b) {  // int32 sum that wraps, as the plain version's
-  return (int)((unsigned)a + (unsigned)b);
+// ---- s8 path: w^T by a transpose kernel, then the s8 wgmma engine -----------
+
+constexpr int kTT = 128;        // a transpose block's tile: 128 k-rows by 128 n-bytes
+constexpr int kTThreads = 256;  // each 4 k-rows x 16 n-bytes, then 4 rows x 16 k-bytes of w^T
+
+// 16 bytes of w^T's tile, n-row n at k-bytes [16 c, +16): chunk c ^ (n / 16) % 8
+__device__ __forceinline__ int tt_offset(int n, int c) {
+  return n * kTT + ((c ^ ((n >> 4) & 7)) << 4);
 }
 
-// The s8 checksum epilogue, second half: `part` holds (kBM rows, kChunks)
-// sums of 8 columns; each row's chunks are summed per bn-block and added to
-// out.
-__device__ __forceinline__ void checksum_flush(const int* part, int* __restrict__ out, int m0,
-                                               int n0, int M, int N, int bn) {
+__device__ __forceinline__ uint32_t word(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+__global__ void __launch_bounds__(kTThreads)
+transpose_s8_kernel(const uint8_t* __restrict__ w, uint8_t* __restrict__ wt, int K, int N) {
+  __shared__ __align__(16) uint8_t tile[kTT * kTT];  // [n][k] of the block's tile
+  const int k0 = blockIdx.y * kTT, n0 = blockIdx.x * kTT, t = threadIdx.x;
+  // Thread (kq, nc): k-rows 4 kq .. 4 kq + 3 at n-bytes [16 nc, +16); past K
+  // or N (whole 16-byte chunks: K and N are multiples of 16) it loads zeros,
+  // which nothing stores
+  const int kq = t / 8, nc = t % 8;
+  uint4 a[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int k = k0 + 4 * kq + r, n = n0 + 16 * nc;
+    a[r] = k < K && n < N ? *reinterpret_cast<const uint4*>(w + (size_t)k * N + n)
+                          : make_uint4(0u, 0u, 0u, 0u);
+  }
+  // Each 4 x 4 byte block (k-rows by n-bytes 4 j .. 4 j + 3) transposed: word
+  // col[i] holds the four k of n-byte 4 j + i, little-endian in k
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t r0 = word(a[0], j), r1 = word(a[1], j), r2 = word(a[2], j), r3 = word(a[3], j);
+    const uint32_t lo01 = __byte_perm(r0, r1, 0x5140), lo23 = __byte_perm(r2, r3, 0x5140);
+    const uint32_t hi01 = __byte_perm(r0, r1, 0x7362), hi23 = __byte_perm(r2, r3, 0x7362);
+    const uint32_t col[4] = {__byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
+                             __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<uint32_t*>(tile + tt_offset(16 * nc + 4 * j + i, kq / 4) + 4 * (kq % 4)) =
+          col[i];
+  }
   __syncthreads();
-  if (threadIdx.x >= kBM) return;
-  const int row = m0 + threadIdx.x;
-  if (row >= M) return;
-  const int groups = N / bn;
-  int sum = 0;
-  int cur = -1;
-  for (int q = 0; q < kChunks; ++q) {
-    const int col = n0 + 8 * q;
-    if (col >= N) break;
-    if (col / bn != cur) {
-      if (cur >= 0) atomicAdd(out + (size_t)row * groups + cur, sum);
-      cur = col / bn;
-      sum = 0;
-    }
-    sum = add(sum, part[threadIdx.x * kChunks + q]);
-  }
-  if (cur >= 0) atomicAdd(out + (size_t)row * groups + cur, sum);
-}
-
-// ---- s8 path (mma.sync) -----------------------------------------------------
-
-constexpr int kBKBytes = 64;  // K bytes per stage
-constexpr int kStages = 4;
-constexpr int kWarpsN = 4;
-constexpr int kWM = 64, kWN = 32;  // warp tile
-constexpr int kMFrags = kWM / 16, kNFrags = kWN / 8;
-constexpr int kLdA = kBKBytes + 16;  // A row stride in bytes: ldmatrix rows conflict-free
-constexpr int kABytes = kBM * kLdA;
-
-template <int kIn>
-struct TC;
-template <>
-struct TC<kS8> {
-  using T = int8_t;
-  using Acc = int;
-  static constexpr int kBK = 64;   // k per stage
-  static constexpr int kLdB = kBN;  // B row stride in bytes (chunks swizzled by row)
-};
-
-template <int kIn>
-__host__ __device__ constexpr int stage_bytes() { return kABytes + TC<kIn>::kBK * TC<kIn>::kLdB; }
-template <int kIn>
-__host__ __device__ constexpr int smem_bytes() { return kStages * stage_bytes<kIn>(); }
-
-// Byte offset of (row r, byte col) in the s8 B tile: 16-byte chunk (col / 16)
-// XOR (r / 4) % 8, so the gathers of rows 4c + e (c = 0..3) hit four chunks
-__device__ __forceinline__ int s8_b_offset(int r, int col) {
-  return r * kBN + ((((col >> 4) ^ (r >> 2)) & 7) << 4) + (col & 15);
-}
-
-// Stage `kt` of the operands: x rows [m0, m0 + kBM) at K bytes [kt * 64, +64),
-// and w rows [kt * kBK, +kBK) at columns [n0, n0 + kBN). Rows at or past M or K
-// and columns at or past N are zero-filled.
-template <int kIn>
-__device__ __forceinline__ void load_stage(uint8_t* stage, const uint8_t* __restrict__ x,
-                                           const uint8_t* __restrict__ w, int m0, int n0, int M,
-                                           int N, int K, int kt) {
-  using T = typename TC<kIn>::T;
-  constexpr int kBK = TC<kIn>::kBK;
-  const int kbytes = K * (int)sizeof(T), nbytes = N * (int)sizeof(T);
+  // 8 lanes a 128-byte row of w^T
 #pragma unroll
-  for (int it = 0; it < kBM * 4 / kThreads; ++it) {  // A: 4 chunks of 16 bytes a row
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / 4, cb = 16 * (i % 4);
-    const int gk = kt * kBKBytes + cb;
-    const bool valid = m0 + r < M && gk < kbytes;
-    cp_async16(smem_u32(stage + r * kLdA + cb),
-               valid ? x + (size_t)(m0 + r) * kbytes + gk : x, valid ? 16 : 0);
-  }
-  constexpr int kRowChunks = kBN * (int)sizeof(T) / 16;
-  uint8_t* bs = stage + kABytes;
-#pragma unroll
-  for (int it = 0; it < kBK * kRowChunks / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / kRowChunks, cb = 16 * (i % kRowChunks);
-    const int gk = kt * kBK + r, gn = n0 * (int)sizeof(T) + cb;
-    const bool valid = gk < K && gn < nbytes;
-    cp_async16(smem_u32(bs + s8_b_offset(r, cb)), valid ? w + (size_t)gk * nbytes + gn : w,
-               valid ? 16 : 0);
+  for (int it = 0; it < kTT * kTT / 16 / kTThreads; ++it) {
+    const int idx = t + it * kTThreads, n = idx / 8, c = idx % 8;
+    const int gn = n0 + n, gk = k0 + 16 * c;
+    if (gn < N && gk < K)
+      *reinterpret_cast<uint4*>(wt + (size_t)gn * K + gk) =
+          *reinterpret_cast<const uint4*>(tile + tt_offset(n, c));
   }
 }
 
-// The s8 B fragment of column `col` at k rows [k0 + 4c, +4) (b0) and
-// [k0 + 16 + 4c, +4) (b1)
-__device__ __forceinline__ void s8_b_frag(const int8_t* bs, int k0, int c, int col, uint32_t& b0,
-                                          uint32_t& b1) {
-  uint32_t v[8];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    v[e] = (uint8_t)bs[s8_b_offset(k0 + 4 * c + e, col)];
-    v[4 + e] = (uint8_t)bs[s8_b_offset(k0 + 16 + 4 * c + e, col)];
-  }
-  b0 = v[0] | (v[1] << 8) | (v[2] << 16) | (v[3] << 24);
-  b1 = v[4] | (v[5] << 8) | (v[6] << 16) | (v[7] << 24);
+cudaError_t launch_s8(const void* x, const void* wt, const long long* plan, void* out, int M,
+                      int N, int K, int bn, cudaStream_t stream) {
+  const int8_t* A = static_cast<const int8_t*>(x);
+  const int8_t* B = static_cast<const int8_t*>(wt);
+  return bn > 0 ? q8::launch_wgmma<q8::kChecksum>(A, B, plan, nullptr, nullptr, nullptr, out, M,
+                                                  N, K, bn, stream)
+                : q8::launch_wgmma<q8::kInt32Tma>(A, B, plan, nullptr, nullptr, nullptr, out, M,
+                                                  N, K, 0, stream);
 }
 
-template <int kIn, bool kChecksum>
-__global__ void __launch_bounds__(kThreads, 2)
-tc_gemm_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
-               typename TC<kIn>::Acc* __restrict__ out, int M, int N, int K, int bn) {
-  using Acc = typename TC<kIn>::Acc;
-  constexpr int kBK = TC<kIn>::kBK;
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int warp_m = warp / kWarpsN, warp_n = warp % kWarpsN;
-  const int g = lane / 4, c = lane % 4;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int ktiles = (K + kBK - 1) / kBK;
-  auto stage = [&](int s) { return smem + s * stage_bytes<kIn>(); };
+// The transpose takes w (K, N) and wt (N, K) at 16-byte aligned bases, K and
+// N multiples of 16
+bool transpose_takes(const void* w, const void* wt, int K, int N) {
+  return K > 0 && N > 0 && K % 16 == 0 && N % 16 == 0 && K <= 65535 * kTT && wt != nullptr &&
+         reinterpret_cast<uintptr_t>(w) % 16 == 0 && reinterpret_cast<uintptr_t>(wt) % 16 == 0;
+}
 
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) load_stage<kIn>(stage(s), x, w, m0, n0, M, N, K, s);
-    cp_async_commit();
-  }
-
-  Acc acc[kMFrags][kNFrags][4];
-#pragma unroll
-  for (int i = 0; i < kMFrags; ++i)
-#pragma unroll
-    for (int j = 0; j < kNFrags; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  // ldmatrix.x4 row addresses of A: lanes 0-15 rows 0-15 at bytes 0-15 of the
-  // 32-byte k-step, lanes 16-31 the same rows at bytes 16-31 -> a0..a3.
-  const int a_row = warp_m * kWM + (lane % 16), a_col = (lane / 16) * 16;
-
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kStages - 2>();  // stage kt has landed
-    __syncthreads();               // ... for every thread; stage kt - 1 is consumed
-    const int next = kt + kStages - 1;
-    if (next < ktiles) load_stage<kIn>(stage(next % kStages), x, w, m0, n0, M, N, K, next);
-    cp_async_commit();
-    const uint8_t* st = stage(kt % kStages);
-    const uint32_t as = smem_u32(st);
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {  // two 32-byte k-steps of A per stage
-      uint32_t af[kMFrags][4];
-#pragma unroll
-      for (int i = 0; i < kMFrags; ++i)
-        ldmatrix_x4(af[i], as + (a_row + i * 16) * kLdA + ks * 32 + a_col);
-      const int8_t* bs = reinterpret_cast<const int8_t*>(st + kABytes);
-#pragma unroll
-      for (int j = 0; j < kNFrags; ++j) {
-        uint32_t b0, b1;
-        s8_b_frag(bs, ks * 32, c, warp_n * kWN + j * 8 + g, b0, b1);
-#pragma unroll
-        for (int i = 0; i < kMFrags; ++i) mma_s8(acc[i][j], af[i], b0, b1);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // acc[i][j]: rows g (e = 0, 1) and g + 8 (e = 2, 3), columns 2c + (e & 1)
-  if constexpr (kChecksum) {
-    __syncthreads();  // the ring is free: reuse it for the chunk sums
-    Acc* part = reinterpret_cast<Acc*>(smem);
-#pragma unroll
-    for (int i = 0; i < kMFrags; ++i)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-        for (int j = 0; j < kNFrags; ++j) {
-          Acc s = add(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
-          s = add(s, __shfl_xor_sync(0xffffffffu, s, 1));
-          s = add(s, __shfl_xor_sync(0xffffffffu, s, 2));
-          if (c == 0)
-            part[(warp_m * kWM + i * 16 + g + 8 * hh) * kChunks + (warp_n * kWN + j * 8) / 8] = s;
-        }
-    checksum_flush(part, out, m0, n0, M, N, bn);
-  } else {
-#pragma unroll
-    for (int i = 0; i < kMFrags; ++i)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = m0 + warp_m * kWM + i * 16 + g + 8 * hh;
-        if (row >= M) continue;
-#pragma unroll
-        for (int j = 0; j < kNFrags; ++j) {
-          const int col = n0 + warp_n * kWN + j * 8 + 2 * c;
-          if (col >= N) continue;
-          *reinterpret_cast<int2*>(out + (size_t)row * N + col) =
-              make_int2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
-        }
-      }
-  }
+cudaError_t launch_transpose(const void* w, void* wt, int K, int N, cudaStream_t stream) {
+  const dim3 grid((N + kTT - 1) / kTT, (K + kTT - 1) / kTT);
+  transpose_s8_kernel<<<grid, kTThreads, 0, stream>>>(static_cast<const uint8_t*>(w),
+                                                      static_cast<uint8_t*>(wt), K, N);
+  return cudaGetLastError();
 }
 
 // ---- bf16 path (TMA + wgmma) ------------------------------------------------
@@ -635,6 +521,25 @@ cudaError_t set_smem(Kernel kernel, int bytes, bool (&configured)[kMaxDevices]) 
   return cudaSuccess;
 }
 
+// Makes `device` current for a call and the caller's device current again at
+// its end (in C: a torch.cuda.device block costs the host a few µs a call,
+// which small shapes wait for)
+struct DeviceScope {
+  int prev = -1;
+  bool switched = false;
+  cudaError_t err;
+  explicit DeviceScope(int device) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != device) {
+      err = cudaSetDevice(device);
+      switched = err == cudaSuccess;
+    }
+  }
+  ~DeviceScope() {
+    if (switched) cudaSetDevice(prev);
+  }
+};
+
 // The device's SM count, read once per device
 cudaError_t sm_count(int& n) {
   static int sms[kMaxDevices] = {};
@@ -648,20 +553,6 @@ cudaError_t sm_count(int& n) {
   }
   n = sms[dev];
   return cudaSuccess;
-}
-
-template <int kIn, bool kChecksum>
-cudaError_t launch_tc(const void* x, const void* w, void* out, int M, int N, int K, int bn,
-                      cudaStream_t stream) {
-  auto kernel = tc_gemm_kernel<kIn, kChecksum>;
-  static bool configured[kMaxDevices] = {};
-  cudaError_t err = set_smem(kernel, smem_bytes<kIn>(), configured);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  kernel<<<grid, kThreads, smem_bytes<kIn>(), stream>>>(
-      static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w),
-      static_cast<typename TC<kIn>::Acc*>(out), M, N, K, bn);
-  return cudaGetLastError();
 }
 
 // The plans agree with what the kernels load: x dims (K, M), box (one
@@ -728,28 +619,45 @@ cudaError_t launch_f32(const void* x, const void* w, const long long* plan, void
 
 extern "C" {
 
-// Launch on `stream`; returns the CUDA error of the launch (0 = success).
+// Launch on `stream`; returns the CUDA error of the first launch that fails
+// (0 = success).
 // in_kind: 0 s8 (out int32), 1 bf16 (out float32), 2 float32 (out float32).
-// bn = 0 stores (M, N); bn > 0 adds each row's bn-block sums into the
-// (M, N / bn) out, which the caller has zeroed (int32 for s8).
-// plan (bf16 and float32, else unused): the tensor maps of x and w, 5 values
-// each: dims (K, M) / (N, K), the byte stride of dim 1, box (one 128-byte row,
-// 128 rows) / (one 128-byte row, the stage's k): bf16 (64, 128) / (64, 64),
-// float32 (32, 128) / (32, 32).
-int novic_tiled_matmul(const void* x, const void* w, const long long* plan, void* out, int M,
-                       int N, int K, int in_kind, int bn, void* stream) {
+// bn = 0 stores (M, N); bn > 0 zeroes the (M, N / bn) out (int32 for s8) and
+// adds each row's bn-block sums into it.
+// wt: for s8, scratch for w's K-major copy (N, K): the call launches the
+// transpose of w into it, then the s8 engine on (x, wt); unused otherwise.
+// device: the card the tensors and `stream` are on; the call makes it current
+// and gives the caller's current device back after.
+// plan: the tensor maps, 5 values each: dims, the byte stride of dim 1, box.
+//   bf16, float32: x (K, M), box (one 128-byte row, 128 rows); w (N, K), box
+//     (one 128-byte row, the stage's k): bf16 (64, 128) / (64, 64), float32
+//     (32, 128) / (32, 32).
+//   s8: x (K, M) and wt (K, N), rows K bytes apart, box (128, 64); with bn
+//     = 0 also the int32 out (N, M), rows 4 N bytes apart, box (32, 16).
+int novic_tiled_matmul(const void* x, const void* w, void* wt, const long long* plan, void* out,
+                       int M, int N, int K, int in_kind, int bn, int device, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 || N % 16 != 0 || out == nullptr ||
-      M > 65535 * kBM || bn < 0 || (bn > 0 && (bn % 8 != 0 || N % bn != 0)) ||
-      (in_kind == kBF16 &&
-       (plan == nullptr || !plan_matches(plan, M, N, K, 64, kHBM, kHBK))) ||
-      (in_kind == kF32 && (plan == nullptr || !plan_matches(plan, M, N, K, 32, kFBM, kFBK))))
+      plan == nullptr || M > kMaxM || bn < 0 || (bn > 0 && (bn % 8 != 0 || N % bn != 0)) ||
+      (in_kind == kS8 &&
+       (!transpose_takes(w, wt, K, N) || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+        !q8::plan_matches(plan, M, N, K) ||
+        (bn == 0 && !q8::out_plan_matches(plan + 2 * q8::kPlanLen, M, N)))) ||
+      (in_kind == kBF16 && !plan_matches(plan, M, N, K, 64, kHBM, kHBK)) ||
+      (in_kind == kF32 && !plan_matches(plan, M, N, K, 32, kFBM, kFBK)))
     return (int)cudaErrorInvalidValue;
+  const DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
   cudaStream_t st = (cudaStream_t)stream;
   const bool sum = bn > 0;
+  if (sum) {
+    const cudaError_t err = cudaMemsetAsync(out, 0, (size_t)M * (N / bn) * 4, st);
+    if (err != cudaSuccess) return (int)err;
+  }
   switch (in_kind) {
-    case kS8:
-      return (int)(sum ? launch_tc<kS8, true>(x, w, out, M, N, K, bn, st)
-                       : launch_tc<kS8, false>(x, w, out, M, N, K, bn, st));
+    case kS8: {
+      const cudaError_t err = launch_transpose(w, wt, K, N, st);
+      return (int)(err != cudaSuccess ? err : launch_s8(x, wt, plan, out, M, N, K, bn, st));
+    }
     case kBF16:
       return (int)(sum ? launch_bf16<true>(x, w, plan, out, M, N, K, bn, st)
                        : launch_bf16<false>(x, w, plan, out, M, N, K, bn, st));
@@ -759,6 +667,13 @@ int novic_tiled_matmul(const void* x, const void* w, const long long* plan, void
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// w (K, N) s8 row-major -> wt (N, K), its transpose, on `stream`; both 16-byte
+// aligned, K and N multiples of 16. Returns the CUDA error of the launch.
+int novic_transpose_s8(const void* w, void* wt, int K, int N, void* stream) {
+  if (!transpose_takes(w, wt, K, N)) return (int)cudaErrorInvalidValue;
+  return (int)launch_transpose(w, wt, K, N, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -22,7 +22,8 @@ in the JAX package, where they are XLA ops outside the Pallas kernel.
 
 The kernel has two instances, and the wrapper picks one by shape (`_instance`),
 never by what a launch returns:
-* "wgmma", the Hopper instance (TMA + s8 wgmma, persistent, two consumer
+* "wgmma", the Hopper instance (the s8 wgmma engine of csrc/int8_wgmma.cuh,
+  which X3's s8 path runs too: TMA + s8 wgmma, persistent, two consumer
   warpgroups taking alternate tiles so that one stores while the other
   multiplies, clusters of 2 x 2 blocks sharing each A and B stage by TMA
   multicast), where tensor maps can take both operands: K a positive

@@ -295,3 +295,24 @@ def test_k2_refused_launch_raises_and_never_falls_back(fake_launch, case):
     with pytest.raises(RuntimeError, match=f"{instance} instance"):
         port._launch(xq, wq, None, None, None, torch.int32)
     assert port.LAUNCHES == launches and port.INSTANCE_LAUNCHES == {"wgmma": 0, "mma_sync": 0}
+
+
+def test_k2_and_x3_share_one_s8_wgmma_engine():
+    """K2's Hopper instance and X3's s8 path are one engine: int8_matmul.cu and
+    tiled_matmul.cu both include int8_wgmma.cuh, which alone defines the
+    wgmma kernel; each .cu launches its own epilogues of it (K2 the register
+    ones, X3 the TMA-store int32 and the checksum), and K2's library still
+    builds from its own source and the headers (read from the source text)."""
+    from novic_tpu_torch.ops import build, tiled_matmul
+
+    header = (build.CSRC / "int8_wgmma.cuh").read_text()
+    k2_src, x3_src = port.SOURCE.read_text(), tiled_matmul.SOURCE.read_text()
+    assert header.count("int8_wgmma_kernel(") == 1
+    for src in (k2_src, x3_src):
+        assert '#include "int8_wgmma.cuh"' in src
+        assert "int8_wgmma_kernel" not in src
+    for epi in ("kInt32", "kF32", "kBF16"):
+        assert f"q8::launch_wgmma<{epi}>" in k2_src and f"launch_wgmma<q8::{epi}>" not in x3_src
+    for epi in ("kInt32Tma", "kChecksum"):
+        assert f"q8::launch_wgmma<q8::{epi}>" in x3_src and epi not in k2_src
+    assert "mma_s8(" not in x3_src and "mma_common.cuh" not in x3_src

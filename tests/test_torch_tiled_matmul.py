@@ -74,7 +74,8 @@ def test_make_matmul_matches_pallas(small, kind, bm, bn, bk):
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("bm,bn,bk", [(128, 128, 256), (256, 256, 128)])
+@pytest.mark.parametrize("bm,bn,bk", [(128, 128, 256), (256, 256, 128), (128, 16, 256),
+                                      (256, 512, 128)])
 def test_make_mm_checksum_matches_pallas(small, kind, bm, bn, bk):
     (x, w), (xt, wt) = _operands(kind, 2)
     in_dt, acc_dt = JAX_DTYPES[kind]
@@ -206,38 +207,134 @@ def test_f32_launch_refuses_what_a_tensor_map_cannot_take(monkeypatch, bad):
         port._launch(x, w, None)
 
 
-@pytest.mark.parametrize("dtype,plan", [(torch.int8, None),
-                                        (torch.bfloat16, [256, 32, 512, 64, 128, 48, 256, 96, 64, 64]),
-                                        (torch.float32, [256, 32, 1024, 32, 128, 48, 256, 192, 32, 32])])
-def test_launch_passes_each_form_its_plan(monkeypatch, dtype, plan):
-    """The bf16 and float32 forms reach the library with their tensor-map
-    plan, the s8 form with none; a refused launch raises and counts nothing."""
+S8_PLAN_BN16 = [256, 32, 256, 128, 64, 256, 48, 256, 128, 64]
+
+
+class RecordingLib:
+    """A fake kernel library that records each entry point's arguments; the
+    tiled GEMM's calls after the first `ok_calls` return a CUDA error."""
+
+    def __init__(self, ok_calls: int = 1):
+        self.calls, self.transposes, self.ok_calls = [], [], ok_calls
+
+    def novic_tiled_matmul(self, *args):
+        self.calls.append(args)
+        return 1 if len(self.calls) > self.ok_calls else 0
+
+    def novic_transpose_s8(self, *args):
+        self.transposes.append(args)
+        return 0
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    """The wrapper's launch path on CPU tensors: a recording library, no
+    device switch, stream 0, and every plain version or library product
+    made to fail the test if called."""
     import contextlib
-    import ctypes
     import types
 
-    calls = []
-
-    class Lib:
-        def novic_tiled_matmul(self, *args):
-            calls.append(args)
-            return 1 if len(calls) > 1 else 0
-
-    monkeypatch.setattr(port, "_library", lambda: Lib())
+    lib = RecordingLib()
+    monkeypatch.setattr(port, "_library", lambda: lib)
     monkeypatch.setattr(port.torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(port.torch.cuda, "current_stream",
                         lambda dev: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(port, "tiled_matmul_reference", lambda *a: pytest.fail("plain version"))
+    for mod, name in ((port, "tiled_matmul_reference"), (port, "transpose_s8_reference"),
+                      (torch, "_int_mm"), (torch, "mm"), (torch, "matmul")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: pytest.fail(f"{_n} was called"))
+    return lib
+
+
+def _plan(arg, n: int) -> list:
+    import ctypes
+
+    return list((ctypes.c_longlong * n).from_address(arg.value))
+
+
+@pytest.mark.parametrize("dtype,plan", [(torch.int8, S8_PLAN_BN16),
+                                        (torch.bfloat16, [256, 32, 512, 64, 128, 48, 256, 96, 64, 64]),
+                                        (torch.float32, [256, 32, 1024, 32, 128, 48, 256, 192, 32, 32])])
+def test_launch_passes_each_form_its_plan(fake_cuda, dtype, plan):
+    """Each form reaches the library with its tensor-map plan (s8: x's and
+    wᵀ's maps, and no out map for a checksum); a refused launch raises and
+    counts nothing."""
     x, w = torch.zeros(32, 256, dtype=dtype), torch.zeros(256, 48, dtype=dtype)
-    launches = port.LAUNCHES
+    launches, instances = port.LAUNCHES, dict(port.INSTANCE_LAUNCHES)
     port._launch(x, w, 16)
-    got = calls[0][2]
-    if plan is None:
-        assert got is None
-    else:
-        assert list((ctypes.c_longlong * 10).from_address(got.value)) == plan
-    assert calls[0][4:9] == (32, 48, 256, port._KINDS[dtype], 16)
+    got = fake_cuda.calls[0]
+    assert _plan(got[3], len(plan)) == plan
+    assert got[5:10] == (32, 48, 256, port._KINDS[dtype], 16)
     assert port.LAUNCHES == launches + 1
+    instance = {torch.int8: "s8_wgmma", torch.bfloat16: "bf16_wgmma",
+                torch.float32: "f32_fma"}[dtype]
+    assert port.INSTANCE_LAUNCHES == {**instances, instance: instances[instance] + 1}
     with pytest.raises(RuntimeError, match="launch failed"):
         port._launch(x, w, None)
     assert port.LAUNCHES == launches + 1
+
+
+@pytest.mark.parametrize("M,K,N", [(16384, 1280, 5120), (8192, 1280, 5120), (1000, 272, 400),
+                                   (129, 1040, 272), (1, 16, 16), (300, 16, 400)])
+@pytest.mark.parametrize("bn", [None, 16])
+def test_s8_tma_plan(M, K, N, bn):
+    """The s8 engine's maps (K2's Hopper instance): x (M, K) and wᵀ (N, K),
+    both K-major, dims (K, rows), rows K bytes apart, box 128 K bytes by 64
+    rows; the int32 out store map only without bn: dims (N, M), rows 4 N
+    bytes apart, box 32 columns (128 bytes) by 16 rows, one consumer warp's
+    staged piece. The extents zero-fill ragged loads and drop ragged stores."""
+    x = torch.empty(M, K, dtype=torch.int8, device="meta")
+    wt = torch.empty(N, K, dtype=torch.int8, device="meta")
+    want = [K, M, K, 128, 64, K, N, K, 128, 64] + ([] if bn else [N, M, 4 * N, 32, 16])
+    assert port._s8_plan(x, wt, bn) == want
+
+
+@pytest.mark.parametrize("bn", [None, 16])
+def test_s8_launch_transposes_then_runs_the_engine(fake_cuda, bn):
+    """An int8 product is one call of the library's entry point, which is
+    handed w as given and this call's own (N, K) scratch for wᵀ, the 15-value
+    plan whose wᵀ map is that scratch's, and counts one transpose and one s8
+    engine launch; nothing calls torch._int_mm, torch.mm or a plain version.
+    In the entry point the transpose is launched before the engine, on the
+    same stream (read from the source)."""
+    x, w = torch.zeros(48, 272, dtype=torch.int8), torch.zeros(272, 400, dtype=torch.int8)
+    counts = (port.LAUNCHES, port.TRANSPOSE_LAUNCHES, port.INSTANCE_LAUNCHES["s8_wgmma"])
+    out = port._launch(x, w, bn)
+    (call,) = fake_cuda.calls
+    assert not fake_cuda.transposes  # not a second library call
+    assert call[0] == x.data_ptr() and call[1] == w.data_ptr()
+    assert call[2] not in (None, w.data_ptr(), x.data_ptr())
+    assert call[5:11] == (48, 400, 272, 0, bn or 0, x.device.index)  # the card, made current in C
+    assert _plan(call[3], 10 if bn else 15)[5:7] == [272, 400]
+    assert (port.LAUNCHES, port.TRANSPOSE_LAUNCHES, port.INSTANCE_LAUNCHES["s8_wgmma"]) == tuple(
+        c + 1 for c in counts)
+    assert out.shape == ((48, 400 // bn) if bn else (48, 400))
+    assert out.dtype == (torch.float32 if bn else torch.int32)
+    src = port.SOURCE.read_text()
+    entry = src[src.index("int novic_tiled_matmul("):src.index("int novic_transpose_s8(")]
+    s8 = entry[entry.index("case kS8:"):entry.index("case kBF16:")]
+    assert s8.index("launch_transpose(w, wt") < s8.index("launch_s8(x, wt")
+
+
+@pytest.mark.parametrize("K,N", [(272, 400), (16, 16), (1040, 48), (128, 4096), (48, 144)])
+def test_transpose_s8_plain_version(K, N):
+    """The transpose's plain version is wᵀ, contiguous, at K and N that are not
+    multiples of the kernel's 128-byte tile (and some that are)."""
+    w = np.random.default_rng(K * N).integers(-128, 128, size=(K, N), dtype=np.int8)
+    got = port.transpose_s8(torch.from_numpy(w))
+    assert got.dtype == torch.int8 and got.shape == (N, K) and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), np.ascontiguousarray(w.T))
+
+
+def test_transpose_s8_launch_and_refusals(fake_cuda):
+    """`transpose_s8` alone launches its own entry point with w, an (N, K)
+    scratch and (K, N), counted; it refuses what its kernel does not take."""
+    w = torch.zeros(272, 400, dtype=torch.int8)
+    before = port.TRANSPOSE_LAUNCHES
+    wt = port._launch_transpose(w)
+    (call,) = fake_cuda.transposes
+    assert call[0] == w.data_ptr() and call[1] == wt.data_ptr() and call[2:4] == (272, 400)
+    assert wt.shape == (400, 272) and port.TRANSPOSE_LAUNCHES == before + 1
+    with pytest.raises(ValueError, match="2-D int8"):
+        port.transpose_s8(torch.zeros(16, 16))
+    with pytest.raises(ValueError, match="unsupported device"):
+        port.transpose_s8(torch.zeros(16, 16, dtype=torch.int8, device="meta"))
