@@ -17,11 +17,12 @@ Phases, each printing JSON lines; any failure exits nonzero:
      flash_attention.cu, tiled_matmul.cu or int8_matmul.cu;
   3. kernel: the attention kernel (K1: a bf16 pre-pass and a TMA + wgmma
      kernel) against its plain PyTorch version on the card, at the serving
-     shape, at the DFN5B-H-378 tower's (32,730,16,80), at two more, and at
-     edge shapes (S=1, S=65 with the causal bias, hd 8 and 128; stated
-     tolerance), with its time and the pre-pass's share, the plain version's
-     time, the time of one PyTorch library call for the same function, and
-     the least time the card could take (bound);
+     shape, at the DFN5B-H-378 tower's (32,730,16,80), at two more, at the
+     tower's shape in all_decode (16,196,12,64), and at edge shapes (S=1,
+     S=65 with the causal bias, hd 8 and 128; stated tolerance), with its
+     time and the pre-pass's share, the plain version's time, the time of one
+     PyTorch library call for the same function, and the least time the card
+     could take (bound);
   3b. dropout kernel: bit-identical to its plain version at the three FT0
      site shapes and a ragged size, rates 0.1 and 0.5; its backward mask is
      the forward's; the keep share is within 5 sigma of 1 - rate; times;
@@ -103,6 +104,18 @@ Phases, each printing JSON lines; any failure exits nonzero:
   6. timings at B=64 (decode lazy and reorder, greedy, vocab priors), and
      profiles of one served batch and of one reorder-mode decode (device busy
      share, X5's device time);
+  all_decode: exhaustive 'all' scoring through NOVICModel.classify_images at
+     B=16 over the full 42,919-noun guide set (all_k10_vnone_gp_t1_a0): 12 K1
+     launches (one tower forward) and no other kernel, predictions in the guide
+     set, finite descending scores, top-1 equal to generate_all called directly;
+     seconds per batch, images/s, scored positions, FLOP and the share of the
+     float32 bound, generate_all's time at four chunk sizes (each with the
+     default's targets, scores within 1e-4) and a device-only profile of one
+     call (busy and idle share, GEMM share); the renorm, vocab-prior and alpha
+     gencfg computed and stored by a first NOVICModel and loaded from the
+     store by a second (same targets and scores); generate_all card vs CPU
+     at the first 4,096 guide targets, with and without renorm (identical
+     targets and paddings, scores within 1e-4);
   7. training path: `novic_tpu_torch.cli.train action=train` at the FT0
      asset's recipe and full width (hidden 512, 6 layers, batch 1024 x accum
      8, dropout 0.1/0.1, GaussElemUniformAngle noise) for one epoch (8
@@ -200,6 +213,21 @@ INT8_TEXT_COSINE_MIN = 0.9995
 # over the candidate's slots in another order (G slots vs H*G with -inf bias),
 # so scores differ in the last float32 bits of a sum of 7 log-probabilities
 REORDER_VS_LAZY_ATOL = 1e-4
+# Exhaustive decode (phase all_decode): B=16 at the full guide set, the chunk
+# sizes (rows = targets x images per chunk) whose generate_all times are read,
+# and card vs CPU at a trimmed guide set. Both sides run the same float32 math
+# with TF32 off, summed in another order (GEMMs over K = 512, logsumexps over
+# 8,002 logits, up to 7 positions a target): a score of magnitude ~10 moves by a
+# few float32 ulps (1e-6) a position, far below 1e-4; targets and paddings
+# (the ranking) must be identical. The same bar holds generate_all's scores at
+# each chunk size against the default's: a chunk's row count is every GEMM's M,
+# from which cuBLAS picks its tiles, so the sums run in another order there too
+# (5.7e-6 read in each full run on an H100 80GB HBM3 at 700 W; card vs CPU 1.6e-5).
+ALL_GENCFG, ALL_RENORM_GENCFG = "all_k10_vnone_gp_t1_a0", "all_k10_vtgt0.5_gr_t1_a0.5"
+ALL_BATCH = 16
+ALL_CHUNK_ROWS_TRIED = (1024, 4096, 16384, 32768)
+ALL_CPU_TARGETS = 4096
+ALL_SUM_ORDER_ATOL = 1e-4
 DECODE_GENCFGS = ["greedy_k1_vnone_gn_t1_a0", "greedy_k1_vnone_gp_t1_a0",
                   "beam_k10_vtok1_gn_t1_a0", "beam_k10_vtgt0.5_gp_t1_a0"]
 CLIP_SPEC = "openai:ViT-B/16"
@@ -315,6 +343,8 @@ def phase_kernel(attention) -> tuple[dict, dict]:
     for B, S, H, hd, causal, timed in [
             (BATCH, 196, 12, 64, False, True), (32, 730, 16, 80, False, True),
             (8, 729, 16, 72, False, True), (8, 77, 8, 64, True, True),
+            # the tower's shape in all_decode (a batch of ALL_BATCH frames)
+            (ALL_BATCH, 196, 12, 64, False, True),
             # edges: one key; a ragged tile with the causal bias; hd 8 (one
             # k-step, zero-filled past hd) and 128 (two atoms, three consumers)
             (2, 1, 3, 64, False, False), (2, 65, 3, 64, True, False),
@@ -1062,12 +1092,15 @@ def cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return (a * b).sum(-1) / np.linalg.norm(a, axis=-1) / np.linalg.norm(b, axis=-1)
 
 
-def device_profile(fn, match: tuple = ("dropout_f32", "dropout_bf16")) -> dict:
+def device_profile(fn, match: tuple = ("dropout_f32", "dropout_bf16"), host: bool = True) -> dict:
     """Wall time, device busy time and the largest device ops of one call of fn;
-    "matched_kernels" lists the device ops whose name holds one of `match`."""
+    "matched_kernels" lists the device ops whose name holds one of `match`.
+    Without `host`, only device activity is traced (a call of tens of thousands
+    of launches then takes seconds, not minutes, to read back)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1291,6 +1324,162 @@ def phase_decode_modes(model, embeds: np.ndarray, nouns: list, ck: dict, guide,
     cvc = line["card_vs_cpu"]
     if not (cvc["greedy_top1_identical"] and cvc["reorder_top1_identical"]):
         raise SystemExit("greedy or reorder decode: card and CPU disagree on top-1")
+    return line
+
+
+def all_decode_flops(cfg, n_pos: np.ndarray) -> tuple[int, int]:
+    """(scored positions, FLOP) of one image's exhaustive scoring over targets of
+    n_pos positions each (the end token included). Position 0 comes from the
+    prefill; each of the other n - 1 runs every layer (the qkv, output and
+    feed-forward products, attention over the P prefix and n - 1 token keys)
+    and one logits product over the vocabulary."""
+    E, FF, L, V, P = cfg.hidden_dim, cfg.feedfwd_dim, cfg.num_layers, cfg.vocab_size, cfg.mlp_seq_len
+    T = n_pos.astype(np.int64) - 1
+    dense = 2 * E * 3 * E + 2 * E * E + 2 * 2 * E * FF
+    attn = 2 * 2 * (P + T) * E
+    return int(T.sum()), int((T * (L * dense + 2 * E * V) + T * L * attn).sum())
+
+
+def phase_all_decode(ck: dict, nouns: list, frames: list, name: str, smi: str) -> dict:
+    """Phase all_decode: exhaustive scoring of 16 served frames over the full
+    guide set through NOVICModel; the renorm, vocab-prior and alpha gencfg
+    computed and stored, then loaded; generate_all card vs CPU."""
+    from novic_tpu_torch import infer
+    from novic_tpu_torch.bridge import decoder_from_numpy
+    from novic_tpu_torch.models import generate
+    from novic_tpu_torch.ops import (attention, attention_bf16, beam_reorder, dropout,
+                                     flash_attention, int8_matmul, tiled_matmul)
+    from novic_tpu_torch.text.simple import make_test_tokenizer
+
+    batch = frames[:ALL_BATCH]
+    nouns_set = set(nouns)
+    common = dict(embedder_spec=SPEC, batch_size=ALL_BATCH, device="cuda",
+                  embedder_kwargs={"tokenizer": make_test_tokenizer(nouns), "seed": SEED})
+    others = (dropout, int8_matmul, beam_reorder, attention_bf16, tiled_matmul, flash_attention)
+    line = {"phase": "all_decode", "device": name, "nvidia_smi": smi, "gencfg": ALL_GENCFG,
+            "images": len(batch), "host_launch_us": host_launch_us()}
+    phase_t0 = time.perf_counter()
+    with infer.NOVICModel(FT0, gencfg=ALL_GENCFG, **common) as model:
+        dec, task = model.decoder, model.task
+        for mod in (attention,) + others:
+            mod.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = model.classify_images(batch)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        k1 = attention.LAUNCHES
+        other_launches = {m.__name__.rsplit(".", 1)[-1]: m.LAUNCHES for m in others}
+        check_output(out, len(batch), nouns_set)
+        pre = task.precompute
+        n_pos = pre.guide_paddings.shape[1] - pre.guide_paddings.sum(axis=1)
+        positions, flops = all_decode_flops(dec.cfg, n_pos)
+        e2e_ms = wall_ms(lambda: model.classify_images(batch), repeats=1)
+        embeds = model.embed_images(batch)
+        decode_ms = wall_ms(lambda: model.classify_embeds(embeds), repeats=1)
+        e = torch.from_numpy(embeds).cuda()
+        # generate_all alone at each chunk size (targets per chunk = rows / 16);
+        # the default's output is the direct call NOVICModel's top-1 must match
+        chunks, outs = {}, {}
+        for rows in ALL_CHUNK_ROWS_TRIED:
+            torch.cuda.reset_peak_memory_stats()
+            ms = wall_ms(lambda: outs.__setitem__(rows, generate.generate_all(
+                dec.model, e, topk=10, precompute=pre, chunk=rows // ALL_BATCH)), repeats=1)
+            chunks[rows] = {"ms": ms[0], "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        direct = outs[generate.ALL_CHUNK_ROWS]
+        for rows, c in chunks.items():
+            c["targets_identical"] = bool(torch.equal(outs[rows][0], direct[0]))
+            c["max_score_diff"] = (outs[rows][2] - direct[2]).abs().max().item()
+        top1_direct = dec.target_tokenizer.detokenize_target(direct[0][:, 0].cpu().numpy())
+        top1 = [r[0] for r in out.preds]
+        t0 = time.perf_counter()
+        prof = device_profile(lambda: generate.generate_all(dec.model, e, topk=10, precompute=pre),
+                              match=("gemm", "Gemm"), host=False)
+        profile_s = time.perf_counter() - t0
+        gemm_ms = sum(m[1] for m in prof.pop("matched_kernels"))
+        decode_s = decode_ms[0] / 1e3
+        line.update({
+            "guide_targets": int(len(n_pos)), "targets_by_positions": {
+                int(n): int(c) for n, c in zip(*np.unique(n_pos, return_counts=True))},
+            "scored_positions_per_image": positions, "flop_per_image": flops,
+            "fused_attention_launches": k1, "other_kernel_launches": other_launches,
+            "first_call_s": first_s, "e2e_s_per_batch": e2e_ms[0] / 1e3,
+            "images_per_s": len(batch) / (e2e_ms[0] / 1e3), "decode_s_per_batch": decode_s,
+            "float32_bound_s_per_batch": flops * len(batch) / FP32_FLOP_PER_S,
+            "float32_bound_share": flops * len(batch) / FP32_FLOP_PER_S / decode_s,
+            "achieved_tflop_per_s": flops * len(batch) / decode_s / 1e12,
+            "top1_identical_to_direct": top1 == top1_direct, "labels": [r[:3] for r in out.preds[:2]],
+            "chunk_rows_default": generate.ALL_CHUNK_ROWS, "chunks": chunks,
+            "chunk_score_atol": ALL_SUM_ORDER_ATOL,
+            "profile": {**prof, "gemm_device_ms": gemm_ms, "seconds": profile_s,
+                        "gemm_share_of_device_busy": gemm_ms / prof["device_busy_ms"]}})
+
+        # Card vs CPU: the same 2 embeddings through generate_all at a trimmed guide set
+        cpu_model = decoder_from_numpy(ck["model_config"], ck["params"])
+        line["card_vs_cpu"] = {"targets": ALL_CPU_TARGETS, "atol": ALL_SUM_ORDER_ATOL}
+        for label, renorm in (("plain", False), ("renorm", True)):
+            kw = dict(topk=10, guide_targets=task.guide_targets[:ALL_CPU_TARGETS],
+                      guide_renorm=renorm)
+            gpu = [x.cpu() for x in generate.generate_all(dec.model, e[:2], **kw)]
+            t0 = time.perf_counter()
+            cpu = generate.generate_all(cpu_model, torch.from_numpy(embeds[:2]), **kw)
+            line["card_vs_cpu"][label] = {
+                "targets_identical": bool(torch.equal(gpu[0], cpu[0])),
+                "paddings_identical": bool(torch.equal(gpu[1], cpu[1])),
+                "max_score_diff": (gpu[2] - cpu[2]).abs().max().item(),
+                "cpu_s": time.perf_counter() - t0}
+        del cpu_model
+
+    # The renorm, vocab-prior and alpha gencfg: a first model computes and stores
+    # the precompute, a second loads it from the store (computing it is a fault)
+    store_dir = tempfile.mkdtemp(prefix="novic_all_store_")
+    runs = []
+    try:
+        for run in ("compute", "load"):
+            with infer.NOVICModel(FT0, gencfg=ALL_RENORM_GENCFG, precompute_dir=store_dir,
+                                  **common) as m:
+                compute = infer.precompute_generate_all
+                if run == "load":
+                    def refuse(*args, **kwargs):
+                        raise SystemExit("all_decode: the second task recomputed the precompute")
+                    infer.precompute_generate_all = refuse
+                try:
+                    t0 = time.perf_counter()
+                    m.task.ensure_precomputed()
+                    pre_s = time.perf_counter() - t0
+                finally:
+                    infer.precompute_generate_all = compute
+                ms = wall_ms(lambda: runs.append(m.classify_embeds(embeds)), repeats=1)
+                line[f"renorm_{run}"] = {"precompute_s" if run == "compute" else "store_load_s": pre_s,
+                                         "decode_s_per_batch": ms[0] / 1e3,
+                                         "store_files": len(os.listdir(store_dir))}
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    line["renorm_gencfg"] = ALL_RENORM_GENCFG
+    line["renorm_same_preds"] = runs[0].preds == runs[1].preds
+    line["renorm_max_logprob_diff"] = float(np.abs(np.array(runs[0].logprobs)
+                                                   - np.array(runs[1].logprobs)).max())
+    line["renorm_labels"] = [r[:3] for r in runs[0].preds[:2]]
+    line["phase_s"] = time.perf_counter() - phase_t0
+    emit(line)
+    torch.cuda.empty_cache()
+
+    check_output(runs[0], len(batch), nouns_set)
+    if k1 != 12 or any(other_launches.values()):
+        raise SystemExit(f"all_decode: {k1} fused_attention launches (expected 12, one tower "
+                         f"forward) and other kernels {other_launches} (expected none)")
+    if not line["top1_identical_to_direct"]:
+        raise SystemExit("all_decode: NOVICModel's top-1 differs from generate_all's")
+    for rows, c in chunks.items():
+        if not c["targets_identical"] or c["max_score_diff"] > ALL_SUM_ORDER_ATOL:
+            raise SystemExit(f"all_decode: chunk rows {rows} changed the result: {c}")
+    for label in ("plain", "renorm"):
+        c = line["card_vs_cpu"][label]
+        if not (c["targets_identical"] and c["paddings_identical"]
+                and c["max_score_diff"] <= ALL_SUM_ORDER_ATOL):
+            raise SystemExit(f"all_decode: card and CPU disagree ({label}): {c}")
+    if not line["renorm_same_preds"] or line["renorm_max_logprob_diff"] > 1e-5 \
+            or line["renorm_load"]["store_files"] != 1:
+        raise SystemExit("all_decode: the stored precompute gave other results")
     return line
 
 
@@ -2017,6 +2206,9 @@ def main() -> int:
                   "x5_device_ms": x5_ms, "x5_kernels": sum(m[2] for m in matched),
                   "x5_share_of_device_busy": x5_ms / prof["device_busy_ms"]})
 
+    # all_decode: exhaustive scoring at the full guide set
+    all_line = phase_all_decode(ck, nouns, frames, name, smi)
+
     # 7. training path, 8. card vs CPU for one step
     workdir = tempfile.mkdtemp(prefix="novic_chip_smoke_")
     try:
@@ -2031,7 +2223,10 @@ def main() -> int:
         "name": "fused_attention", "route": "cuda",
         "source": "novic_tpu_torch/ops/csrc/attention.cu",
         "replaces": "novic_tpu/ops/attention.py:71",
-        "launches": launches, "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
+        "launches": launches,
+        "launches_by_phase": {"main_path": launches,
+                              "all_decode": all_line["fused_attention_launches"]},
+        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"]}, {
         "name": "dropout", "route": "cuda",

@@ -6,8 +6,10 @@ with its compact name codec (``{method}_k{K}_v{none|tokX|tgtX}_g{n|p|r}_t{T}_a{A
 the GenerationTask evaluator with its top-k result bucketing, and the loader
 helpers. Models run on an explicit device, CUDA by default.
 
-Greedy decode and beam search (with vocab priors) are ported; exhaustive
-('all') generation raises NotImplementedError.
+Every decode mode of the JAX package is served: greedy, beam search (with vocab
+priors) and exhaustive ('all') scoring, whose host-side precompute is shared
+between tasks and optionally kept on disk (`precompute_dir`, default
+$NOVIC_PRECOMPUTE_DIR; models/precompute_store.py); and the DudDecoder baseline.
 """
 
 from __future__ import annotations
@@ -23,9 +25,21 @@ import torch
 
 from novic_tpu_torch.device import resolve
 from novic_tpu_torch.embedders.base import Embedder
+from novic_tpu_torch.models.base import create_decoder, decoder_class
 from novic_tpu_torch.models.config import DecoderModelConfig
-from novic_tpu_torch.models.generate import generate_beam, generate_greedy
+from novic_tpu_torch.models.dud import DudDecoder
+from novic_tpu_torch.models.generate import (
+    generate_all,
+    generate_beam,
+    generate_greedy,
+    precompute_generate_all,
+)
 from novic_tpu_torch.models.guide_trie import build_guide_trie
+from novic_tpu_torch.models.precompute_store import (
+    load_precompute,
+    precompute_cache_key,
+    save_precompute,
+)
 from novic_tpu_torch.models.prefixed_iter import PrefixedIterDecoder
 from novic_tpu_torch.text.target import TargetConfig, TargetTokenizer
 from novic_tpu_torch.utils.logger import log
@@ -123,12 +137,16 @@ class GenerationConfig:
 
 @dataclasses.dataclass
 class Decoder:
-    """A decoder module (on its device) + config + target tokenizer."""
+    """A decoder (on its device) + config + target tokenizer."""
 
-    model: PrefixedIterDecoder
+    model: Union[PrefixedIterDecoder, DudDecoder]
     cfg: DecoderModelConfig
     target_tokenizer: TargetTokenizer
     target_vocab: tuple[str, ...] = ()
+
+    @property
+    def is_dud(self) -> bool:
+        return isinstance(self.model, DudDecoder)
 
 
 RESULT_NAMES = ("correct", "valid_guide", "valid_vocab", "invalid")
@@ -145,6 +163,7 @@ class GenerationTask:
     guide_targets: Optional[np.ndarray]
     class_lists: Optional[Sequence[Sequence[str]]] = None
 
+    precompute: Any = None
     target: Optional[np.ndarray] = None
     target_padding: Optional[np.ndarray] = None
     target_score: Optional[list] = None
@@ -165,6 +184,9 @@ class GenerationTask:
 
     _trie_cache: dict = dataclasses.field(default_factory=dict)
     _targets_device: dict = dataclasses.field(default_factory=dict)
+    # On-disk store of the 'all' precompute (models/precompute_store.py)
+    precompute_dir: Optional[str] = dataclasses.field(
+        default_factory=lambda: os.environ.get("NOVIC_PRECOMPUTE_DIR") or None)
 
     def __post_init__(self):
         self.topk_counts = np.zeros((self.gencfg.topk, 4), dtype=np.int64)
@@ -180,10 +202,10 @@ class GenerationTask:
         elif self.gencfg.method == "all":
             if not self.gencfg.guided:
                 raise ValueError("The 'all' generation method must always be guided")
-            raise NotImplementedError("Generation method 'all' is not ported yet "
-                                      "(greedy and beam only)")
 
-    def clear(self):
+    def clear(self, clear_precompute: bool = False):
+        if clear_precompute:
+            self.precompute = None
         self.target = self.target_padding = self.target_score = None
         self.num_samples = 0
         self.target_str = None
@@ -193,20 +215,68 @@ class GenerationTask:
 
     # -- generation ---------------------------------------------------------------
 
-    def generate(self, embeds: np.ndarray):
+    def ensure_precomputed(self, precompute_cache: Optional[dict] = None):
+        """The 'all' precompute, from `precompute_cache` (shared by a task list),
+        else from the store in `precompute_dir`, else computed (and then stored)."""
+        if self.precompute is not None or self.gencfg.method != "all" or self.decoder.is_dud:
+            return
+        g = self.gencfg
+        kwargs = dict(length_alpha=g.length_alpha,
+                      vocab_targets=self.vocab_targets if g.vocab_prior else None,
+                      vocab_per_token=g.vocab_per_token, vocab_scaler=g.vocab_scaler,
+                      guide_targets=self.guide_targets, guide_renorm=g.guide_renorm)
+        key = (g.method, id(self.vocab_targets) if g.vocab_prior else None, g.vocab_per_token,
+               g.vocab_scaler, id(self.guide_targets), g.guide_renorm, g.length_alpha)
+        if precompute_cache is not None and key in precompute_cache:
+            self.precompute = precompute_cache[key]
+            return
+        store_key = None
+        if self.precompute_dir:
+            store_key = precompute_cache_key(self.decoder.cfg.vocab_size, **kwargs)
+            self.precompute = load_precompute(self.precompute_dir, store_key)
+        if self.precompute is None:
+            self.precompute = precompute_generate_all(self.decoder.cfg.vocab_size, **kwargs)
+            if store_key is not None:
+                save_precompute(self.precompute_dir, store_key, self.precompute)
+        if precompute_cache is not None:
+            precompute_cache[key] = self.precompute
+
+    def generate(self, embeds: np.ndarray, *, precompute: bool = True,
+                 precompute_cache: Optional[dict] = None):
         """→ (target BxKxC, padding BxKxC, scores BxK descending), numpy."""
+        if precompute:
+            self.ensure_precomputed(precompute_cache)
         true_b = embeds.shape[0]
         if self.batch_pad and true_b < self.batch_pad:
             pad = np.zeros((self.batch_pad - true_b, embeds.shape[1]), np.float32)
             pad[:, 0] = 1.0  # unit vectors so decode math stays well-conditioned
-            t, p, s = self.generate(np.concatenate([np.asarray(embeds, np.float32), pad], axis=0))
+            t, p, s = self.generate(np.concatenate([np.asarray(embeds, np.float32), pad], axis=0),
+                                    precompute=False)
             return t[:true_b], p[:true_b], s[:true_b]
         g = self.gencfg
         model = self.decoder.model
+        e = torch.from_numpy(np.ascontiguousarray(embeds, dtype=np.float32)).to(model.device)
+        if self.decoder.is_dud:
+            if g.method == "greedy":
+                t, p, _, _, _, s = model.generate(e, calc_loss=True, temperature=g.temperature,
+                                                  length_alpha=g.length_alpha)
+                t, p, s = t[:, None], p[:, None], s[:, None]
+            elif g.method == "beam":
+                t, p, s = model.generate_beam(e, topk=g.topk)
+            else:
+                t, p, s = model.generate_all(e, topk=g.topk, guide_targets=self.guide_targets)
+            return t.cpu().numpy(), p.cpu().numpy(), s.cpu().numpy()
+        if g.method == "all":
+            t, p, s = generate_all(model, e, topk=g.topk, temperature=g.temperature,
+                                   length_alpha=g.length_alpha,
+                                   vocab_targets=self.vocab_targets if g.vocab_prior else None,
+                                   vocab_per_token=g.vocab_per_token, vocab_scaler=g.vocab_scaler,
+                                   guide_targets=self.guide_targets, guide_renorm=g.guide_renorm,
+                                   precompute=self.precompute)
+            return t.cpu().numpy(), p.cpu().numpy(), s.cpu().numpy()
         guide = self._targets("guide") if g.guided else None
         vocab = self._targets("vocab") if g.vocab_prior else None
         g_trie = self._maybe_trie(self.guide_targets, "guide") if g.guided else None
-        e = torch.from_numpy(np.ascontiguousarray(embeds, dtype=np.float32)).to(model.device)
         if g.method == "greedy":
             t, p, _, _, _, s = generate_greedy(model, e, calc_loss=True, temperature=g.temperature,
                                                length_alpha=g.length_alpha, guide_targets=guide,
@@ -270,8 +340,9 @@ class GenerationTask:
         self._trie_cache[which] = {k: to_dev(v) for k, v in tables.items()}
         return self._trie_cache[which]
 
-    def process(self, embeds: np.ndarray, *, class_indices: Optional[Sequence[int]] = None):
-        t, p, s = self.generate(embeds)
+    def process(self, embeds: np.ndarray, *, class_indices: Optional[Sequence[int]] = None,
+                precompute: bool = True, precompute_cache: Optional[dict] = None):
+        t, p, s = self.generate(embeds, precompute=precompute, precompute_cache=precompute_cache)
         self.update(target=t, target_padding=p, target_score=s, class_indices=class_indices)
 
     # -- statistics ---------------------------------------------------------------
@@ -315,15 +386,17 @@ class GenerationTask:
 
 class GenerationTaskList:
     """Several gencfg tasks over the same batches, generated and updated in the
-    JAX package's order (a task's update after the next task's generation)."""
+    JAX package's order (a task's update after the next task's generation),
+    sharing one cache of 'all' precomputes."""
 
     def __init__(self, tasks: Sequence[GenerationTask]):
         self.tasks = list(tasks)
+        self.precompute_cache: dict = {}
 
     def process(self, embeds: np.ndarray, *, class_indices: Optional[Sequence[int]] = None):
         pending = None
         for task in self.tasks:
-            out = task.generate(embeds)
+            out = task.generate(embeds, precompute_cache=self.precompute_cache)
             if pending is not None:
                 self._update(*pending, class_indices)
             pending = (task, out)
@@ -360,9 +433,11 @@ def load_guide_targets(target_tokenizer: TargetTokenizer, guide_targets: Sequenc
 
 
 def load_decoder_from_checkpoint(checkpoint_path: str, embedder: Embedder,
-                                 device: Union[str, torch.device] = "cuda") -> Decoder:
+                                 device: Union[str, torch.device] = "cuda",
+                                 model_override: Optional[str] = None) -> Decoder:
     """Load a native .npz decoder checkpoint onto `device` and configure the
-    embedder's target tokenizer from it."""
+    embedder's target tokenizer from it; `model_override` names another decoder
+    class for the checkpoint's config (a DudDecoder is built, not loaded)."""
     from novic_tpu_torch.bridge import decoder_from_numpy
     from novic_tpu_torch.train.checkpoint import load_checkpoint, load_reference_checkpoint
 
@@ -394,10 +469,14 @@ def load_decoder_from_checkpoint(checkpoint_path: str, embedder: Embedder,
     embedder.configure_target(target_config, valid_nouns)
 
     cfg: DecoderModelConfig = ckpt["model_config"]
-    if cfg.model != "PrefixedIterDecoder":
-        raise NotImplementedError(f"Decoder model {cfg.model!r} is not ported yet")
-    model = decoder_from_numpy(cfg, ckpt["params"]).to(dev)
-    log.info(f"Loaded decoder {cfg.model}: {sum(p.numel() for p in model.parameters())} params")
+    if model_override:
+        cfg = cfg.replace(model=model_override)
+    if decoder_class(cfg.model) is DudDecoder:
+        model = create_decoder(cfg, device=dev, target_tokenizer=embedder.target_tokenizer)
+        log.info(f"Loaded decoder {cfg.model}: 0 params")
+    else:
+        model = decoder_from_numpy(cfg, ckpt["params"]).to(dev)
+        log.info(f"Loaded decoder {cfg.model}: {sum(p.numel() for p in model.parameters())} params")
     return Decoder(model=model, cfg=cfg, target_tokenizer=embedder.target_tokenizer,
                    target_vocab=tuple(valid_nouns))
 
@@ -426,11 +505,13 @@ class NOVICModel:
                  gencfg: Union[str, GenerationConfig] = "beam_k10_vnone_gn_t1_a0",
                  guide_targets: Optional[Sequence[str]] = None,
                  batch_size: int = 64, embedder_kwargs: Optional[dict] = None,
+                 precompute_dir: Optional[str] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.checkpoint = checkpoint
         self.device = resolve(device)
         self.gencfg = GenerationConfig.from_name(gencfg) if isinstance(gencfg, str) else gencfg
         self.batch_size = batch_size
+        self.precompute_dir = precompute_dir  # None: the task's default ($NOVIC_PRECOMPUTE_DIR)
         self._guide_target_strs = list(guide_targets) if guide_targets is not None else None
         spec = embedder_spec if embedder_spec is not None else self._peek_embedder_spec(checkpoint)
         if spec is None:
@@ -518,6 +599,8 @@ class NOVICModel:
             guide_targets_set=set(guide_strs),
             guide_targets=guide_ids if (gencfg.guided or gencfg.method == "all") else None)
         task.batch_pad = self.batch_size
+        if self.precompute_dir:
+            task.precompute_dir = self.precompute_dir
         self._task_cache[gencfg.name] = task
         return task
 
@@ -584,6 +667,9 @@ def main(argv: Optional[Sequence[str]] = None):
                         help="CLIP BPE merges file (or set NOVIC_CLIP_BPE / NOVIC_SIGLIP_SPM)")
     parser.add_argument("--compute_dtype", default=None,
                         help="Embedder compute dtype override (float32|bfloat16)")
+    parser.add_argument("--precompute_dir", default=None,
+                        help="On-disk store for 'all'-mode decode precompute "
+                             "(default $NOVIC_PRECOMPUTE_DIR)")
     parser.add_argument("--device", default="cuda", help="Torch device (default cuda)")
     args = parser.parse_args(argv)
 
@@ -598,7 +684,7 @@ def main(argv: Optional[Sequence[str]] = None):
         embedder_kwargs["compute_dtype"] = args.compute_dtype
     model = NOVICModel(args.checkpoint, embedder_spec=args.embedder, gencfg=args.gencfg,
                        batch_size=args.batch_size, embedder_kwargs=embedder_kwargs,
-                       device=args.device)
+                       precompute_dir=args.precompute_dir, device=args.device)
     if args.guide_targets or args.guide_targets_file:
         model.set_guide_targets(args.guide_targets, args.guide_targets_file)
     image_paths = args.images

@@ -10,27 +10,14 @@ from __future__ import annotations
 
 from typing import Any, Optional, Union
 
+import numpy as np
 import torch
 
 from novic_tpu_torch.device import resolve
 from novic_tpu_torch.models.config import DecoderModelConfig
+from novic_tpu_torch.models.dud import DudDecoder
 from novic_tpu_torch.models.prefixed_iter import PrefixedIterDecoder
 from novic_tpu_torch.utils.logger import log
-
-
-class DudDecoder:
-    """Registered so configurations that name it resolve; not ported yet."""
-
-    @staticmethod
-    def get_target_config_kwargs(**target_kwargs) -> dict[str, Any]:
-        return target_kwargs
-
-    @staticmethod
-    def get_data_config_kwargs(**data_kwargs) -> dict[str, Any]:
-        return data_kwargs
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("DudDecoder is not ported yet")
 
 
 DECODER_REGISTRY: dict[str, Any] = {
@@ -54,11 +41,24 @@ def _unused(cfg: DecoderModelConfig) -> int:
 
 
 def create_decoder(cfg: DecoderModelConfig, *, generator: Optional[torch.Generator] = None,
-                   device: Union[str, torch.device] = "cuda") -> PrefixedIterDecoder:
+                   device: Union[str, torch.device] = "cuda", target_tokenizer=None
+                   ) -> Union[PrefixedIterDecoder, DudDecoder]:
     """The decoder for `cfg`, randomly initialised from `generator` (a CPU
-    generator; seed 0 if None) and moved to `device`."""
+    generator; seed 0 if None) and moved to `device`. A DudDecoder needs
+    `target_tokenizer` to tokenize its constant noun."""
     cls = decoder_class(cfg.model)
     dev = resolve(device)
+    if cls is DudDecoder:
+        if target_tokenizer is None:
+            raise ValueError("DudDecoder requires a target tokenizer")
+        dud_target, dud_padding = target_tokenizer.tokenize_target("unknown")
+        if (dud_target < 0).any():
+            dud_target, dud_padding = target_tokenizer.tokenize_target("")
+        if dud_padding is None:
+            dud_padding = np.zeros_like(dud_target, dtype=bool)
+        # The constant noun is used at its own length: trim the padding columns
+        keep = int((~dud_padding[0]).sum())
+        return DudDecoder(cfg, dud_target[:, :keep], dud_padding[:, :keep], device=dev)
     model = cls(cfg)
     model.init_random(generator if generator is not None else torch.Generator().manual_seed(0))
     n_params = count_params(model, cfg)

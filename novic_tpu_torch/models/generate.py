@@ -1,5 +1,6 @@
-"""KV-cached greedy decode and beam search (the counterparts of novic_tpu.models.generate
-`generate_greedy` and `generate_beam`).
+"""KV-cached greedy decode, beam search and exhaustive guided scoring (the
+counterparts of novic_tpu.models.generate `generate_greedy`, `generate_beam` and
+`precompute_generate_all` / `generate_all`).
 
 Same semantics as the JAX package: temperature, length alpha, the first-token
 end ban, forced end for finished candidates, guided decoding either through
@@ -14,20 +15,28 @@ Beam search keeps its token caches in one of two ways (`cache_mode`):
   launch of the beam-reorder kernel (ops/beam_reorder.py) from one cache set into
   a second, preallocated one; the two sets swap roles each step.
 
-Ties: jax.lax.top_k and jnp.argmax pick the lowest index among equal values.
-torch.topk promises no order, so the beam's top-k is a stable descending sort;
-argmax over bool rows casts to int first (torch.argmax returns the first
-maximum).
+Exhaustive scoring ("all") teacher-forces every guide target: the shared prefix
+is prefilled once per call, position 0 is scored from the prefill logits, and the
+targets run in descending length buckets, a chunk of targets at a time, through
+the prefix-cached score_hidden, one position's (rows, V) logits at a time. The
+host-side precompute (paddings, renorm trie tables, vocab prior corrections,
+alpha scales) is numpy, as in the JAX package.
 
-Not ported yet: generate_all, which raises NotImplementedError.
+Ties: jax.lax.top_k and jnp.argmax pick the lowest index among equal values.
+torch.topk promises no order, so every top-k here is a stable descending sort
+(generate_all's over the JAX package's row order); argmax over bool rows casts
+to int first (torch.argmax returns the first maximum).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
+from novic_tpu_torch.models.guide_trie import build_guide_trie
 from novic_tpu_torch.models.layers import NEG_INF
 from novic_tpu_torch.models.prefixed_iter import cross_entropy_elems
 from novic_tpu_torch.ops.beam_reorder import beam_reorder_many
@@ -88,9 +97,6 @@ def _top_k(x: torch.Tensor, k: int):
     values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
     return values[..., :k], indices[..., :k]
 
-
-def generate_all(*args, **kwargs):
-    raise NotImplementedError("generate_all is not ported yet (greedy and beam only)")
 
 
 @torch.inference_mode()
@@ -468,3 +474,245 @@ def generate_beam(
     target = torch.where(padding, 0, target)
     final_score = new_score_normed if use_alpha else score
     return target, padding, final_score
+
+
+# ---------------------------------------------------------------------------
+# Exhaustive guided scoring
+# ---------------------------------------------------------------------------
+
+# Default rows (targets x samples) scored per chunk: a chunk's cost is one
+# score_hidden and, per position, one (rows, V) float32 logits GEMM, so fewer,
+# larger chunks spread the host's per-launch time over more work, up to the
+# memory of a few (rows, V) slabs (4.2 GB at 16,384 rows and the FT0
+# vocabulary). chip_smoke.py's all_decode phase times 1,024 to 32,768 rows on
+# the card (PERF.md §6). Scores do not depend on it.
+ALL_CHUNK_ROWS = 16384
+
+
+@dataclasses.dataclass
+class GenerateAllPrecompute:
+    guide_targets: np.ndarray       # (W, C) trimmed, padding zeroed
+    guide_paddings: np.ndarray      # (W, C) bool
+    renorm_trie: Optional[dict]     # guide-trie children tables (renorm masks) or None
+    guide_nodes: Optional[np.ndarray]   # (W, C) trie node of each prefix (renorm only)
+    vocab_scores: Optional[np.ndarray]  # (W,) prior correction per guide target
+    alpha_scale: Optional[np.ndarray]   # (W,) length normalisation
+    # The renorm children-token tables on each device generate_all ran on:
+    # uploaded once per precompute and device, not once per call
+    _renorm_device: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+
+def _trie_walk(trie: dict, tokens: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Walk a guide trie with (W, C) token rows (vectorised over W).
+
+    Returns (nodes, match_cnt, node_cnt, n_children), each (W, C): nodes[w,c] =
+    trie node of prefix tokens[w,:c] (0 = dead); match_cnt[w,c] = rows under the
+    child matching tokens[w,c] (0 if none or dead); node_cnt[w,c] = rows under
+    the node; n_children[w,c] = number of distinct next tokens."""
+    W, C = tokens.shape
+    nodes = np.zeros((W, C), dtype=np.int32)
+    match_cnt = np.zeros((W, C), dtype=np.int64)
+    node_cnt = np.zeros((W, C), dtype=np.int64)
+    n_children = np.zeros((W, C), dtype=np.int64)
+    node = np.ones((W,), dtype=np.int64)  # root
+    aw = np.arange(W)
+    for c in range(C):
+        nodes[:, c] = node
+        ct = trie["child_tok"][c][node]    # (W, M_c)
+        cid = trie["child_id"][c][node]
+        cct = trie["child_cnt"][c][node]
+        eq = ct == tokens[:, c][:, None]
+        hit = eq.any(axis=1)
+        idx = np.argmax(eq, axis=1)
+        match_cnt[:, c] = np.where(hit, cct[aw, idx], 0)
+        node_cnt[:, c] = trie["node_cnt"][c][node]
+        n_children[:, c] = (cid != 0).sum(axis=1)
+        node = np.where(hit, cid[aw, idx], 0).astype(np.int64)
+    return nodes, match_cnt, node_cnt, n_children
+
+
+def precompute_generate_all(
+    vocab_size: int,
+    *,
+    length_alpha: float,
+    vocab_targets: Optional[np.ndarray],
+    vocab_per_token: bool,
+    vocab_scaler: float,
+    guide_targets: np.ndarray,
+    guide_renorm: bool,
+) -> GenerateAllPrecompute:
+    """Host-side (numpy) precompute of generate_all: the guide paddings, the
+    renorm trie tables and each target's trie nodes, the vocab prior
+    corrections and the alpha scales.
+
+    A prefix's alive rows are a node of the guide (or vocab) trie, so a renorm
+    mask is the node's children row and a vocab prior an exact alive-row count
+    read off a trie walk: O(W*C), where a mask over all W rows per prefix would
+    be O(W^2)."""
+    guide_targets = np.asarray(guide_targets)
+    W, Cmax = guide_targets.shape
+    V = vocab_size
+
+    guide_paddings = np.zeros((W, Cmax), dtype=bool)
+    guide_paddings[:, 1:] = np.logical_not(guide_targets[:, :-1])
+    guide_paddings[:, 1:] = np.maximum.accumulate(guide_paddings[:, 1:], axis=1)
+
+    C = Cmax - int(guide_paddings.all(axis=0).sum())
+    guide_paddings = guide_paddings[:, :C]
+    guide_targets = np.where(guide_paddings, 0, guide_targets[:, :C]).astype(np.int32)
+
+    if guide_renorm:
+        renorm_trie = build_guide_trie(guide_targets, V, C)
+        guide_nodes, _, _, _ = _trie_walk(renorm_trie, guide_targets)
+        # Every guide prefix is alive in its own trie by construction
+        if C > 1 and not (guide_nodes[:, 1:] > 0).all():
+            raise RuntimeError("a guide prefix is dead in its own trie")
+    else:
+        renorm_trie = None
+        guide_nodes = None
+
+    if vocab_targets is None or vocab_scaler == 0:
+        vocab_scores = None
+    else:
+        vocab_targets = np.asarray(vocab_targets)[:, :C]
+        v_trie = build_guide_trie(vocab_targets, V, C)
+        _, match_cnt, node_cnt, n_children = _trie_walk(v_trie, guide_targets)
+        # Per target: |alive rows with this token| / |alive rows|; per token:
+        # 1/|distinct next tokens| if this token continues some alive row
+        if vocab_per_token:
+            probs = np.where(match_cnt > 0, 1.0 / np.maximum(n_children, 1), 0.0)
+        else:
+            probs = match_cnt / np.maximum(node_cnt, 1).astype(np.float64)
+        with np.errstate(divide="ignore"):
+            vocab_scores = np.log(probs)
+        vocab_scores[~np.isfinite(vocab_scores)] = INF
+        vocab_scores[guide_paddings] = 0.0
+        vocab_scores = (vocab_scores.sum(axis=1) * vocab_scaler).astype(np.float32)
+
+    if length_alpha == 0:
+        alpha_scale = None
+    else:
+        n = np.maximum(C - guide_paddings.sum(axis=1), 1)
+        alpha_scale = np.power(n.astype(np.float32), -length_alpha)
+
+    return GenerateAllPrecompute(guide_targets=guide_targets, guide_paddings=guide_paddings,
+                                 renorm_trie=renorm_trie, guide_nodes=guide_nodes,
+                                 vocab_scores=vocab_scores, alpha_scale=alpha_scale)
+
+
+def _score_chunk(model, pk, pv, g_tok: torch.Tensor, g_nodes: Optional[torch.Tensor],
+                 child_tok: Optional[list], temperature: float) -> torch.Tensor:
+    """(Bb, ch) summed log-probabilities of target positions 1..T of a chunk of
+    ch targets (g_tok (ch, T+1)) for each of the Bb samples: per position, the
+    logit at the token minus the logsumexp, one (Bb*ch, V) slab at a time; with
+    renorm (g_nodes (ch, T+1) trie nodes), the node's children row masks it."""
+    Bb = pk[0].shape[0]
+    ch, T = g_tok.shape[0], g_tok.shape[1] - 1
+    V = model.cfg.vocab_size
+    # Rows are sample-major (row = b*ch + g), score_hidden's (Bb, R) layout
+    h = model.score_hidden(g_tok[:, :T].repeat(Bb, 1), pk, pv)
+    acc = torch.zeros((Bb * ch,), dtype=torch.float32, device=h.device)
+    for c in range(T):  # scored positions 1..T; position 0 is shared
+        lg = model.logits(h[:, c, :])
+        if temperature != 1.0:
+            lg = lg / temperature
+        if child_tok is not None:
+            # The allowed tokens of this prefix's trie node at depth c+1
+            allowed = _scatter_allowed((ch, V + 1), child_tok[c + 1][g_nodes[:, c + 1]])[:, :V]
+            lg = (lg.view(Bb, ch, V) + allowed).view(Bb * ch, V)
+        at = torch.gather(lg, 1, g_tok[:, c + 1].repeat(Bb)[:, None])[:, 0]
+        acc = acc + at - torch.logsumexp(lg, dim=1)
+    return acc.view(Bb, ch)
+
+
+@torch.inference_mode()
+def generate_all(
+    model,
+    embed: torch.Tensor,
+    *,
+    topk: int,
+    temperature: float = 1.0,
+    length_alpha: float = 0.0,
+    vocab_targets: Optional[np.ndarray] = None,
+    vocab_per_token: bool = False,
+    vocab_scaler: float = 0.0,
+    guide_targets: Optional[np.ndarray] = None,
+    guide_renorm: bool = False,
+    precompute: Optional[GenerateAllPrecompute] = None,
+    chunk: Optional[int] = None,
+    max_scan_chunks: int = 256,
+):
+    """Teacher-force every guide target and return each sample's top-k. Returns
+    (targets BxKxC int32, paddings BxKxC bool, scores BxK descending) on the
+    embedding's device.
+
+    guide_targets / vocab_targets: (W, C) / (Z, C) numpy ids, read only when no
+    precompute is given (the precompute is host work). The prefix is prefilled once;
+    targets run in descending length buckets (a stable sort), `chunk` targets at a
+    time (default ALL_CHUNK_ROWS rows over the batch). The top-k runs over the
+    length-sorted rows in the JAX package's order, less the padding its scans add,
+    so a tie between duplicated rows picks JAX's row. `max_scan_chunks` caps the
+    JAX package's scan length; the port runs no scan, so it changes nothing here.
+    Scores do not depend on `chunk`."""
+    cfg = model.cfg
+    if precompute is None:
+        if guide_targets is None:
+            raise ValueError("generate_all needs guide_targets or a precompute")
+        precompute = precompute_generate_all(
+            cfg.vocab_size, length_alpha=length_alpha, vocab_targets=vocab_targets,
+            vocab_per_token=vocab_per_token, vocab_scaler=vocab_scaler,
+            guide_targets=guide_targets, guide_renorm=guide_renorm)
+
+    gt, gp = precompute.guide_targets, precompute.guide_paddings
+    W, C = gt.shape
+    dev = embed.device
+    B, V = embed.shape[0], cfg.vocab_size
+    logits1, pk, pv = model.prefill_split(embed)  # (B,V), [(B,P,H,hd)]*L
+    if chunk is None:
+        chunk = max(ALL_CHUNK_ROWS // max(B, 1), 1)
+
+    n_pos = (C - gp.sum(axis=1)).astype(np.int64)  # scored positions per target, >= 1
+    order = np.argsort(-n_pos, kind="stable")
+    gt_s, gp_s, n_s = gt[order], gp[order], n_pos[order]
+    gn_s = precompute.guide_nodes[order] if precompute.guide_nodes is not None else None
+    bounds = list(np.flatnonzero(np.diff(n_s)) + 1) if W > 1 else []
+
+    renorm = gn_s is not None
+    child_tok = None
+    if renorm:
+        child_tok = precompute._renorm_device.get(dev)
+        if child_tok is None:
+            child_tok = precompute._renorm_device[dev] = [
+                torch.from_numpy(np.asarray(t, np.int64)).to(dev)
+                for t in precompute.renorm_trie["child_tok"]]
+
+    # Positions 1..: per bucket, chunk by chunk (end-token-only targets score 0 here)
+    body = torch.zeros((B, W), dtype=torch.float32, device=dev)
+    for st, en in zip([0] + bounds, bounds + [W]):
+        length = int(n_s[st])
+        if length <= 1:
+            continue
+        tok = torch.from_numpy(gt_s[st:en, :length].astype(np.int64)).to(dev)
+        nodes = torch.from_numpy(gn_s[st:en, :length].astype(np.int64)).to(dev) if renorm else None
+        for c0 in range(0, en - st, chunk):
+            sl = slice(c0, min(c0 + chunk, en - st))
+            body[:, st + sl.start:st + sl.stop] = _score_chunk(
+                model, pk, pv, tok[sl], nodes[sl] if renorm else None, child_tok, temperature)
+
+    # Position 0: one log-softmax of the prefill logits serves every target; with
+    # renorm its mask is the root's children row (every guide is alive there)
+    lse_in = logits1 / temperature
+    if renorm:
+        root_mask = _scatter_allowed((1, V + 1), child_tok[0][1][None, :])[0, :V]
+        lse_in = lse_in + root_mask[None, :]
+    logp0 = torch.log_softmax(lse_in, dim=1)  # (B,V)
+    scores = body + logp0[:, torch.from_numpy(gt_s[:, 0]).to(dev).long()]
+    if precompute.vocab_scores is not None:
+        scores = scores - torch.from_numpy(precompute.vocab_scores[order]).to(dev)[None, :]
+    if precompute.alpha_scale is not None:
+        scores = scores * torch.from_numpy(precompute.alpha_scale[order]).to(dev)[None, :]
+
+    top_scores, top_idx = _top_k(scores, topk)
+    idx = top_idx.cpu().numpy()
+    return (torch.from_numpy(gt_s[idx]).to(dev), torch.from_numpy(gp_s[idx]).to(dev),
+            top_scores)

@@ -1,6 +1,7 @@
 """Decoder building blocks (the counterpart of novic_tpu.models.layers): the
-full-sequence training forward with its dropout sites, and the prefill and
-KV-cached decode forms that serving uses.
+full-sequence training forward with its dropout sites, the prefill and
+KV-cached decode forms that serving uses, and the prefix-cached extend of
+exhaustive scoring.
 
 Weights are torch layout (out, in) with the JAX package's parameter names, so
 a flattened flax tree is the state dict. Matmuls are exact float32 (TF32 off).
@@ -447,6 +448,33 @@ class TransformerLayer(nn.Module):
         out = (out_p + out_t).reshape(B, 1, cfg.hidden_dim)
         return self._finish(x, out), tk, tv
 
+    def extend(self, x, pk, pv, token_bias):
+        """Teacher-forced multi-token forward against a frozen shared prefix
+        (exhaustive scoring): writes no cache.
+
+        x (A,T,E) token inputs at sequence positions P..P+T-1 with A = Bb*R rows
+        laid out b*R + r; pk/pv (Bb,P,H,hd) the prefix K/V of prefill_split;
+        token_bias (T,T) additive causal bias among the tokens. The JAX package
+        computes the same attention as a broadcast-reduce for the TPU's vector
+        unit; this is the einsum form of step_split (float32 sums in another
+        order)."""
+        cfg = self.cfg
+        h = self._norm(x, 1) if cfg.layer_norm_first else x
+        q, k, v = self._qkv(h)  # (A,T,H,hd)
+        A, T = x.shape[0], x.shape[1]
+        Bb, P = pk.shape[0], pk.shape[1]
+        R = A // Bb
+        H, hd = cfg.num_heads, cfg.head_dim
+        qs = q * (1.0 / math.sqrt(hd))
+        sp = torch.einsum("brthd,bphd->brthp", qs.reshape(Bb, R, T, H, hd),
+                          pk.float()).reshape(A, T, H, P)
+        st = torch.einsum("athd,ashd->aths", qs, k) + token_bias[:, None, :]
+        attn = torch.softmax(torch.cat([sp, st], dim=-1), dim=-1)  # (A,T,H,P+T)
+        out_p = torch.einsum("brthp,bphd->brthd", attn[..., :P].reshape(Bb, R, T, H, P),
+                             pv.float()).reshape(A, T, cfg.hidden_dim)
+        out_t = torch.einsum("aths,ashd->athd", attn[..., P:], v).reshape(A, T, cfg.hidden_dim)
+        return self._finish(x, out_p + out_t)
+
 
 class Transformer(nn.Module):
     """Encoder stack + optional final norm; layers are named layers_{i}."""
@@ -511,3 +539,8 @@ class Transformer(nn.Module):
             x, tk_caches[i], tv_caches[i] = layer.step_lazy(
                 x, pk_caches[i], pv_caches[i], tk_caches[i], tv_caches[i], anc_bias, step)
         return self._final_norm(x), tk_caches, tv_caches
+
+    def extend(self, x, pk_caches, pv_caches, token_bias):
+        for i, layer in enumerate(self.layers):
+            x = layer.extend(x, pk_caches[i], pv_caches[i], token_bias)
+        return self._final_norm(x)

@@ -8,13 +8,14 @@ loss sum/basis decomposition, num_end_loss padding expansion, weighted CE with
 ignore_index=-1 and label smoothing, guide-restricted argmax correctness, and
 the BxMxC / MxBxC multi-target reshapes. Generation prefills either split
 caches (beam search: the lazy-cache step, or the split step after the caller
-permutes the token caches) or monolithic caches (greedy: the plain cached step).
+permutes the token caches; exhaustive scoring: the prefix-cached score_hidden)
+or monolithic caches (greedy: the plain cached step).
 
 A checkpoint stored in float16 (the FT0 asset) is held in float32 parameters
 with `float16_params` set (bridge.decoder_from_numpy). The decode steps then
 round where the JAX package, computing with the float16 arrays as stored,
 keeps float16 values: the token embedding plus the position embedding is a
-float16 sum, and the first layer's norm runs on it in float16
+float16 sum (decode steps and score_hidden), and the first layer's norm runs on it in float16
 (layers.layer_norm). Every other value is float32 there too: a float16 array
 meets a float32 one, or a product accumulates in float32.
 """
@@ -168,11 +169,16 @@ class PrefixedIterDecoder(nn.Module):
         return table[token_ids]
 
     def step_input(self, token_ids: torch.Tensor, pos: int) -> torch.Tensor:
-        """(B,1,E) input of a decode step at sequence position pos: the token
-        embedding plus the position embedding, summed in float16 (and returned
-        as float16) when the parameters hold a float16 checkpoint, as JAX sums
-        the two float16 arrays."""
-        tok, at = self.embed_tokens(token_ids)[:, None, :], self.pos_embedding[pos][None, None, :]
+        """(B,1,E) input of a decode step at sequence position pos (token_ids (B,))."""
+        return self._token_input(token_ids[:, None], pos)
+
+    def _token_input(self, token_ids: torch.Tensor, start: int) -> torch.Tensor:
+        """(A,T,E) input of token_ids (A,T) at sequence positions start..start+T-1:
+        the token embedding plus the position embedding, summed in float16 (and
+        returned as float16) when the parameters hold a float16 checkpoint, as
+        JAX sums the two float16 arrays."""
+        tok = self.embed_tokens(token_ids)
+        at = self.pos_embedding[start:start + token_ids.shape[1]][None]
         if self.float16_params:
             return tok.half() + at.half()
         return tok + at
@@ -339,6 +345,19 @@ class PrefixedIterDecoder(nn.Module):
         """Prefill at base-batch rows, returning prefix-only caches (B,P,H,hd)."""
         pk, pv = self._caches(embed.shape[0], self.cfg.mlp_seq_len)
         return self.prefill(embed, pk, pv)
+
+    def score_hidden(self, token_ids: torch.Tensor, pk_caches, pv_caches) -> torch.Tensor:
+        """Teacher-forced hidden states against a shared prefix (exhaustive scoring).
+
+        token_ids (A,T): target tokens 0..T-1, A = Bb*R rows laid out b*R + r;
+        pk/pv from prefill_split at Bb rows. Returns the (A,T,E) final-norm
+        outputs at sequence positions P..P+T-1, the logits inputs that predict
+        target positions 1..T (position 0 comes from prefill_split's logits)."""
+        P = self.cfg.mlp_seq_len
+        T = token_ids.shape[1]
+        x = self._token_input(token_ids, P)
+        return self.transformer.extend(x, pk_caches, pv_caches,
+                                       self.causality_bias[P:P + T, P:P + T])
 
     def decode_step_lazy(self, token_ids: torch.Tensor, step: int, pk_caches, pv_caches,
                          tk_caches, tv_caches, anc_bias: torch.Tensor):

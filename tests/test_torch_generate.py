@@ -115,9 +115,10 @@ def test_first_true_matches_argmax_over_bools():
 
 
 def test_unported_modes_raise(ft0):
-    """generate_all is not ported; an unknown cache_mode is refused as JAX refuses it."""
+    """generate_all without guide targets or a precompute, and an unknown
+    cache_mode, are refused (the latter as JAX refuses it)."""
     e = torch.from_numpy(ft0["embed"])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="guide_targets"):
         generate.generate_all(ft0["model"], e, topk=2)
     with pytest.raises(ValueError, match="cache_mode"):
         generate.generate_beam(ft0["model"], e, topk=2, cache_mode="gather")

@@ -9,7 +9,8 @@ ops.dropout, data.*, train.*, cli.*, utils.config/metrics; the DFN5B slice's
 ops.attention_bf16, ops.tiled_matmul and the exp.* harnesses, which import
 nothing of the root exp/ either; the flash-attention slice's
 ops.flash_attention, exp.attn_variants and the text.clip_bpe / sentencepiece /
-wordpiece tokenizers) and chip_smoke.
+wordpiece tokenizers; the exhaustive-decode slice's models.precompute_store and
+models.dud) and chip_smoke.
 """
 
 import os
@@ -65,6 +66,8 @@ DFN5B_SLICE_MODULES = ["novic_tpu_torch.ops.attention_bf16", "novic_tpu_torch.op
 FLASH_SLICE_MODULES = ["novic_tpu_torch.ops.flash_attention", "novic_tpu_torch.exp.attn_variants",
                        "novic_tpu_torch.text.clip_bpe", "novic_tpu_torch.text.sentencepiece",
                        "novic_tpu_torch.text.wordpiece"]
+ALL_SLICE_MODULES = ["novic_tpu_torch.models.generate", "novic_tpu_torch.models.precompute_store",
+                     "novic_tpu_torch.models.dud", "novic_tpu_torch.infer"]
 
 
 def test_port_imports_without_jax():
@@ -75,7 +78,7 @@ def test_port_imports_without_jax():
     lines = res.stdout.strip().splitlines()
     assert int(lines[-1]) >= 58
     assert set(TRAINING_MODULES + INT8_AND_TEXT_MODULES + DFN5B_SLICE_MODULES
-               + FLASH_SLICE_MODULES) <= set(lines[-2].split())
+               + FLASH_SLICE_MODULES + ALL_SLICE_MODULES) <= set(lines[-2].split())
 
 
 def test_train_cli_runs_without_jax():

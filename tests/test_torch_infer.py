@@ -156,14 +156,14 @@ def test_gencfg_bad_names_raise(bad):
 
 
 def test_unported_generation_raises(setup):
-    """'all' is not ported (guided: NotImplementedError); the gencfg checks of
-    novic_tpu's GenerationTask hold (unguided 'all', greedy with k > 1 or a vocab
-    prior: ValueError); unported towers raise."""
+    """A guided 'all' gencfg builds its task (its precompute waits for the first
+    batch); the gencfg checks of novic_tpu's GenerationTask hold (unguided 'all',
+    greedy with k > 1 or a vocab prior: ValueError); unported towers raise."""
     model = infer.NOVICModel(FT0, device="cpu", embedder_spec="test:768",
                              gencfg="all_k3_vnone_gp_t1_a0")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        with model:
-            pass
+    with model:
+        assert model.task.gencfg.method == "all" and model.task.precompute is None
+        assert model.task.guide_targets.shape == (42919, 8)
     model = infer.NOVICModel(FT0, device="cpu", embedder_spec="test:768")
     with model:
         for bad in ("all_k3_vnone_gn_t1_a0", "greedy_k2_vnone_gn_t1_a0",
