@@ -125,6 +125,20 @@ Phases, each printing JSON lines; any failure exits nonzero:
      and a profile of one step;
   8. card vs CPU for one training step (64 rows, dropout on, noise off):
      loss, pre-clip grad norm and the updated params;
+  9. reference (released-weight interop): a seeded SigLIP-B/16 state dict in
+     open_clip naming (timm trunk, HF text tower under text.) saved with its
+     open_clip_config.json, whose directory must resolve to SPEC's arch, and
+     converted by `action=convert_embedder load_model=<bin>`; the FT0 decoder
+     in float32 written as a reference .model and as a .npz, both serving
+     the 2 x 64 frames through NOVICModel with the converted weights (the
+     .model taking its spec from cfg_flat): equal labels, logprobs within
+     1e-6, the converted tower card vs CPU on 4 frames; one chunk resumed
+     from a reference .train made of phase 7's checkpoint (params, AdamW
+     moments, loop state) and from that .npz: losses and params within 1e-6,
+     and save_torch_checkpoints' .model served; one AdamP chunk through the
+     CLI, ms per step beside AdamW's, and one AdamP step card vs CPU (the
+     projection choice per parameter, the other params); K1 and K3′
+     launches under launches_by_phase["reference"];
 then the kernels line and, last, {"ok": true, "device": {...}}.
 Exits nonzero without printing a result when CUDA is not available.
 """
@@ -240,6 +254,37 @@ DROPOUT_SITES = 1 + 4 * 6   # input dropout + 4 per layer x 6 layers
 # with the restored AdamW moments an update moves by lr * (1 - beta1) * dg /
 # (sqrt(v) + eps), far below these bounds for a grad error of ~1e-5 relative
 STEP_LOSS_RTOL, STEP_NORM_RTOL, STEP_PARAM_ATOL = 1e-4, 1e-3, 1e-6
+FT0_RECIPE = ["hidden_dim=512", "num_layers=6", "num_heads=8", "mlp_seq_len=4",
+              "feedfwd_scale=1/4", f"batch_size={TRAIN_BATCH}", f"accum_factor={TRAIN_ACCUM}",
+              "input_dropout=0.1", "layer_dropout=0.1", "noise_scheme=GaussElemUniformAngle",
+              "noise_vec_norm=0.5", "noise_angle_min=10", "noise_angle_max=30",
+              "noise_mix_ratio=0.15", "init_lr=1.5e-3", "lr_warmup=4"]
+# Phase 9 (reference): SigLIP-B/16's open_clip_config.json as the hub ships it
+# (timm trunk by name; HF-style text tower), from which lookup derives SPEC's arch
+SIGLIP_OPENCLIP_CONFIG = {
+    "model_cfg": {"embed_dim": 768, "init_logit_bias": -10, "custom_text": True,
+                  "vision_cfg": {"timm_model_name": "vit_base_patch16_siglip_224",
+                                 "timm_model_pretrained": False, "timm_pool": "map",
+                                 "timm_proj": "none", "image_size": 224},
+                  "text_cfg": {"context_length": 64, "vocab_size": 32000,
+                               "hf_tokenizer_name": "timm/ViT-B-16-SigLIP", "width": 768,
+                               "heads": 12, "layers": 12, "no_causal_mask": True,
+                               "proj_bias": True, "pool_type": "last",
+                               "norm_kwargs": {"eps": 1e-6},
+                               "act_kwargs": {"approximate": "tanh"}}},
+    "preprocess_cfg": {"mean": [0.5, 0.5, 0.5], "std": [0.5, 0.5, 0.5],
+                       "interpolation": "bicubic", "resize_mode": "squash", "size": 224}}
+# The .model and float32 .npz checkpoints hold the same float32 values and run
+# the same kernels: equal labels, logprobs within this; the resumed chunks
+# (.train and .npz, the same moments, seeds and batches) within this too
+REFERENCE_ATOL = 1e-6
+# AdamP card vs CPU: a parameter's projection choice may differ only where its
+# cosine lies this close to the threshold (float32 sums in another order).
+# The other params after one step (phase 8's size, phase 7's moments): the
+# first run read 2.4e-7 (H100 80GB HBM3, 700 W), so phase 8's AdamW bar, 1e-6,
+# holds AdamP too
+ADAMP_CHOICE_MARGIN = 1e-5
+ADAMP_PARAM_ATOL = 1e-6
 
 
 def emit(obj: dict) -> None:
@@ -369,7 +414,7 @@ def phase_kernel(attention) -> tuple[dict, dict]:
         if timed:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             run = lambda: attention.fused_attention(q, k, v, bias)  # noqa: E731
-            prof = device_profile(run, match=K1_KERNELS)
+            prof = device_profile(run, match=K1_KERNELS, require=K1_KERNELS[1:])
             bound_ms, bound_by = attention_bound_ms(B, S, H, hd, causal)
             line.update(ms=cuda_ms(run), plain_ms=cuda_ms(
                 lambda: attention.attention_reference(q, k, v, bias)),
@@ -936,7 +981,7 @@ def phase_tiled_matmul(tm) -> tuple[dict, dict]:
             library = lambda: torch._int_mm(x, w)  # noqa: E731
             line["int_mm_w_column_major_ms"] = yardstick_ms(lambda: torch._int_mm(x, w_cm))
             # The transpose's share of the call's device time
-            prof = device_profile(run, match=X3_S8_KERNELS)
+            prof = device_profile(run, match=X3_S8_KERNELS, require=X3_S8_KERNELS)
             split = {k: sum(m[1] for m in prof["matched_kernels"] if k in m[0])
                      for k in X3_S8_KERNELS}
             line.update(device_ms_by_kernel=split,
@@ -1092,24 +1137,33 @@ def cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return (a * b).sum(-1) / np.linalg.norm(a, axis=-1) / np.linalg.norm(b, axis=-1)
 
 
-def device_profile(fn, match: tuple = ("dropout_f32", "dropout_bf16"), host: bool = True) -> dict:
+def device_profile(fn, match: tuple = ("dropout_f32", "dropout_bf16"), host: bool = True,
+                   require: tuple = ()) -> dict:
     """Wall time, device busy time and the largest device ops of one call of fn;
     "matched_kernels" lists the device ops whose name holds one of `match`.
     Without `host`, only device activity is traced (a call of tens of thousands
-    of launches then takes seconds, not minutes, to read back)."""
+    of launches then takes seconds, not minutes, to read back). A window that
+    holds no device event, or no event for a name in `require` (kernels the
+    call is known to launch), is repeated, as in device_ms; after 5 such
+    windows the run fails rather than report a share of nothing."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e6
-    # Device-side events only (kernels, copies): host ops also carry the
-    # device time of what they launched, which would count it twice
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0 and not e.key.startswith("Activity Buffer")]
+    for _ in range(5):
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+        # Device-side events only (kernels, copies): host ops also carry the
+        # device time of what they launched, which would count it twice
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0 and not e.key.startswith("Activity Buffer")]
+        if events and all(any(r in e.key for e in events) for r in require):
+            break
+    else:
+        raise SystemExit(f"device_profile: 5 windows without device events for {require or 'any op'}")
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     return {"wall_ms": wall / 1e3, "device_busy_ms": device_us / 1e3,
@@ -1197,7 +1251,8 @@ def phase_int8_serving(model, frames: list, nouns: list, guided_cfg: str, name: 
     cos_bf16 = cosines(embeds[:BATCH], model.embedder.inference_image(pixels[0]))
     bf16_ms = cuda_ms(lambda: model.embedder.embed_image_tensor(pixels[0]), iters=5, warmup=1)
     int8_ms = cuda_ms(lambda: emb.embed_image_tensor(pixels[0]), iters=5, warmup=1)
-    prof = device_profile(lambda: emb.embed_image_tensor(pixels[0]), match=K2_KERNELS)
+    prof = device_profile(lambda: emb.embed_image_tensor(pixels[0]), match=K2_KERNELS,
+                          require=K2_KERNELS[:1] * bool(k2))
     k2_ms, k2_by_kernel = k2_share(prof, k2)
     line = {"phase": "int8_serving", "device": name, "nvidia_smi": smi, "quant": "int8:pallas",
             "images": len(frames), "tower_forwards": forwards, "int8_matmul_launches": k2,
@@ -1581,7 +1636,8 @@ def phase_dfn5b(nouns: list, name: str, smi: str) -> dict:
         vision_ms = cuda_ms(lambda: emb.embed_image_tensor(pixels[0]), iters=3, warmup=1)
         preprocess_ms = cuda_ms(lambda: transform(frames[:DFN5B_BATCH]), iters=3, warmup=1)
         prof = device_profile(lambda: emb.embed_image_tensor(pixels[0]),
-                              match=K1_KERNELS + K2_KERNELS)
+                              match=K1_KERNELS + K2_KERNELS,
+                              require=K1_KERNELS[1:] * bool(k1) + K2_KERNELS[:1] * bool(k2))
         k1_dev = sum(m[1] for m in prof["matched_kernels"] if any(n in m[0] for n in K1_KERNELS))
         k2_dev, _ = k2_share(prof, k2)
         attention.LAUNCHES = int8_matmul.LAUNCHES = 0
@@ -1881,6 +1937,16 @@ def to_device(batch, device: str):
                  for x in batch)
 
 
+def ft0_train_args(workdir: str, out: str, *extra: str) -> list[str]:
+    """action=train at the FT0 recipe over phase 7's cache, into <workdir>/<out>;
+    `extra` overrides (the later key wins)."""
+    return (["action=train", f"embedding_dataset={workdir}/cache.bin", "embedder=test:768",
+             f"vocab_path={workdir}/vocab.json", "prompt_path=", f"seed={SEED}",
+             f"output_dir={workdir}/{out}", "chunk_scale=0.38", "max_chunks=4",
+             "save_every_max=1000000", "save_top1_min=200", "--device=cuda"]
+            + FT0_RECIPE + list(extra))
+
+
 def phase_train(workdir: str, nouns: list, ft0: dict, name: str, smi: str) -> dict:
     """Phase 7: action=train at the FT0 recipe and width, through the CLI on the card."""
     from novic_tpu_torch.cli.train import main as train_main
@@ -1897,18 +1963,10 @@ def phase_train(workdir: str, nouns: list, ft0: dict, name: str, smi: str) -> di
         json.dump([{"target_noun": n} for n in nouns], f)
     write_train_cache(cache, list(nouns))
     cache_s = time.perf_counter() - t0
-    recipe = ["hidden_dim=512", "num_layers=6", "num_heads=8", "mlp_seq_len=4",
-              "feedfwd_scale=1/4", f"batch_size={TRAIN_BATCH}", f"accum_factor={TRAIN_ACCUM}",
-              "input_dropout=0.1", "layer_dropout=0.1", "noise_scheme=GaussElemUniformAngle",
-              "noise_vec_norm=0.5", "noise_angle_min=10", "noise_angle_max=30",
-              "noise_mix_ratio=0.15", "init_lr=1.5e-3", "lr_warmup=4"]
     asset = {k: ft0["cfg_flat"].get(k) for k in ("hidden_dim", "num_layers", "batch_size",
                                                  "accum_factor", "input_dropout", "noise_scheme",
                                                  "init_lr", "lr_warmup")}
-    args = (["action=train", f"embedding_dataset={cache}", "embedder=test:768",
-             f"vocab_path={vocab}", "prompt_path=", f"seed={SEED}", f"output_dir={workdir}/outputs",
-             "chunk_scale=0.38", "max_chunks=4", "save_every_max=1000000", "save_top1_min=200",
-             "--device=cuda"] + recipe)
+    args = ft0_train_args(workdir, "outputs")
     torch.cuda.reset_peak_memory_stats()
     attention.LAUNCHES = dropout.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -1925,7 +1983,7 @@ def phase_train(workdir: str, nouns: list, ft0: dict, name: str, smi: str) -> di
     losses = [c["chunk_loss"] for c in chunks]
     microbatches = state.step * TRAIN_ACCUM
     line = {"phase": "train", "device": name, "nvidia_smi": smi, "asset_recipe": asset,
-            "recipe": recipe, "rows": TRAIN_ROWS, "chunks": len(chunks), "steps": state.step,
+            "recipe": FT0_RECIPE, "rows": TRAIN_ROWS, "chunks": len(chunks), "steps": state.step,
             "microbatches": microbatches, "chunk_mean_loss": losses,
             "ewa_loss": [c["loss"] for c in chunks], "top1": [c["top1"] for c in chunks],
             "grad_norm_max": [c["grad_norm_max"] for c in chunks],
@@ -2018,6 +2076,370 @@ def phase_train_card_vs_cpu(workdir: str) -> None:
                   "param_abs": STEP_PARAM_ATOL}, "ok": ok})
     if not ok:
         raise SystemExit("card and CPU disagree on the training step")
+
+
+def siglip_openclip_state_dict(arch, seed: int) -> dict:
+    """A SigLIP backbone in open_clip naming, with the keys and shapes
+    convert_openclip_state_dict(sd, "siglip", layers, layers) reads: the timm
+    trunk under visual.trunk (packed qkv, MAP head with packed kv) and the
+    HF-named text tower under text.text_model. Seeded float32 weights: normal
+    with std fan_in**-0.5, biases and embeddings std 0.02, norm scales near 1."""
+    v, t = arch.vision, arch.text
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, std=0.02):
+        return torch.randn(*shape, generator=gen) * std
+
+    def linear(sd, name, out, inp):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = rand(out, inp, std=inp ** -0.5), rand(out)
+
+    def norm(sd, name, width):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = 1.0 + rand(width), rand(width)
+
+    E, M, P, tr = v.width, v.mlp_dim, v.patch_size, "visual.trunk"
+    sd = {f"{tr}.patch_embed.proj.weight": rand(E, 3, P, P, std=(3 * P * P) ** -0.5),
+          f"{tr}.patch_embed.proj.bias": rand(E), f"{tr}.pos_embed": rand(1, v.grid ** 2, E),
+          f"{tr}.attn_pool.latent": rand(1, 1, E)}
+    norm(sd, f"{tr}.norm", E)
+    for name, out, inp in (("q", E, E), ("kv", 2 * E, E), ("proj", E, E), ("mlp.fc1", M, E),
+                           ("mlp.fc2", E, M)):
+        linear(sd, f"{tr}.attn_pool.{name}", out, inp)
+    norm(sd, f"{tr}.attn_pool.norm", E)
+    for i in range(v.layers):
+        b = f"{tr}.blocks.{i}"
+        norm(sd, f"{b}.norm1", E)
+        norm(sd, f"{b}.norm2", E)
+        for name, out, inp in (("attn.qkv", 3 * E, E), ("attn.proj", E, E), ("mlp.fc1", M, E),
+                               ("mlp.fc2", E, M)):
+            linear(sd, f"{b}.{name}", out, inp)
+    T, TM, tm = t.width, t.mlp_dim, "text.text_model"
+    sd[f"{tm}.embeddings.token_embedding.weight"] = rand(t.vocab_size, T)
+    sd[f"{tm}.embeddings.position_embedding.weight"] = rand(t.context_length, T)
+    norm(sd, f"{tm}.final_layer_norm", T)
+    linear(sd, f"{tm}.head", t.embed_dim, T)
+    for i in range(t.layers):
+        b = f"{tm}.encoder.layers.{i}"
+        norm(sd, f"{b}.layer_norm1", T)
+        norm(sd, f"{b}.layer_norm2", T)
+        for name, out, inp in (("self_attn.q_proj", T, T), ("self_attn.k_proj", T, T),
+                               ("self_attn.v_proj", T, T), ("self_attn.out_proj", T, T),
+                               ("mlp.fc1", TM, T), ("mlp.fc2", T, TM)):
+            linear(sd, f"{b}.{name}", out, inp)
+    return sd
+
+
+def adamp_choices(opt, params: dict, grads: dict) -> dict:
+    """Per parameter of ndim > 1: (the view AdamP projects in, channel / layer /
+    none, and the distance of each view's cosine from its threshold), from the
+    pre-step params and the gradients the step used, on their own device."""
+    from novic_tpu_torch.train.optim import AdamP
+
+    g0 = opt.param_groups[0]
+    out = {}
+    for n, p in params.items():
+        if p.dim() < 2:
+            continue
+        choice, margins = "none", []
+        for view, rows in (("channel", p.shape[0]), ("layer", 1)):
+            cos, _ = AdamP.view_cosine(p, grads[n], rows, float(np.float32(g0["eps"])))
+            thr = AdamP.threshold(g0["delta"], p.numel() // rows)
+            margins.append(abs(float(cos) - thr))
+            if choice == "none" and float(cos) < thr:
+                choice = view
+        out[n] = (choice, min(margins))
+    return out
+
+
+def phase_reference(workdir: str, ck: dict, nouns: list, frames: list, name: str,
+                    smi: str) -> dict:
+    """Phase 9: released-weight interop at full width. A seeded SigLIP-B/16 in
+    open_clip naming converted through action=convert_embedder; the FT0
+    decoder (float32) served from a reference .model and from a .npz; training
+    resumed from a reference .train and from phase 7's .npz; AdamP trained,
+    timed and held card vs CPU."""
+    from novic_tpu_torch.bridge import (adamw_moments, adamw_state_from_leaves,
+                                        decoder_from_numpy)
+    from novic_tpu_torch.cli.train import main as train_main
+    from novic_tpu_torch.data.noise import EmbeddingNoise
+    from novic_tpu_torch.embedders.registry import lookup
+    from novic_tpu_torch.infer import NOVICModel
+    from novic_tpu_torch.ops import attention, dropout
+    from novic_tpu_torch.text.simple import make_test_tokenizer
+    from novic_tpu_torch.train.checkpoint import (load_checkpoint, load_reference_checkpoint,
+                                                  save_checkpoint, save_reference_checkpoint)
+    from novic_tpu_torch.train.optim import AdamP, create_optimizer
+    from novic_tpu_torch.train.step import TrainRng, TrainState, make_train_step
+    from novic_tpu_torch.utils.misc import flatten_dict
+
+    refdir = os.path.join(workdir, "reference")
+    bindir = os.path.join(refdir, "ViT-B-16-SigLIP")
+    os.makedirs(bindir)
+    phase_t0 = time.perf_counter()
+    attention.LAUNCHES = dropout.LAUNCHES = 0
+    line = {"phase": "reference", "device": name, "nvidia_smi": smi}
+
+    # 1. The backbone as an open_clip directory: the .bin and its config
+    arch = lookup(SPEC)
+    t0 = time.perf_counter()
+    sd = siglip_openclip_state_dict(arch, SEED)
+    binpath = os.path.join(bindir, "open_clip_pytorch_model.bin")
+    torch.save(sd, binpath)
+    with open(os.path.join(bindir, "open_clip_config.json"), "w") as f:
+        json.dump(SIGLIP_OPENCLIP_CONFIG, f)
+    line.update(backbone_params=sum(x.numel() for x in sd.values()),
+                backbone_bytes=os.path.getsize(binpath),
+                backbone_make_s=time.perf_counter() - t0)
+    del sd
+    local = f"openclip:{bindir}"
+    if lookup(local) != arch:
+        raise SystemExit(f"{local} resolves to another arch than {SPEC}")
+
+    # 2. Conversion through the CLI
+    weights = os.path.join(refdir, "siglip_b16.npz")
+    t0 = time.perf_counter()
+    train_main(["action=convert_embedder", f"embedder={local}", f"load_model={binpath}",
+                f"embedder_weights={weights}", "--device=cuda"])
+    line["convert_s"] = time.perf_counter() - t0
+
+    # 3. The FT0 decoder in float32, as a reference .model and as a .npz; the
+    # cfg_flat names the backbone it serves with
+    params32 = {k: np.asarray(v, np.float32) for k, v in flatten_dict(ck["params"]).items()}
+    kw = dict(params=params32, model_config=ck["model_config"], target_config=ck["target_config"],
+              target_nouns=ck["target_nouns"], data_config=ck["data_config"],
+              num_invalid_target_nouns=ck["num_invalid_target_nouns"],
+              cfg_flat={**ck["cfg_flat"], "embedder": SPEC})
+    model_path = os.path.join(refdir, "ovod_chunk0001_ft0.model")
+    npz_path = os.path.join(refdir, "ovod_chunk0001_ft0.npz")
+    save_reference_checkpoint(model_path, **kw)
+    save_checkpoint(npz_path, **kw)
+
+    # 4. Both serve the 2 x 64 frames; the .model takes its spec from cfg_flat
+    ekw = {"tokenizer": make_test_tokenizer(nouns), "weights_path": weights}
+    gencfg = "beam_k10_vnone_gn_t1_a0"
+    forwards = math.ceil(len(frames) / BATCH)
+    k1 = {}
+
+    def k1_count(label: str, before: int, calls: int, per_call: int = forwards):
+        k1[label] = attention.LAUNCHES - before
+        if k1[label] != arch.vision.layers * per_call * calls:
+            raise SystemExit(f"{label}: fused_attention launched {k1[label]} times, expected "
+                             f"{arch.vision.layers * per_call * calls} (one a layer a forward)")
+
+    by_model = NOVICModel(model_path, embedder_kwargs=ekw, gencfg=gencfg, batch_size=BATCH,
+                          device="cuda")
+    if by_model.embedder.spec != SPEC:
+        raise SystemExit(f".model served with {by_model.embedder.spec}, not its cfg_flat's {SPEC}")
+    with by_model:
+        before = attention.LAUNCHES
+        out_model = by_model.classify_images(frames)
+        model_ms = wall_ms(lambda: by_model.classify_images(frames), repeats=3)
+        k1_count("serve_model", before, 4)
+        before = attention.LAUNCHES
+        e_gpu = by_model.embed_images(frames[:4])
+        k1_count("embed_4", before, 1, 1)
+    with NOVICModel(npz_path, embedder_spec=SPEC, embedder_kwargs=ekw, gencfg=gencfg,
+                    batch_size=BATCH, device="cuda") as by_npz:
+        before = attention.LAUNCHES
+        out_npz = by_npz.classify_images(frames)
+        k1_count("serve_npz", before, 1)
+    for out in (out_model, out_npz):
+        check_output(out, len(frames), None)
+    with NOVICModel(npz_path, embedder_spec=SPEC, embedder_kwargs=ekw, gencfg=gencfg,
+                    batch_size=4, device="cpu") as cpu:
+        e_cpu = cpu.embed_images(frames[:4])
+    cos = cosines(e_gpu, e_cpu)
+    lp_diff = float(np.abs(np.asarray(out_model.logprobs) - np.asarray(out_npz.logprobs)).max())
+    line.update(images=len(frames), labels_equal=out_model.preds == out_npz.preds,
+                logprob_max_abs_diff=lp_diff, labels=[r[:3] for r in out_model.preds[:2]],
+                model_images_per_s=len(frames) / (statistics.median(model_ms) / 1e3),
+                model_repeats_ms=model_ms, tower_cosine_card_vs_cpu=cos.tolist())
+    if not line["labels_equal"] or lp_diff > REFERENCE_ATOL:
+        raise SystemExit(f".model and .npz serve apart: labels equal {line['labels_equal']}, "
+                         f"logprobs {lp_diff}")
+    if cos.min() < COSINE_MIN:
+        raise SystemExit(f"converted tower card vs CPU cosine {cos.min()} < {COSINE_MIN}")
+
+    # 5. Resume one chunk from a reference .train (phase 7's last checkpoint: its
+    # params, AdamW moments and loop state) and from that .npz itself
+    base = sorted(glob.glob(os.path.join(workdir, "outputs", "ovod_*", "*.npz")))[-1]
+    bck = load_checkpoint(base)
+    cfg_flat = bck["cfg_flat"]
+    holder = decoder_from_numpy(bck["model_config"], bck["params"])
+    adamw = create_optimizer(holder.named_parameters(), weight_decay=cfg_flat["weight_decay"],
+                             weight_decay_1d=cfg_flat["weight_decay_1d"])
+    base_step = adamw_state_from_leaves(holder, adamw, bck["opt_arrays"])
+    moments = adamw_moments(holder, adamw)
+    loop_state = bck["train_meta"]["loop_state"]
+    train_path = os.path.join(refdir, f"ovod_chunk{loop_state['chunk_id'] - 1:04d}_ref.train")
+    save_reference_checkpoint(train_path, params=bck["params"], model_config=bck["model_config"],
+                              target_config=bck["target_config"], target_nouns=bck["target_nouns"],
+                              num_invalid_target_nouns=bck["num_invalid_target_nouns"],
+                              cfg_flat=cfg_flat, data_config=bck["data_config"],
+                              loop_state=loop_state, opt_moments=moments)
+    if load_reference_checkpoint(train_path)["opt_moments"]["step"] != base_step:
+        raise SystemExit("the .train does not hold phase 7's optimizer step")
+    chunk = loop_state["chunk_id"]
+    resumed = {}
+    for label, src in (("train", train_path), ("npz", base)):
+        drops = dropout.LAUNCHES
+        t0 = time.perf_counter()
+        state, S, _ = train_main(ft0_train_args(
+            workdir, f"resume_{label}", f"load_model={src}", f"max_chunks={chunk}",
+            "save_every_max=1", f"save_torch_checkpoints={str(label == 'train').lower()}"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        saved = sorted(glob.glob(os.path.join(workdir, f"resume_{label}", "ovod_*", "*.npz")))[-1]
+        with open(os.path.join(os.path.dirname(saved), "metrics.jsonl")) as f:
+            metrics = [json.loads(x) for x in f]
+        resumed[label] = dict(step=state.step, chunk=S.chunk_id, seconds=seconds, path=saved,
+                              losses=[(m["chunk_loss"], m["loss"]) for m in metrics],
+                              params=flatten_dict(load_checkpoint(saved)["params"]),
+                              dropout_launches=dropout.LAUNCHES - drops)
+    rt, rn = resumed["train"], resumed["npz"]
+    loss_diff = max(abs(a - b) for x, y in zip(rt["losses"], rn["losses"]) for a, b in zip(x, y))
+    param_diff = max(float(np.abs(rt["params"][n] - rn["params"][n]).max()) for n in rn["params"])
+    steps = rt["step"] - base_step
+    line.update(resume_chunk=chunk, resume_steps=steps, resume_losses=rt["losses"],
+                resume_loss_max_abs_diff=loss_diff, resume_param_max_abs_diff=param_diff,
+                resume_s={k: r["seconds"] for k, r in resumed.items()},
+                resume_dropout_launches=[rt["dropout_launches"], rn["dropout_launches"]])
+    if (rt["step"], rt["chunk"]) != (rn["step"], rn["chunk"]) or rt["chunk"] != chunk + 1 \
+            or steps < 1 or len(rt["losses"]) != 1 or len(rn["losses"]) != 1:
+        raise SystemExit(f"the resumed runs differ in steps or chunks: {rt['step']}/{rt['chunk']} "
+                         f"vs {rn['step']}/{rn['chunk']} (chunk {chunk}, base step {base_step})")
+    if loss_diff > REFERENCE_ATOL or param_diff > REFERENCE_ATOL:
+        raise SystemExit(f"resume from .train vs .npz: losses {loss_diff}, params {param_diff}")
+    if rt["dropout_launches"] != DROPOUT_SITES * 2 * steps * TRAIN_ACCUM:
+        raise SystemExit(f"resumed chunk launched dropout {rt['dropout_launches']} times")
+    # save_torch_checkpoints wrote a .model beside the .npz; step 4's loader serves it
+    torch_ckpt = rt["path"][:-4] + ".model"
+    with NOVICModel(torch_ckpt, embedder_spec=SPEC, embedder_kwargs=ekw, gencfg=gencfg,
+                    batch_size=BATCH, device="cuda") as served:
+        before = attention.LAUNCHES
+        check_output(served.classify_images(frames[:BATCH]), BATCH, None)
+        k1_count("serve_saved_model", before, 1, 1)
+    written = flatten_dict(load_reference_checkpoint(torch_ckpt)["params"])
+    if any(not np.array_equal(written[n], rt["params"][n]) for n in rt["params"]):
+        raise SystemExit("the saved .model holds other params than its .npz")
+
+    # 6. AdamP: one FT0-recipe chunk from phase 7's params through the CLI
+    drops = dropout.LAUNCHES
+    t0 = time.perf_counter()
+    pstate, pS, _ = train_main(ft0_train_args(
+        workdir, "adamp", "optimizer=AdamP", f"load_model={base}", "load_train_state=false",
+        "max_chunks=1", "save_every_max=1"))
+    torch.cuda.synchronize()
+    adamp_s = time.perf_counter() - t0
+    adamp_drops = dropout.LAUNCHES - drops
+    saved = sorted(glob.glob(os.path.join(workdir, "adamp", "ovod_*", "*.npz")))[-1]
+    with open(os.path.join(os.path.dirname(saved), "metrics.jsonl")) as f:
+        adamp_losses = [json.loads(x)["chunk_loss"] for x in f]
+    if not isinstance(pstate.optimizer, AdamP) or not all(map(math.isfinite, adamp_losses)):
+        raise SystemExit(f"AdamP chunk: {type(pstate.optimizer).__name__}, losses {adamp_losses}")
+    if adamp_drops != DROPOUT_SITES * 2 * pstate.step * TRAIN_ACCUM:
+        raise SystemExit(f"AdamP chunk launched dropout {adamp_drops} times")
+    line.update(fused_attention_launches=attention.LAUNCHES, fused_attention_by_step=k1,
+                dropout_launches=dropout.LAUNCHES,
+                adamp_chunk_steps=pstate.step, adamp_chunk_losses=adamp_losses,
+                adamp_chunk_s=adamp_s)
+
+    # ms per step at the recipe's shape, AdamW and AdamP in turns on one batch;
+    # and the optimizer's step alone
+    batch = to_device(step_batch(bck, TRAIN_BATCH * TRAIN_ACCUM, SEED + 2), "cuda")
+    noise = EmbeddingNoise.create("GaussElemUniformAngle", vec_norm=0.5, angle_min=10.0,
+                                  angle_max=30.0, mix_ratio=0.15)
+    runs = {}
+    for opt_name in ("AdamW", "AdamP"):
+        model = decoder_from_numpy(bck["model_config"], bck["params"]).to("cuda")
+        opt = create_optimizer(model.named_parameters(), weight_decay=cfg_flat["weight_decay"],
+                               weight_decay_1d=cfg_flat["weight_decay_1d"], optimizer=opt_name)
+        st = TrainState(model=model, optimizer=opt)
+        runs[opt_name] = (make_train_step(st, noise=noise, gradient_clip=1.0,
+                                          accum_steps=TRAIN_ACCUM), opt)
+    rng_t = TrainRng.create(SEED, "cuda")
+    for step, _ in runs.values():
+        step(batch, 1e-4, rng_t).fetch()  # warm
+    step_ms = {"AdamW": [], "AdamP": []}
+    opt_ms = {"AdamW": [], "AdamP": []}
+    for opt_name in ("AdamW", "AdamP", "AdamP", "AdamW") * 2:
+        step, opt = runs[opt_name]
+        step_ms[opt_name] += wall_ms(lambda: step(batch, 1e-4, rng_t), repeats=1)
+        opt_ms[opt_name] += wall_ms(opt.step, repeats=3)
+    line.update(ms_per_step={k: statistics.median(v) for k, v in step_ms.items()},
+                optimizer_step_ms={k: statistics.median(v) for k, v in opt_ms.items()},
+                step_repeats_ms=step_ms, optimizer_repeats_ms=opt_ms)
+
+    # AdamP card vs CPU for one step at phase 8's size (64 rows, accum 1,
+    # dropout on, noise off), its moments those of phase 7's AdamW state
+    batch = step_batch(bck, 64, SEED + 3)
+    lr = float(cfg_flat["init_lr"])
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        model = decoder_from_numpy(bck["model_config"], bck["params"]).to(dev)
+        opt = create_optimizer(model.named_parameters(), weight_decay=cfg_flat["weight_decay"],
+                               weight_decay_1d=cfg_flat["weight_decay_1d"], optimizer="AdamP")
+        for n, p in model.named_parameters():
+            src = adamw.state[dict(holder.named_parameters())[n]]
+            opt.state[p] = {"mu": src["exp_avg"].to(dev).clone(),
+                            "nu": src["exp_avg_sq"].to(dev).clone()}
+        opt.param_groups[0]["count"] = base_step
+        pre = {n: p.detach().clone() for n, p in model.named_parameters()}
+        step = make_train_step(TrainState(model=model, optimizer=opt), gradient_clip=1.0)
+        m = step(to_device(batch, dev), lr, TrainRng.create(SEED, dev)).fetch()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        sides[dev] = (m, {n: p.detach().cpu() for n, p in model.named_parameters()},
+                      adamp_choices(opt, pre, grads))
+    (mg, pg, cg), (mc, pc, cc) = sides["cuda"], sides["cpu"]
+    flipped = sorted(n for n in cg if cg[n][0] != cc[n][0])
+    unexplained = [n for n in flipped if min(cg[n][1], cc[n][1]) > ADAMP_CHOICE_MARGIN]
+    held = [n for n in pg if n not in flipped]
+    adamp_err = max((pg[n] - pc[n]).abs().max().item() for n in held)
+    loss_g = float(mg["loss_sum"] / mg["loss_basis"])
+    loss_c = float(mc["loss_sum"] / mc["loss_basis"])
+    # Each projection branch on the card: one step of a (8, 64) parameter whose
+    # gradient is orthogonal to its rows (channel), to it as a whole only
+    # (layer), or aligned with it (none)
+    branches = {}
+    for kind in ("channel", "layer", "none"):
+        gen = np.random.default_rng(SEED)
+        p0 = gen.standard_normal((8, 64), dtype=np.float32)
+        g0 = gen.standard_normal((8, 64), dtype=np.float32)
+        if kind == "channel":
+            rows = p0 / np.linalg.norm(p0, axis=1, keepdims=True)
+            g0 = g0 - rows * (rows * g0).sum(axis=1, keepdims=True)
+        elif kind == "layer":
+            flat = p0.ravel() / np.linalg.norm(p0)
+            g0 = g0 - (flat * (flat * g0.ravel()).sum()).reshape(p0.shape)
+        else:
+            g0 = 0.5 * p0 + 0.05 * g0
+        got = {}
+        for dev in ("cuda", "cpu"):
+            w = torch.nn.Parameter(torch.tensor(p0, device=dev))
+            w.grad = torch.tensor(g0.astype(np.float32), device=dev)
+            opt = AdamP([w], lr=1e-2, weight_decay=0.1)
+            choice = adamp_choices(opt, {"w": w.detach().clone()}, {"w": w.grad})["w"][0]
+            opt.step()
+            got[dev] = (choice, w.detach().cpu())
+        branches[kind] = {"choice_cuda": got["cuda"][0], "choice_cpu": got["cpu"][0],
+                          "max_abs_diff": (got["cuda"][1] - got["cpu"][1]).abs().max().item()}
+    line.update(adamp_card_vs_cpu={
+        "rows": 64, "choices": {k: sum(c == k for c, _ in cg.values())
+                                for k in ("channel", "layer", "none")},
+        "choice_differs": len(flipped), "choice_differs_params": flipped,
+        "loss_rel": abs(loss_g - loss_c) / abs(loss_c), "param_max_abs_diff": adamp_err,
+        "param_atol": ADAMP_PARAM_ATOL, "branches": branches})
+    line["seconds"] = time.perf_counter() - phase_t0
+    emit(line)
+    if unexplained:
+        raise SystemExit(f"AdamP's projection differs card vs CPU away from its threshold: "
+                         f"{unexplained}")
+    if adamp_err > ADAMP_PARAM_ATOL or line["adamp_card_vs_cpu"]["loss_rel"] > STEP_LOSS_RTOL:
+        raise SystemExit("card and CPU disagree on the AdamP step")
+    bad = {k: b for k, b in branches.items() if b["choice_cuda"] != k or b["choice_cpu"] != k
+           or b["max_abs_diff"] > ADAMP_PARAM_ATOL}
+    if bad:
+        raise SystemExit(f"AdamP's projection branches disagree card vs CPU: {bad}")
+    return line
 
 
 def main() -> int:
@@ -2199,7 +2621,8 @@ def main() -> int:
         emit({"phase": "profile", "device": name, "batch": BATCH, **prof})
         for mode in ("lazy", "reorder"):
             prof = device_profile(lambda: beam_direct(model.decoder.model, e64, mode),
-                                  match=("beam_reorder_kernel",))
+                                  match=("beam_reorder_kernel",),
+                                  require=("beam_reorder_kernel",) * (mode == "reorder"))
             matched = prof.pop("matched_kernels")
             x5_ms = sum(m[1] for m in matched)
             emit({"phase": "profile_decode", "mode": mode, "device": name, "batch": BATCH, **prof,
@@ -2214,6 +2637,8 @@ def main() -> int:
     try:
         train_line = phase_train(workdir, nouns, ck, name, smi)
         phase_train_card_vs_cpu(workdir)
+        # 9. released-weight interop: conversion, reference checkpoints, AdamP
+        ref_line = phase_reference(workdir, ck, nouns, frames, name, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2225,14 +2650,18 @@ def main() -> int:
         "replaces": "novic_tpu/ops/attention.py:71",
         "launches": launches,
         "launches_by_phase": {"main_path": launches,
-                              "all_decode": all_line["fused_attention_launches"]},
+                              "all_decode": all_line["fused_attention_launches"],
+                              "reference": ref_line["fused_attention_launches"]},
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"]}, {
         "name": "dropout", "route": "cuda",
         "source": "novic_tpu_torch/ops/csrc/dropout.cu",
         "replaces": "novic_tpu/ops/dropout.py:103",
-        "launches": train_line["dropout_launches"], "max_abs_err": k3["max_abs_err"],
+        "launches": train_line["dropout_launches"],
+        "launches_by_phase": {"train": train_line["dropout_launches"],
+                              "reference": ref_line["dropout_launches"]},
+        "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}, {
         "name": "int8_matmul", "route": "cuda", "instance": "wgmma",

@@ -20,7 +20,10 @@ exp_avg, exp_avg_sq) to and from the leaf list of the JAX package's
 
 with the params in flax order (nested dict keys sorted at every level). Both
 packages write and read `opt.*` checkpoint arrays in that order, so a
-checkpoint from either resumes in the other.
+checkpoint from either resumes in the other. AdamP (train/optim.py; per
+parameter mu and nu, one count) maps onto `inject_hyperparams(adamp)`'s
+leaves the same way. A reference torch checkpoint's AdamW moments load by
+parameter name (adamw_state_from_reference).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from novic_tpu_torch.embedders.vit import (
 )
 from novic_tpu_torch.models.config import DecoderModelConfig
 from novic_tpu_torch.models.prefixed_iter import PrefixedIterDecoder
+from novic_tpu_torch.train.optim import AdamP
 from novic_tpu_torch.utils.misc import flatten_dict, unflatten_dict
 
 
@@ -91,11 +95,36 @@ def decoder_to_numpy(module: PrefixedIterDecoder) -> dict:
 
 
 ADAMW_HEAD = 10  # leaves before the moments
+ADAMP_HEAD = 9
 
 
 def flax_order(names) -> list[str]:
     """Dotted param names in the order jax.tree.leaves visits the nested dict."""
     return sorted(names, key=lambda n: tuple(n.split(".")))
+
+
+def _f32(v) -> np.ndarray:
+    return np.asarray(v, dtype=np.float32)
+
+
+def _moment(optimizer, p, key) -> np.ndarray:
+    st = optimizer.state.get(p, {})
+    if key in st:
+        return st[key].detach().cpu().numpy().astype(np.float32)
+    return np.zeros(tuple(p.shape), np.float32)
+
+
+def _tensor(x, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, np.float32), device=device)
+
+
+def _counts(step: int, first: dict) -> tuple[np.ndarray, np.ndarray]:
+    """(inject_hyperparams' count, the inner count). A state grafted from a
+    reference checkpoint starts the first at 0 while the second holds the
+    reference's step, as the JAX package grafts it; `count_offset` keeps that
+    difference through later steps."""
+    inner = np.asarray(step, dtype=np.int32)
+    return np.asarray(step - first.get("count_offset", 0), dtype=np.int32), inner
 
 
 def adamw_state_to_leaves(model: torch.nn.Module, optimizer: torch.optim.Optimizer, *,
@@ -110,40 +139,119 @@ def adamw_state_to_leaves(model: torch.nn.Module, optimizer: torch.optim.Optimiz
     wd = first.get("weight_decay_hparam", first["weight_decay"])
     states = [optimizer.state.get(named[n], {}) for n in order]
     step = int(max((float(st["step"]) for st in states if "step" in st), default=0))
-    f32 = lambda v: np.asarray(v, dtype=np.float32)
-    count = np.asarray(step, dtype=np.int32)
-    head = [count, f32(b1), f32(b2), f32(first["eps"]), f32(0.0), f32(first["lr"]),
-            np.asarray(bool(weight_decay_1d)), f32(wd), count.copy(), count.copy()]
+    outer, inner = _counts(step, first)
+    head = [outer, _f32(b1), _f32(b2), _f32(first["eps"]), _f32(0.0), _f32(first["lr"]),
+            np.asarray(bool(weight_decay_1d)), _f32(wd), outer.copy(), inner]
+    return (head + [_moment(optimizer, named[n], "exp_avg") for n in order]
+            + [_moment(optimizer, named[n], "exp_avg_sq") for n in order])
 
-    def moment(name, key):
-        st = optimizer.state.get(named[name], {})
-        if key in st:
-            return st[key].detach().cpu().numpy().astype(np.float32)
-        return np.zeros(tuple(named[name].shape), np.float32)
 
-    return (head + [moment(n, "exp_avg") for n in order]
-            + [moment(n, "exp_avg_sq") for n in order])
+def _check_moments(name: str, p: torch.Tensor, m, v):
+    if tuple(np.shape(m)) != tuple(p.shape) or tuple(np.shape(v)) != tuple(p.shape):
+        raise ValueError(f"Optimizer moment shape mismatch for {name}: {np.shape(m)} "
+                         f"vs {tuple(p.shape)}")
+
+
+def _set_adamw(model, optimizer, mu: dict, nu: dict, step: int, count_offset: int):
+    for name, p in model.named_parameters():
+        m, v = mu[name], nu[name]
+        _check_moments(name, p, m, v)
+        optimizer.state[p] = {
+            "step": torch.tensor(float(step), dtype=torch.float32),
+            "exp_avg": _tensor(m, p.device),
+            "exp_avg_sq": _tensor(v, p.device),
+        }
+    optimizer.param_groups[0]["count_offset"] = count_offset
 
 
 def adamw_state_from_leaves(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                             leaves: list) -> int:
     """Load an optax leaf list into torch AdamW state; return the step count."""
-    named = dict(model.named_parameters())
-    order = flax_order(named)
+    order = flax_order(dict(model.named_parameters()))
     if len(leaves) != ADAMW_HEAD + 2 * len(order):
         raise ValueError(f"Optimizer state has {len(leaves)} arrays; AdamW over "
                          f"{len(order)} params needs {ADAMW_HEAD + 2 * len(order)}")
     step = int(np.asarray(leaves[ADAMW_HEAD - 1]))
-    mu = leaves[ADAMW_HEAD:ADAMW_HEAD + len(order)]
-    nu = leaves[ADAMW_HEAD + len(order):]
+    mu = dict(zip(order, leaves[ADAMW_HEAD:ADAMW_HEAD + len(order)]))
+    nu = dict(zip(order, leaves[ADAMW_HEAD + len(order):]))
+    _set_adamw(model, optimizer, mu, nu, step, step - int(np.asarray(leaves[0])))
+    optimizer.param_groups[0]["lr"] = float(np.asarray(leaves[5]))
+    return step
+
+
+def adamw_state_from_reference(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                               moments: dict) -> int:
+    """Load a reference checkpoint's AdamW moments ({"step", "mu", "nu"} param
+    trees, train.checkpoint.reference_adamw_moments) into torch AdamW state by
+    parameter name; return the step. adamw_state_to_leaves then gives the leaf
+    list of the JAX package's grafted state (its hyperparameter count at 0)."""
+    mu, nu = flatten_dict(moments["mu"]), flatten_dict(moments["nu"])
+    named = dict(model.named_parameters())
+    if set(mu) != set(named) or set(nu) != set(named):
+        raise ValueError(f"Reference moments name {sorted(set(mu) ^ set(named))[:3]} "
+                         f"unlike the model's parameters")
+    step = int(moments["step"])
+    _set_adamw(model, optimizer, mu, nu, step, step)
+    return step
+
+
+def adamw_moments(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> dict:
+    """Torch AdamW state → {"step", "mu", "nu"} param trees (the form
+    train.checkpoint.save_reference_checkpoint writes into a .train)."""
+    named = dict(model.named_parameters())
+    steps = [float(st["step"]) for st in optimizer.state.values() if "step" in st]
+    return {"step": int(max(steps, default=0)),
+            "mu": unflatten_dict({n: _moment(optimizer, p, "exp_avg") for n, p in named.items()}),
+            "nu": unflatten_dict({n: _moment(optimizer, p, "exp_avg_sq")
+                                  for n, p in named.items()})}
+
+
+def adamp_state_to_leaves(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> list:
+    """train.optim.AdamP state → the leaf list of the JAX package's
+    `optax.inject_hyperparams(adamp)` state: count, b1, b2, delta, eps,
+    learning_rate, wd_ratio, weight_decay, then the inner {count, mu, nu}."""
+    named = dict(model.named_parameters())
+    order = flax_order(named)
+    g = optimizer.param_groups[0]
+    outer, inner = _counts(int(g["count"]), g)
+    head = [outer, _f32(g["betas"][0]), _f32(g["betas"][1]), _f32(g["delta"]), _f32(g["eps"]),
+            _f32(g["lr"]), _f32(g["wd_ratio"]), _f32(g["weight_decay"]), inner]
+    return (head + [_moment(optimizer, named[n], "mu") for n in order]
+            + [_moment(optimizer, named[n], "nu") for n in order])
+
+
+def adamp_state_from_leaves(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                            leaves: list) -> int:
+    """Load the JAX package's AdamP leaf list into train.optim.AdamP; return the count."""
+    named = dict(model.named_parameters())
+    order = flax_order(named)
+    if len(leaves) != ADAMP_HEAD + 2 * len(order):
+        raise ValueError(f"Optimizer state has {len(leaves)} arrays; AdamP over "
+                         f"{len(order)} params needs {ADAMP_HEAD + 2 * len(order)}")
+    count = int(np.asarray(leaves[ADAMP_HEAD - 1]))
+    mu = leaves[ADAMP_HEAD:ADAMP_HEAD + len(order)]
+    nu = leaves[ADAMP_HEAD + len(order):]
     for name, m, v in zip(order, mu, nu):
         p = named[name]
-        if tuple(np.shape(m)) != tuple(p.shape) or tuple(np.shape(v)) != tuple(p.shape):
-            raise ValueError(f"Optimizer moment shape mismatch for {name}: {np.shape(m)} "
-                             f"vs {tuple(p.shape)}")
-        optimizer.state[p] = {
-            "step": torch.tensor(float(step), dtype=torch.float32),
-            "exp_avg": torch.as_tensor(np.asarray(m, np.float32)).to(p.device).clone(),
-            "exp_avg_sq": torch.as_tensor(np.asarray(v, np.float32)).to(p.device).clone(),
-        }
-    return step
+        _check_moments(name, p, m, v)
+        optimizer.state[p] = {"mu": _tensor(m, p.device), "nu": _tensor(v, p.device)}
+    g = optimizer.param_groups[0]
+    g["count"], g["count_offset"] = count, count - int(np.asarray(leaves[0]))
+    g["lr"] = float(np.asarray(leaves[5]))
+    return count
+
+
+def opt_state_to_leaves(model: torch.nn.Module, optimizer: torch.optim.Optimizer, *,
+                        weight_decay_1d: bool) -> list:
+    """The optax leaf list of either optimizer (what a .npz checkpoint stores)."""
+    if isinstance(optimizer, AdamP):
+        return adamp_state_to_leaves(model, optimizer)
+    return adamw_state_to_leaves(model, optimizer, weight_decay_1d=weight_decay_1d)
+
+
+def opt_state_from_leaves(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                          leaves: list) -> int:
+    """Load a .npz checkpoint's optax leaf list into either optimizer; return the step."""
+    if isinstance(optimizer, AdamP):
+        return adamp_state_from_leaves(model, optimizer, leaves)
+    return adamw_state_from_leaves(model, optimizer, leaves)

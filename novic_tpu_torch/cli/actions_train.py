@@ -1,10 +1,12 @@
 """action=train (the counterpart of novic_tpu.cli.actions_train.action_train;
 reference train.py:977-1479): chunk math, mean shift + noise, training on one
-device, EWA metrics, the checkpoint policy and resume from a native .npz
-checkpoint written by either package.
+device, EWA metrics, the checkpoint policy, AdamW or AdamP, and resume from
+a native .npz checkpoint written by either package or from a reference torch
+.model/.train (params, loop state and AdamW moments);
+save_torch_checkpoints=true writes a reference .model beside each .npz.
 
-Not ported yet: reference torch checkpoints (load and save_torch_checkpoints),
-orbax checkpoints, data-parallel training over several cards.
+Not ported: orbax checkpoints (a JAX library), data-parallel training over
+several cards.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import os
 
 import torch
 
-from novic_tpu_torch.bridge import adamw_state_to_leaves, decoder_from_numpy
+from novic_tpu_torch.bridge import decoder_from_numpy, opt_state_to_leaves
 from novic_tpu_torch.cli.common import (
     check_loaded_config,
     find_checkpoints,
@@ -29,7 +31,12 @@ from novic_tpu_torch.data.grad_accum import GradAccum
 from novic_tpu_torch.data.noise import EmbeddingNoise
 from novic_tpu_torch.device import resolve
 from novic_tpu_torch.models.base import count_params, create_decoder, verify_unused
-from novic_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from novic_tpu_torch.train.checkpoint import (
+    load_checkpoint,
+    load_reference_checkpoint,
+    save_checkpoint,
+    save_reference_checkpoint,
+)
 from novic_tpu_torch.train.loop import TrainLoopConfig, TrainLoopState, compute_chunk_batches, train
 from novic_tpu_torch.utils.config import config_to_flat
 from novic_tpu_torch.utils.logger import log
@@ -38,6 +45,12 @@ from novic_tpu_torch.utils.metrics import MetricsLogger
 
 def action_train(cfg, device="cuda"):
     dev = resolve(device)
+    ckpt_fmt = str(cfg.get("checkpoint_format", "npz") or "npz").lower()
+    if ckpt_fmt == "orbax":
+        raise NotImplementedError("checkpoint_format=orbax needs orbax, a JAX library: "
+                                  "not ported (npz)")
+    if ckpt_fmt != "npz":
+        raise ValueError(f"Unsupported checkpoint_format: {ckpt_fmt}")
     embedder = load_embedder(cfg, load_model=False, device=dev)
     dataset = load_embedding_dataset(cfg, embedder, training=True)
     dc = gen_data_config(cfg, dataset)
@@ -61,27 +74,29 @@ def action_train(cfg, device="cuda"):
         log.warning("Data-parallel training is not ported yet => training on one card")
 
     model_cfg = model_config_from_cfg(cfg, embedder)
-    if cfg.optimizer.lower() == "adamp":
-        raise NotImplementedError("optimizer=AdamP is not ported yet (AdamW only)")
 
     # Resume (ref train.py:1057-1101)
     S = TrainLoopState(rng_seed=cfg.seed)
-    opt_arrays = None
+    opt_arrays = opt_moments = None
     lr_params = dict(init_lr=cfg.init_lr, final_lr=cfg.final_lr,
                      lr_scheduler=cfg.lr_scheduler, lr_warmup=cfg.lr_warmup)
     lr_resume_fresh = False
     ckpts = find_checkpoints(cfg)
     if ckpts:
-        if ckpts[-1].endswith((".model", ".train")) or os.path.isdir(ckpts[-1]):
-            raise NotImplementedError("Resuming from reference torch or orbax checkpoints is not "
-                                      "ported yet (.npz only)")
-        ckpt = load_checkpoint(ckpts[-1])
+        if ckpts[-1].endswith((".model", ".train")):
+            # Params, loop counters and the AdamW moments (by name, through the
+            # params' name map); the optimizer restarts where they are absent
+            ckpt = load_reference_checkpoint(ckpts[-1])
+            log.info("Resuming from a REFERENCE torch checkpoint"
+                     + ("" if ckpt["opt_moments"] is not None else ": optimizer state restarts"))
+        else:
+            ckpt = load_checkpoint(ckpts[-1])
         check_loaded_config(ckpt["cfg_flat"], config_to_flat(cfg))
         model = decoder_from_numpy(model_cfg, ckpt["params"]).to(dev)
         verify_unused(model, model_cfg)
         if cfg.load_train_state and ckpt["train_meta"].get("loop_state"):
             S = TrainLoopState.from_dict(ckpt["train_meta"]["loop_state"])
-            opt_arrays = ckpt["opt_arrays"]
+            opt_arrays, opt_moments = ckpt["opt_arrays"], ckpt.get("opt_moments")
             log.info(f"Resumed training state at chunk {S.chunk_id}")
             if cfg.load_lr_state:
                 ck = ckpt["cfg_flat"]
@@ -118,21 +133,22 @@ def action_train(cfg, device="cuda"):
         last_dropout_factor=cfg.last_dropout_factor, lr_resume_fresh=lr_resume_fresh)
 
     def save_fn(chunk_id, state, loop_state):
-        ckpt_fmt = str(cfg.get("checkpoint_format", "npz") or "npz").lower()
-        if ckpt_fmt != "npz":
-            raise NotImplementedError(f"checkpoint_format={ckpt_fmt} is not ported yet (npz only)")
-        if cfg.save_torch_checkpoints:
-            raise NotImplementedError("save_torch_checkpoints is not ported yet")
         verify_unused(state.model, model_cfg)
         path = os.path.join(run_dir, f"ovod_chunk{chunk_id:04d}_{stamp}.npz")
+        params = {k: v.detach().cpu().numpy() for k, v in state.model.state_dict().items()}
         save_checkpoint(
-            path, params={k: v.detach().cpu().numpy() for k, v in state.model.state_dict().items()},
-            cfg_flat=config_to_flat(cfg), model_config=model_cfg,
+            path, params=params, cfg_flat=config_to_flat(cfg), model_config=model_cfg,
             target_config=embedder.target_config, data_config=dc.as_dict(),
             target_nouns=dataset.targets, num_invalid_target_nouns=dataset.num_invalid_targets,
-            opt_state_arrays=adamw_state_to_leaves(state.model, state.optimizer,
-                                                   weight_decay_1d=cfg.weight_decay_1d),
+            opt_state_arrays=opt_state_to_leaves(state.model, state.optimizer,
+                                                 weight_decay_1d=cfg.weight_decay_1d),
             train_meta={"loop_state": loop_state.as_dict(), "chunk_id": chunk_id})
+        if cfg.save_torch_checkpoints:
+            save_reference_checkpoint(
+                path[:-4] + ".model", params=params, model_config=model_cfg,
+                target_config=embedder.target_config, target_nouns=dataset.targets,
+                num_invalid_target_nouns=dataset.num_invalid_targets,
+                cfg_flat=config_to_flat(cfg), data_config=dc.as_dict())
         return path
 
     with dataset.loaded():
@@ -141,7 +157,7 @@ def action_train(cfg, device="cuda"):
             multi_first=dc.multi_first, beta1=cfg.beta1, beta2=cfg.beta2,
             weight_decay=cfg.weight_decay, weight_decay_1d=cfg.weight_decay_1d,
             optimizer=cfg.optimizer, nesterov=cfg.nesterov,
-            opt_state_arrays=opt_arrays, metrics=metrics, save_fn=save_fn,
+            opt_state_arrays=opt_arrays, opt_moments=opt_moments, metrics=metrics, save_fn=save_fn,
             profile_dir=(cfg.get("profile_dir", "") or None))
     metrics.finish()
     log.info(f"Training finished: loss {ewa.loss:.4e}, top1 {ewa.top1:.3%} "

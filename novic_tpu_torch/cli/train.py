@@ -6,8 +6,8 @@ novic_tpu.cli.train).
 All keys default from config/train.yaml (the file the JAX package reads);
 nested keys are dotted; +key=value adds new keys. --config=PATH reads another
 defaults file, and --device=DEVICE picks the device (default cuda, which
-raises where CUDA is missing). Only action=train is ported; the other actions
-of the JAX package raise "not ported yet".
+raises where CUDA is missing). action=train and action=convert_embedder are
+ported; the other actions of the JAX package raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -23,14 +23,14 @@ NOT_PORTED = (
     "convert_noun_dataset", "cache_noun_multiset", "cache_captions", "cache_cls", "cache_images",
     "merge_caches", "fix_checkpoints", "eval", "eval_cls", "eval_cls_decoding", "infer",
     "format_preds", "format_metrics", "format_wandb", "collect_wiki_images", "sample_images",
-    "convert_embedder",
 )
 
 
 def build_action_registry() -> dict:
-    from novic_tpu_torch.cli import actions_train
+    from novic_tpu_torch.cli import actions_misc, actions_train
 
-    return {"train": actions_train.action_train}
+    return {"train": actions_train.action_train,
+            "convert_embedder": actions_misc.action_convert_embedder}
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -64,7 +64,8 @@ def main(argv: Optional[Sequence[str]] = None):
     action = registry.get(cfg.action)
     if action is None:
         if cfg.action in NOT_PORTED:
-            raise NotImplementedError(f"action={cfg.action} is not ported yet (ported: train)")
+            raise NotImplementedError(f"action={cfg.action} is not ported yet (ported: "
+                                      f"{', '.join(sorted(registry))})")
         raise ValueError(f"Unknown action '{cfg.action}'. Available: {', '.join(sorted(registry))}")
     log.info(f"Running action: {cfg.action} on {device}")
     return action(cfg, device=device)

@@ -1,12 +1,19 @@
 """Known CLIP-family tower architectures (the ViT-family entries of
-novic_tpu.embedders.registry, with the same hyperparameters).
+novic_tpu.embedders.registry, with the same hyperparameters), and those of
+local checkpoint directories: 'openclip:<dir>' from its open_clip_config.json,
+'transformers:<dir>' from its HF config.json (with no network, only local
+directories resolve), derived as novic_tpu derives them.
 
-EVA02, ALIGN and CLIPA towers are not ported yet: their specs raise.
+EVA02, ALIGN and CLIPA towers are not ported yet: their specs, and local
+directories of those families, raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import re
 
 from novic_tpu_torch.embedders.preprocess import (
     CLIP_MEAN,
@@ -108,9 +115,194 @@ NOT_PORTED = frozenset({
 })
 
 
+_NOT_PORTED_MSG = "is not ported yet (EVA02/ALIGN/CLIPA towers)"
+
+
 def lookup(spec: str) -> EmbedderArch:
     if spec in NOT_PORTED:
-        raise NotImplementedError(f"Embedder '{spec}' is not ported yet (EVA02/ALIGN/CLIPA towers)")
-    if spec not in REGISTRY:
+        raise NotImplementedError(f"Embedder '{spec}' {_NOT_PORTED_MSG}")
+    if spec in REGISTRY:
+        return REGISTRY[spec]
+    arch = _arch_from_local_hf(spec) or _arch_from_local_openclip(spec)
+    if arch is None:
         raise ValueError(f"Unknown embedder spec '{spec}'. Known: {sorted(REGISTRY)}")
-    return REGISTRY[spec]
+    return arch
+
+
+def _not_ported(spec: str, family: str):
+    raise NotImplementedError(f"Embedder '{spec}' ({family} checkpoint directory) "
+                              f"{_NOT_PORTED_MSG}")
+
+
+# Standard timm trunk geometries that open_clip configs reference by NAME only
+# (the JSON carries just timm_model_name; the geometry lives in timm), keyed by
+# the size word in the name: width, layers, heads, mlp_dim
+_TIMM_SIGLIP_SIZES = {
+    "base": (768, 12, 12, 3072),
+    "large": (1024, 24, 16, 4096),
+    "so400m": (1152, 27, 16, 4304),
+}
+
+
+def _arch_from_local_openclip(spec: str) -> "EmbedderArch | None":
+    """An EmbedderArch from a local open_clip checkpoint directory's
+    open_clip_config.json (the hub layout {"model_cfg", "preprocess_cfg"}, or a
+    bare model config): CLIP from its explicit vision_cfg, SigLIP from
+    timm_model_name through the size table; None if the spec names no such
+    directory. CLIPA and EVA02 directories raise (not ported)."""
+    kind, _, name = spec.partition(":")
+    cfg_path = os.path.join(name, "open_clip_config.json")
+    if kind != "openclip" or not os.path.isfile(cfg_path):
+        return None
+    with open(cfg_path) as f:
+        raw = json.load(f)
+    model = raw.get("model_cfg", raw)
+    pp = raw.get("preprocess_cfg", {})
+    v = model.get("vision_cfg", {})
+    t = model.get("text_cfg", {})
+    embed_dim = model.get("embed_dim", 512)
+
+    # -- text tower + tokenizer ------------------------------------------------
+    hf_tok = (t.get("hf_tokenizer_name") or "").lower()
+    if "bert" in hf_tok:
+        tokenizer = "wordpiece"        # CLIPA: BERT-uncased, strip-SEP
+    elif hf_tok:
+        tokenizer = "sentencepiece"    # SigLIP-style timm tokenizers
+    else:
+        tokenizer = "clip_bpe"
+    act_kwargs = t.get("act_kwargs") or {}
+    if act_kwargs.get("approximate") == "tanh":
+        t_act = "gelu_tanh"
+    elif model.get("quick_gelu", False):
+        t_act = "quick_gelu"  # model-level quick_gelu applies to BOTH towers
+    else:
+        t_act = "gelu"
+    text = TextTowerConfig(
+        context_length=t.get("context_length", 77),
+        vocab_size=t.get("vocab_size", 49408),
+        width=t.get("width", 512), layers=t.get("layers", 12),
+        heads=t.get("heads", max(t.get("width", 512) // 64, 1)),
+        mlp_ratio=t.get("mlp_ratio", 4.0), embed_dim=embed_dim, act=t_act,
+        causal=not t.get("no_causal_mask", False),
+        pool={"last": "last", "argmax": "argmax", "tok": "argmax"}.get(
+            t.get("pool_type", "argmax"), "argmax"),
+        proj_bias=bool(t.get("proj_bias", False)),
+        layer_norm_eps=(t.get("norm_kwargs") or {}).get("eps", 1e-5))
+
+    # -- vision tower ----------------------------------------------------------
+    timm_name = v.get("timm_model_name") or ""
+    family = "clip"
+    if timm_name:
+        m = re.match(r"(vit|eva02)_([a-z0-9]+)_patch(\d+)_(siglip|clip)(_gap)?(?:_(\d+))?",
+                     timm_name)
+        if not m:
+            return None
+        trunk, size_word, patch, kind_word, gap, res = m.groups()
+        if trunk == "eva02":
+            _not_ported(spec, "EVA02")
+        if kind_word != "siglip" or size_word not in _TIMM_SIGLIP_SIZES:
+            return None
+        w, l, h, mlp = _TIMM_SIGLIP_SIZES[size_word]
+        vision = VisionTowerConfig(
+            image_size=int(res) if res else v.get("image_size", 224), patch_size=int(patch),
+            width=w, layers=l, heads=h, mlp_ratio=mlp / w, embed_dim=embed_dim,
+            act="gelu_tanh", use_class_token=False, patch_bias=True, pre_ln=False,
+            pool="avg" if gap else "map", layer_norm_eps=1e-6)
+        family = "siglip"
+    else:
+        width = v.get("width", 768)
+        head_width = v.get("head_width", 64)
+        pool = {"tok": "cls", "avg": "avg"}.get(v.get("pool_type", "tok"), "cls")
+        if pool == "avg" and v.get("final_ln_after_pool", False) and tokenizer == "wordpiece":
+            _not_ported(spec, "CLIPA")
+        vision = VisionTowerConfig(
+            image_size=v.get("image_size", 224), patch_size=v.get("patch_size", 16),
+            width=width, layers=v.get("layers", 12), heads=max(width // head_width, 1),
+            mlp_ratio=v.get("mlp_ratio", 4.0), embed_dim=embed_dim,
+            act="quick_gelu" if model.get("quick_gelu", False) else "gelu",
+            use_class_token=True, patch_bias=False,
+            pre_ln=not v.get("no_ln_pre", False), pool=pool)
+
+    # -- preprocessing ---------------------------------------------------------
+    size = pp.get("size", vision.image_size)
+    if isinstance(size, (list, tuple)):
+        size = int(size[0])
+    siglip = family == "siglip"
+    preprocess = PreprocessConfig(
+        size=int(size), resize_mode=pp.get("resize_mode", "squash" if siglip else "shortest"),
+        mean=tuple(pp.get("mean", SIGLIP_MEAN if siglip else CLIP_MEAN)),
+        std=tuple(pp.get("std", SIGLIP_STD if siglip else CLIP_STD)),
+        interpolation=pp.get("interpolation", "bicubic"))
+    return EmbedderArch(vision=vision, text=text, preprocess=preprocess,
+                        tokenizer=tokenizer, family=family)
+
+
+def _arch_from_local_hf(spec: str) -> "EmbedderArch | None":
+    """An EmbedderArch from a local HF checkpoint directory's config.json
+    (model_type clip or siglip); None if the spec names no such directory. An
+    ALIGN directory raises (not ported)."""
+    kind, _, name = spec.partition(":")
+    cfg_path = os.path.join(name, "config.json")
+    if kind != "transformers" or not os.path.isfile(cfg_path):
+        return None
+    with open(cfg_path) as f:
+        hf = json.load(f)
+    if hf.get("model_type") == "align":
+        _not_ported(spec, "ALIGN")
+    if hf.get("model_type") == "siglip":
+        return _siglip_arch_from_local_hf(hf)
+    if hf.get("model_type") != "clip":
+        return None
+    v, t = hf["vision_config"], hf["text_config"]
+    act = {"quick_gelu": "quick_gelu", "gelu": "gelu",
+           "gelu_new": "gelu_tanh", "gelu_pytorch_tanh": "gelu_tanh"}[
+        v.get("hidden_act", "quick_gelu")]
+    embed_dim = hf.get("projection_dim", 512)
+    return EmbedderArch(
+        vision=VisionTowerConfig(
+            image_size=v.get("image_size", 224), patch_size=v.get("patch_size", 32),
+            width=v.get("hidden_size", 768), layers=v.get("num_hidden_layers", 12),
+            heads=v.get("num_attention_heads", 12),
+            mlp_ratio=v.get("intermediate_size", 3072) / v.get("hidden_size", 768),
+            embed_dim=embed_dim, act=act, use_class_token=True, patch_bias=False,
+            pre_ln=True, pool="cls", layer_norm_eps=v.get("layer_norm_eps", 1e-5)),
+        text=TextTowerConfig(
+            context_length=t.get("max_position_embeddings", 77),
+            vocab_size=t.get("vocab_size", 49408), width=t.get("hidden_size", 512),
+            layers=t.get("num_hidden_layers", 12), heads=t.get("num_attention_heads", 8),
+            mlp_ratio=t.get("intermediate_size", 2048) / t.get("hidden_size", 512),
+            embed_dim=embed_dim, act=act, causal=True, pool="argmax", proj_bias=False,
+            layer_norm_eps=t.get("layer_norm_eps", 1e-5)),
+        preprocess=PreprocessConfig(size=v.get("image_size", 224),
+                                    resize_mode="shortest", mean=CLIP_MEAN, std=CLIP_STD),
+        tokenizer="clip_bpe",
+        family="clip",
+    )
+
+
+def _siglip_arch_from_local_hf(hf: dict) -> EmbedderArch:
+    """SigLIP arch from a local HF config (explicit vision/text configs; HF
+    SiglipModel has no separate projection: embed_dim = hidden_size)."""
+    v, t = hf["vision_config"], hf["text_config"]
+    vw, tw = v.get("hidden_size", 768), t.get("hidden_size", 768)
+    return EmbedderArch(
+        vision=VisionTowerConfig(
+            image_size=v.get("image_size", 224), patch_size=v.get("patch_size", 16),
+            width=vw, layers=v.get("num_hidden_layers", 12),
+            heads=v.get("num_attention_heads", 12),
+            mlp_ratio=v.get("intermediate_size", 3072) / vw,
+            embed_dim=vw, act="gelu_tanh", use_class_token=False, patch_bias=True,
+            pre_ln=False, pool="map", layer_norm_eps=v.get("layer_norm_eps", 1e-6)),
+        text=TextTowerConfig(
+            context_length=t.get("max_position_embeddings", 64),
+            vocab_size=t.get("vocab_size", 32000), width=tw,
+            layers=t.get("num_hidden_layers", 12),
+            heads=t.get("num_attention_heads", 12),
+            mlp_ratio=t.get("intermediate_size", 3072) / tw,
+            embed_dim=tw, act="gelu_tanh", causal=False, pool="last",
+            proj_bias=True, layer_norm_eps=t.get("layer_norm_eps", 1e-6)),
+        preprocess=PreprocessConfig(size=v.get("image_size", 224), resize_mode="squash",
+                                    mean=SIGLIP_MEAN, std=SIGLIP_STD),
+        tokenizer="sentencepiece",
+        family="siglip",
+    )

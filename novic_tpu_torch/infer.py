@@ -435,8 +435,9 @@ def load_guide_targets(target_tokenizer: TargetTokenizer, guide_targets: Sequenc
 def load_decoder_from_checkpoint(checkpoint_path: str, embedder: Embedder,
                                  device: Union[str, torch.device] = "cuda",
                                  model_override: Optional[str] = None) -> Decoder:
-    """Load a native .npz decoder checkpoint onto `device` and configure the
-    embedder's target tokenizer from it; `model_override` names another decoder
+    """Load a decoder checkpoint (native .npz, or a reference torch .model/.train,
+    read as float32) onto `device` and configure the embedder's target
+    tokenizer from it; `model_override` names another decoder
     class for the checkpoint's config (a DudDecoder is built, not loaded)."""
     from novic_tpu_torch.bridge import decoder_from_numpy
     from novic_tpu_torch.train.checkpoint import load_checkpoint, load_reference_checkpoint
@@ -525,17 +526,22 @@ class NOVICModel:
 
     @staticmethod
     def _peek_embedder_spec(checkpoint: str) -> Optional[str]:
-        """Read cfg_flat['embedder'] of a .npz checkpoint without loading tensors."""
+        """Read cfg_flat['embedder'] of a checkpoint: a .npz's metadata without
+        loading arrays, or a torch checkpoint through the restricted unpickler
+        (the path is user-supplied: never unrestricted pickle)."""
         import json
+
+        from novic_tpu_torch.train.checkpoint import read_reference_pickle
 
         if not os.path.isfile(checkpoint):
             raise FileNotFoundError(f"Checkpoint not found: {checkpoint}")
-        if not checkpoint.endswith(".npz"):
-            raise NotImplementedError("Only .npz decoder checkpoints are ported yet")
         try:
-            with np.load(checkpoint, allow_pickle=False) as data:
-                cfg_flat = json.loads(bytes(data["__meta__"]).decode())["cfg_flat"]
-        except (OSError, KeyError, ValueError) as e:
+            if checkpoint.endswith(".npz"):
+                with np.load(checkpoint, allow_pickle=False) as data:
+                    cfg_flat = json.loads(bytes(data["__meta__"]).decode())["cfg_flat"]
+            else:
+                cfg_flat = read_reference_pickle(checkpoint).get("cfg_flat", {})
+        except (OSError, KeyError, ValueError, RuntimeError) as e:
             raise ValueError(f"Checkpoint is unreadable or corrupt: {checkpoint} "
                              f"({type(e).__name__}: {e})") from e
         spec = cfg_flat.get("embedder") or cfg_flat.get("embedder_spec")
@@ -652,7 +658,8 @@ def main(argv: Optional[Sequence[str]] = None):
     import argparse
 
     parser = argparse.ArgumentParser(description="NOVIC inference: open-vocabulary image classification")
-    parser.add_argument("--checkpoint", required=True, help="Decoder checkpoint (.npz)")
+    parser.add_argument("--checkpoint", required=True,
+                        help="Decoder checkpoint: native .npz or reference torch .model/.train")
     parser.add_argument("--image_dir", default=None,
                         help="Directory against which relative --images paths are resolved")
     parser.add_argument("--images", nargs="+", required=True, help="Image paths to classify")

@@ -26,7 +26,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from novic_tpu_torch.bridge import adamw_state_from_leaves
+from novic_tpu_torch.bridge import adamw_state_from_reference, opt_state_from_leaves
 from novic_tpu_torch.data.noise import EmbeddingNoise
 from novic_tpu_torch.train.optim import create_optimizer, lr_schedule_per_chunk
 from novic_tpu_torch.train.step import EwaMetrics, TrainRng, TrainState, make_train_step
@@ -140,6 +140,7 @@ def train(
     optimizer: str = "AdamW",
     nesterov: bool = True,
     opt_state_arrays: Optional[Any] = None,   # resume: optax leaf list
+    opt_moments: Optional[dict] = None,       # resume: a reference checkpoint's AdamW moments
     metrics: Optional[MetricsLogger] = None,
     save_fn=None,                # callable(chunk_id, state, S) -> path, or None
     profile_dir: Optional[str] = None,
@@ -153,7 +154,13 @@ def train(
                            optimizer=optimizer, nesterov=nesterov)
     state = TrainState(model=model, optimizer=opt)
     if opt_state_arrays is not None:
-        state.step = adamw_state_from_leaves(model, opt, list(opt_state_arrays))
+        state.step = opt_state_from_leaves(model, opt, list(opt_state_arrays))
+    elif opt_moments is not None:
+        if isinstance(opt, torch.optim.AdamW):
+            state.step = adamw_state_from_reference(model, opt, opt_moments)
+        else:
+            log.warning(f"The checkpoint holds AdamW moments, not {optimizer}'s => "
+                        f"optimizer restarts")
     model.train()
 
     K = max(C.steps_per_dispatch, 1)
