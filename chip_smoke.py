@@ -139,6 +139,24 @@ Phases, each printing JSON lines; any failure exits nonzero:
      CLI, ms per step beside AdamW's, and one AdamP step card vs CPU (the
      projection choice per parameter, the other params); K1 and K3′
      launches under launches_by_phase["reference"];
+  10. noun_data (training from text): a vocab JSON of the 42,919 FT0 nouns
+     (singular = noun, plural = noun + "s"), ImageNet1KSel's templates and
+     phase 9's SigLIP-B/16 weights, every step through the CLI on the card:
+     cache_noun_dataset over all nouns (557,947 texts; texts/s; 12 K1
+     launches per 256-text forward, 26,544 with the 32-row sanity check; 64
+     rows re-embedded on the CPU); convert_noun_dataset, cache_noun_multiset
+     and cache_captions over the first 4,096 nouns (the converted rows equal
+     the noun cache's); train embedding_dataset=NounDataset at the FT0 recipe,
+     2 chunks of 2 steps, cached and uncached (12 K1 per loader batch), with
+     ms per step, the device idle share of a step with its loader, peak
+     memory, K1 and K3' launches, the first batches cached vs uncached;
+     cache_cls over 1,024 seeded PNGs in 10 classes named by FT0 nouns,
+     cache_images over one class, merge_caches of the class cache and the
+     converted one; whether an image row's embedding depends on its batch's
+     size; one 256-text flush with the tower padded to 256 and to 512 rows
+     (the config's batch_size_embed); test_data_loader over the converted
+     cache; K1 and K3' launches
+     under launches_by_phase["noun_data"];
 then the kernels line and, last, {"ok": true, "device": {...}}.
 Exits nonzero without printing a result when CUDA is not available.
 """
@@ -285,6 +303,26 @@ REFERENCE_ATOL = 1e-6
 # holds AdamP too
 ADAMP_CHOICE_MARGIN = 1e-5
 ADAMP_PARAM_ATOL = 1e-6
+# Phase 10 (noun_data): training from text at SigLIP-B/16 width over the FT0
+# asset's nouns. The vocabulary: singular = the noun, plural = the noun + "s",
+# frequency 1 each, no hypernyms; ImageNet1KSel's 7 singular and 6 plural
+# templates give 557,947 unique texts (USIDs) and 815,461 frequency-weighted
+# samples (FSIDs); the first NOUN_CONVERT nouns 53,248 and 77,824
+NOUN_COLLECTION = "ImageNet1KSel"
+NOUN_USIDS, NOUN_FSIDS = 557_947, 815_461
+NOUN_CONVERT = 4096
+NOUN_CONVERT_USIDS, NOUN_CONVERT_FSIDS = 53_248, 77_824
+NOUN_EMBED_BATCH = 256   # batch_size_embed; the noun cache flushes every 256 texts
+NOUN_SANITY_ROWS = 32    # rows NounDataset.ensure_cache re-embeds one text at a time
+NOUN_CPU_ROWS = 64       # noun-cache rows re-embedded on the CPU (plain path)
+NOUN_CHECK_ROWS = 256    # converted-cache rows held against the noun cache
+NOUN_TRAIN_CHUNKS, NOUN_TRAIN_STEPS = 2, 2   # 2 chunks of 2 optimizer steps (16 loader batches)
+CLS_CLASSES, CLS_IMAGES, CLS_SIZE = 10, 1024, 224
+CLS_IMAGE_BATCH = 256    # batch_size_image (config/train.yaml)
+CAPTION_TEMPLATES = (["a photo of a {singular} on a table", "there is a {singular} in the park",
+                      "an old {singular} next to a wall", "a close-up of a {singular}"],
+                     ["two {plural} in a row", "many {plural} on the ground",
+                      "a pile of {plural}"])
 
 
 def emit(obj: dict) -> None:
@@ -376,20 +414,24 @@ def attention_bound_ms(B, S, H, hd, bias: bool) -> tuple[float, str]:
 K1_KERNELS = ("::to_bf16_kernel(", "::attention_kernel<")
 
 
-def phase_kernel(attention) -> tuple[dict, dict]:
+def phase_kernel(attention) -> tuple[dict, dict, dict]:
     """Phase 3: fused_attention (kernel) against attention_reference (plain) on
     the card, at the towers' shapes (timed, with the pre-pass's share of the
-    device time) and at edge shapes. Returns the lines of the serving shape and
-    the DFN5B shape."""
+    device time) and at edge shapes. Returns the lines of the serving shape,
+    the DFN5B shape and the noun cache's text-tower shape."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    result = dfn5b = None
+    result = dfn5b = text = None
     for B, S, H, hd, causal, timed in [
             (BATCH, 196, 12, 64, False, True), (32, 730, 16, 80, False, True),
             (8, 729, 16, 72, False, True), (8, 77, 8, 64, True, True),
             # the tower's shape in all_decode (a batch of ALL_BATCH frames)
             (ALL_BATCH, 196, 12, 64, False, True),
+            # the noun_data phase's: the SigLIP text tower at the noun cache's
+            # batch and at a training loader batch, the vision tower at cache_cls's
+            (NOUN_EMBED_BATCH, 64, 12, 64, False, True), (TRAIN_BATCH, 64, 12, 64, False, True),
+            (CLS_IMAGE_BATCH, 196, 12, 64, False, True),
             # edges: one key; a ragged tile with the causal bias; hd 8 (one
             # k-step, zero-filled past hd) and 128 (two atoms, three consumers)
             (2, 1, 3, 64, False, False), (2, 65, 3, 64, True, False),
@@ -431,7 +473,9 @@ def phase_kernel(attention) -> tuple[dict, dict]:
             result = line  # the serving shape
         if (B, S, H, hd) == (32, 730, 16, 80):
             dfn5b = line  # the DFN5B-H-378 vision tower's
-    return result, dfn5b
+        if (B, S, H, hd) == (NOUN_EMBED_BATCH, 64, 12, 64):
+            text = line  # the SigLIP text tower's in the noun cache
+    return result, dfn5b, text
 
 
 def dropout_bound_ms(n: int, itemsize: int) -> tuple[float, str]:
@@ -2442,6 +2486,363 @@ def phase_reference(workdir: str, ck: dict, nouns: list, frames: list, name: str
     return line
 
 
+def noun_vocab(nouns) -> list[dict]:
+    """The FT0 nouns as a vocab JSON: singular = the noun, plural = noun + "s"."""
+    return [{"id": i, "target_noun": n, "pretty_noun": n, "singulars": [n], "plurals": [n + "s"],
+             "singulars_freq": [1], "plurals_freq": [1], "hypernyms": []}
+            for i, n in enumerate(nouns)]
+
+
+def write_class_folders(root: str, classes: list, rng) -> list[str]:
+    """CLS_IMAGES seeded 224 px PNGs in an Imagenette layout, one folder per
+    class (named by the noun, spaces as underscores), dealt round-robin; each
+    image is 14x14 seeded colours upscaled 16x, so PNG encoding stays quick."""
+    folders = []
+    for c in classes:
+        folders.append(os.path.join(root, "Imagenette", "imagenette2-320", "val",
+                                    c.replace(" ", "_")))
+        os.makedirs(folders[-1])
+    from PIL import Image
+
+    for i in range(CLS_IMAGES):
+        small = rng.integers(0, 256, size=(14, 14, 3), dtype=np.uint8)
+        img = np.repeat(np.repeat(small, CLS_SIZE // 14, axis=0), CLS_SIZE // 14, axis=1)
+        Image.fromarray(img).save(os.path.join(folders[i % len(classes)], f"{i:04d}.png"))
+    return folders
+
+
+def phase_noun_data(workdir: str, weights: str, nouns: list, name: str, smi: str) -> dict:
+    """Phase 10: the noun dataset, the cache writers and training from text,
+    every step through `novic_tpu_torch.cli.train` on the card, with phase 9's
+    seeded SigLIP-B/16 weights (bf16, 12 layers at 768) and the CLI's tokenizer
+    (no SentencePiece file: the character-level test tokenizer, as in novic_tpu)."""
+    from novic_tpu_torch.bridge import decoder_from_numpy
+    from novic_tpu_torch.cli.common import gen_data_config, load_embedder, load_embedding_dataset
+    from novic_tpu_torch.cli.train import main as train_main
+    from novic_tpu_torch.data import noun_dataset
+    from novic_tpu_torch.data.cache import EmbeddingCache
+    from novic_tpu_torch.data.noise import EmbeddingNoise
+    from novic_tpu_torch.embedders.base import Embedder
+    from novic_tpu_torch.embedders.preprocess import load_images
+    from novic_tpu_torch.ops import attention, dropout
+    from novic_tpu_torch.train.checkpoint import load_checkpoint
+    from novic_tpu_torch.train.loop import _accum_concat, _tensor
+    from novic_tpu_torch.train.optim import create_optimizer
+    from novic_tpu_torch.train.step import TrainRng, TrainState, make_train_step
+    from novic_tpu_torch.utils.config import load_config
+
+    wd = os.path.join(workdir, "noun_data")
+    os.makedirs(wd)
+    phase_t0 = time.perf_counter()
+    vocab_all, vocab_cut = os.path.join(wd, "vocab.json"), os.path.join(wd, "vocab_4096.json")
+    for path, n in ((vocab_all, len(nouns)), (vocab_cut, NOUN_CONVERT)):
+        with open(path, "w") as f:
+            json.dump(noun_vocab(nouns[:n]), f)
+    noun_dir, cache_dir = os.path.join(wd, "noun"), os.path.join(wd, "cache")
+    common = [f"embedder={SPEC}", f"embedder_weights={weights}", "embedder_compute_dtype=bfloat16",
+              f"prompt_collection={NOUN_COLLECTION}", "hypernym_collection=None",
+              f"batch_size_embed={NOUN_EMBED_BATCH}", f"batch_size_image={CLS_IMAGE_BATCH}",
+              f"noun_cache_dir={noun_dir}", f"embedding_cache_dir={cache_dir}",
+              f"output_dir={wd}/out", f"seed={SEED}"]
+    line = {"phase": "noun_data", "device": name, "nvidia_smi": smi, "nouns": len(nouns),
+            "prompt_collection": NOUN_COLLECTION, "batch_size_embed": NOUN_EMBED_BATCH}
+    k1, k3 = {}, {}
+
+    def run(label: str, *args: str):
+        """One CLI action on the card: its seconds; K1 and K3' launches by label."""
+        attention.LAUNCHES = dropout.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_main(list(args) + ["--device=cuda"])
+        torch.cuda.synchronize()
+        k1[label], k3[label] = attention.LAUNCHES, dropout.LAUNCHES
+        return out, time.perf_counter() - t0
+
+    def expect_k1(label: str, forwards: int):
+        if k1[label] != 12 * forwards:
+            raise SystemExit(f"noun_data {label}: fused_attention launched {k1[label]} times, "
+                             f"expected {12 * forwards} (12 per text-tower forward)")
+
+    # 1. cache_noun_dataset over all nouns; generation and the sanity check timed apart
+    spans = {}
+
+    def timed(key, fn):
+        def wrapper(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0, n0 = time.perf_counter(), attention.LAUNCHES
+            out = fn(self, *a, **kw)
+            torch.cuda.synchronize()
+            spans[key] = (time.perf_counter() - t0, attention.LAUNCHES - n0)
+            return out
+        return wrapper
+
+    originals = (noun_dataset.NounDataset._generate_cache,
+                 noun_dataset.NounDataset._sanity_check_cache)
+    noun_dataset.NounDataset._generate_cache = timed("generate", originals[0])
+    noun_dataset.NounDataset._sanity_check_cache = timed("sanity", originals[1])
+    try:
+        _, secs = run("cache_noun_dataset", "action=cache_noun_dataset", f"vocab_path={vocab_all}",
+                      *common)
+    finally:
+        (noun_dataset.NounDataset._generate_cache,
+         noun_dataset.NounDataset._sanity_check_cache) = originals
+    (noun_path,) = glob.glob(os.path.join(noun_dir, "noun_cache_*.bin"))
+    size = os.path.getsize(noun_path)
+    row = size // NOUN_USIDS
+    gen_batches = math.ceil(NOUN_USIDS / NOUN_EMBED_BATCH)
+    line["cache_noun_dataset"] = {
+        "usids": NOUN_USIDS, "bytes": size, "row_bytes": row, "seconds": secs,
+        "generate_s": spans["generate"][0], "sanity_check_s": spans["sanity"][0],
+        "texts_per_s": NOUN_USIDS / spans["generate"][0],
+        "k1_launches": k1["cache_noun_dataset"],
+        "k1_expected": 12 * (gen_batches + NOUN_SANITY_ROWS),
+        "k1_generate_sanity": [spans["generate"][1], spans["sanity"][1]]}
+    emit({"phase": "noun_cache", **line["cache_noun_dataset"]})
+    if size != NOUN_USIDS * row or (row - 768 * 4) % 5:
+        raise SystemExit(f"noun cache of {size} bytes does not hold {NOUN_USIDS} rows")
+    expect_k1("cache_noun_dataset", gen_batches + NOUN_SANITY_ROWS)
+    C = (row - 768 * 4) // 5
+    rows = np.memmap(noun_path, dtype=np.uint8, mode="r").reshape(NOUN_USIDS, row)
+
+    def noun_embeds(usids) -> np.ndarray:
+        return np.ascontiguousarray(rows[np.asarray(usids), :768 * 4]).view(np.float32)
+
+    # ... NOUN_CPU_ROWS of its rows re-embedded on the CPU by the plain path
+    cpu = Embedder.create(SPEC, weights_path=weights, compute_dtype="bfloat16", device="cpu",
+                          inference_batch_size=NOUN_CPU_ROWS, load_model=True)
+    ds = noun_dataset.NounDataset(cpu, vocab_path=vocab_all, prompt_collection=NOUN_COLLECTION,
+                                  prompt_path=os.path.join(REPO, "data", "prompts.json"),
+                                  hypernym_collection="None")
+    if (ds.num_usids, ds.num_fsids) != (NOUN_USIDS, NOUN_FSIDS):
+        raise SystemExit(f"noun dataset counts {ds.num_usids}, {ds.num_fsids}")
+    pick = np.sort(np.random.default_rng(SEED).choice(NOUN_USIDS, NOUN_CPU_ROWS, replace=False))
+    texts = [ds.get_sample_text(usid=int(u))[0] for u in pick]
+    t0 = time.perf_counter()
+    e_cpu = cpu.inference_text(texts)
+    cos = cosines(e_cpu, noun_embeds(pick))
+    line["noun_cache_card_vs_cpu"] = {"rows": NOUN_CPU_ROWS, "cosine_min": float(cos.min()),
+                                      "bar": COSINE_MIN, "cpu_s": time.perf_counter() - t0}
+    del cpu
+    emit({"phase": "noun_cache_card_vs_cpu", **line["noun_cache_card_vs_cpu"]})
+    if cos.min() < COSINE_MIN:
+        raise SystemExit("noun cache: card and CPU disagree")
+
+    # 2. convert_noun_dataset, cache_noun_multiset and cache_captions over the first nouns
+    rng = np.random.default_rng(SEED + 10)
+    captions = [{"target_noun": n,
+                 "singular_captions": list(rng.choice(CAPTION_TEMPLATES[0], 3, replace=False)),
+                 "plural_captions": list(rng.choice(CAPTION_TEMPLATES[1], 2, replace=False))}
+                for n in nouns[:NOUN_CONVERT]]
+    cap_path = os.path.join(wd, "captions.json")
+    with open(cap_path, "w") as f:
+        json.dump(captions, f)
+    cut = [f"vocab_path={vocab_cut}", *common]
+    writers = {}
+    for label, extra, texts_per_forward in (
+            ("convert_noun_dataset", [], [NOUN_CONVERT_USIDS]),
+            ("cache_noun_multiset", ["multi_target_freq=[1,2]"],
+             [NOUN_CONVERT_FSIDS, 2 * NOUN_CONVERT_FSIDS]),
+            ("cache_captions", [f"captions_path={cap_path}", "template_multiplier=2",
+                                "sample_multiplier=2"], None)):
+        _, secs = run(label, f"action={label}", f"save_embedding_cache={label}.bin", *extra, *cut)
+        cache = EmbeddingCache(os.path.join(cache_dir, f"{label}.bin"), strict_embedder=False)
+        n = cache.header.embed_num
+        forwards = sum(math.ceil(t / NOUN_EMBED_BATCH)
+                       for t in (texts_per_forward or [n]))
+        writers[label] = {"rows": n, "targets_per_row": cache.header.embed_targets_dim,
+                          "bytes": cache.meta.total_size, "seconds": secs,
+                          "texts_per_s": sum(texts_per_forward or [n]) / secs,
+                          "k1_launches": k1[label], "k1_expected": 12 * forwards}
+        emit({"phase": "noun_writer", "action": label, **writers[label]})
+        expect_k1(label, forwards)
+    line["writers"] = writers
+    if (writers["convert_noun_dataset"]["rows"], writers["cache_noun_multiset"]["rows"]) != (
+            NOUN_CONVERT_FSIDS, 3 * NOUN_CONVERT_FSIDS):
+        raise SystemExit(f"converted/multiset caches hold {writers}")
+    # The converted cache's rows are the noun cache's rows of the same USIDs: the
+    # writer emits FSIDs in order, row k landing at the seeded permutation's k
+    conv_path = os.path.join(cache_dir, "convert_noun_dataset.bin")
+    perm = np.random.default_rng(SEED).permutation(NOUN_CONVERT_FSIDS)
+    fsids = np.sort(np.random.default_rng(SEED + 1).choice(NOUN_CONVERT_FSIDS, NOUN_CHECK_ROWS,
+                                                           replace=False))
+    with EmbeddingCache(conv_path, strict_embedder=False) as conv:
+        got = np.stack([np.asarray(conv.get_samples(int(perm[f]), int(perm[f]) + 1)[0][0])
+                        for f in fsids])
+    ref = noun_embeds([ds.get_sample_usid(int(f)) for f in fsids])
+    cos = cosines(got, ref)
+    line["converted_vs_noun_cache"] = {"rows": NOUN_CHECK_ROWS, "cosine_min": float(cos.min()),
+                                       "max_abs_diff": float(np.abs(got - ref).max()),
+                                       "bar": COSINE_MIN}
+    emit({"phase": "converted_vs_noun_cache", **line["converted_vs_noun_cache"]})
+    if cos.min() < COSINE_MIN:
+        raise SystemExit("converted cache rows differ from the noun cache's")
+
+    # 3. train embedding_dataset=NounDataset at the FT0 recipe, cached and uncached
+    train_args = [f"vocab_path={vocab_all}", *common, "embedding_dataset=NounDataset",
+                  "chunk_scale=0.38", f"max_chunks={NOUN_TRAIN_CHUNKS}", "save_every_max=1000000",
+                  "save_top1_min=200"] + FT0_RECIPE
+    microbatches = NOUN_TRAIN_CHUNKS * NOUN_TRAIN_STEPS * TRAIN_ACCUM
+    first_batches, trains = {}, {}
+    for noun_cache in ("true", "false"):
+        label = f"train_noun_cache_{noun_cache}"
+        args = train_args + [f"noun_cache={noun_cache}", f"output_dir={wd}/{label}"]
+        torch.cuda.reset_peak_memory_stats()
+        (state, S, ewa), secs = run(label, "action=train", *args)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ckpts = sorted(glob.glob(os.path.join(wd, label, "ovod_*", "*.npz")))
+        with open(os.path.join(os.path.dirname(ckpts[-1]), "metrics.jsonl")) as f:
+            chunks = [json.loads(x) for x in f]
+        # K1: the noun cache's sanity check (cached), 12 per loader batch (uncached)
+        k1_want = 12 * (NOUN_SANITY_ROWS if noun_cache == "true" else microbatches)
+        res = {"seconds": secs, "steps": state.step, "chunks": len(chunks),
+               "chunk_loss": [c["chunk_loss"] for c in chunks],
+               "ewa_loss": [c["loss"] for c in chunks],
+               "ms_per_step_chunk2": chunks[-1]["chunk_time"] / NOUN_TRAIN_STEPS * 1e3,
+               "peak_memory_gb": peak_gb, "k1_launches": k1[label], "k1_expected": k1_want,
+               "dropout_launches": k3[label],
+               "dropout_expected": DROPOUT_SITES * 2 * microbatches}
+
+        # The same dataset and loader in Python: the first batch, then whole steps
+        # (8 loader batches and the accumulated step) timed and profiled
+        cfg = load_config(None, args)
+        emb = load_embedder(cfg, device="cuda")
+        dset = load_embedding_dataset(cfg, emb, training=True)
+        gen_data_config(cfg, dset)
+        loader, _ = dset.create_loader(batch_size=TRAIN_BATCH, training=True, seed=SEED)
+        ck = load_checkpoint(ckpts[-1])
+        model = decoder_from_numpy(ck["model_config"], ck["params"]).to("cuda")
+        opt = create_optimizer(model.named_parameters(), weight_decay=cfg.weight_decay)
+        noise = EmbeddingNoise.create("GaussElemUniformAngle", vec_norm=0.5, angle_min=10.0,
+                                      angle_max=30.0, mix_ratio=0.15)
+        step = make_train_step(TrainState(model=model, optimizer=opt), noise=noise,
+                               gradient_clip=1.0, accum_steps=TRAIN_ACCUM)
+        rng_t = TrainRng.create(SEED, "cuda")
+        with dset.loaded():
+            it = iter(loader)
+            first = next(it)
+            first_batches[noun_cache] = first
+
+            def one_step():
+                batches = [next(it) for _ in range(TRAIN_ACCUM)]
+                bt = tuple(_accum_concat([_tensor(b[j], torch.device("cuda"), dt)
+                                          for b in batches])
+                           for j, dt in enumerate((torch.float32, None, None, torch.float32)))
+                step(bt, 1e-4, rng_t).fetch()
+
+            one_step()  # warm
+            step_ms = wall_ms(one_step, repeats=3)
+            prof = device_profile(one_step, host=False)
+        prof.pop("matched_kernels")
+        del model, opt, step, emb, dset
+        torch.cuda.empty_cache()
+        res.update(ms_per_step_with_loader=statistics.median(step_ms), repeats_ms=step_ms,
+                   step_device_busy_ms=prof["device_busy_ms"],
+                   step_device_idle_share=1.0 - prof["device_busy_ms"] / statistics.median(step_ms),
+                   step_top_device_kernels_ms=prof["top_device_kernels_ms"][:6])
+        trains[label] = res
+        emit({"phase": "noun_train", "noun_cache": noun_cache, "device": name, "nvidia_smi": smi,
+              "recipe": FT0_RECIPE, **res})
+        if state.step != NOUN_TRAIN_CHUNKS * NOUN_TRAIN_STEPS or len(chunks) != NOUN_TRAIN_CHUNKS:
+            raise SystemExit(f"{label}: {state.step} steps over {len(chunks)} chunks")
+        if not all(math.isfinite(v) for c in chunks for v in (c["chunk_loss"], c["loss"])):
+            raise SystemExit(f"{label}: non-finite loss")
+        if k1[label] != k1_want or k3[label] != res["dropout_expected"]:
+            raise SystemExit(f"{label}: K1 {k1[label]} (expected {k1_want}), K3' {k3[label]} "
+                             f"(expected {res['dropout_expected']}) launches")
+    line["train"] = trains
+    (ec, tc, mc, _), (eu, tu, mu, _) = first_batches["true"], first_batches["false"]
+    cos = cosines(np.asarray(ec), np.asarray(eu))
+    w = min(tc.shape[1], tu.shape[1])
+    same_targets = bool(np.array_equal(np.asarray(tc)[:, :w], np.asarray(tu)[:, :w]))
+    line["cached_vs_uncached_first_batch"] = {"rows": int(ec.shape[0]),
+                                              "cosine_min": float(cos.min()),
+                                              "bar": COSINE_MIN, "same_targets": same_targets}
+    emit({"phase": "cached_vs_uncached", **line["cached_vs_uncached_first_batch"]})
+    if cos.min() < COSINE_MIN or not same_targets:
+        raise SystemExit("the uncached loader's first batch differs from the noun cache's rows")
+    del rows
+    os.remove(noun_path)  # 1.8 GB
+
+    # 4. cache_cls over seeded class folders, cache_images over one, merge_caches
+    classes = [nouns[int(i)] for i in np.random.default_rng(SEED + 2).choice(
+        NOUN_CONVERT, CLS_CLASSES, replace=False)]
+    img_root = os.path.join(wd, "images")
+    t0 = time.perf_counter()
+    folders = write_class_folders(img_root, classes, np.random.default_rng(SEED + 3))
+    write_s = time.perf_counter() - t0
+    _, secs = run("cache_cls", "action=cache_cls", "cls_dataset=Imagenette",
+                  f"cls_dataset_root={img_root}", "cls_split=valid", "class_names_variant=",
+                  "save_embedding_cache=cls.bin", *cut)
+    n_first = len(os.listdir(folders[0]))
+    _, secs_img = run("cache_images", "action=cache_images", f"images=[{folders[0]}]",
+                      "save_embedding_cache=images.bin", *cut)
+    _, secs_merge = run("merge_caches", "action=merge_caches",
+                        "embedding_datasets=[cls.bin,convert_noun_dataset.bin]",
+                        "save_embedding_cache=merged.bin", *cut)
+    sizes = {k: EmbeddingCache(os.path.join(cache_dir, f"{k}.bin"),
+                               strict_embedder=False).header.embed_num
+             for k in ("cls", "images", "merged")}
+    line["images"] = {"classes": classes, "images": CLS_IMAGES, "png_write_s": write_s,
+                      "cache_cls_s": secs, "cache_cls_images_per_s": CLS_IMAGES / secs,
+                      "cache_images_s": secs_img, "cache_images_rows": n_first,
+                      "merge_s": secs_merge, "rows": sizes,
+                      "k1_launches": {k: k1[k] for k in ("cache_cls", "cache_images",
+                                                          "merge_caches")}}
+    emit({"phase": "noun_images", **line["images"]})
+    expect_k1("cache_cls", math.ceil(CLS_IMAGES / CLS_IMAGE_BATCH))
+    expect_k1("cache_images", math.ceil(n_first / CLS_IMAGE_BATCH))
+    expect_k1("merge_caches", 0)
+    if sizes != {"cls": CLS_IMAGES, "images": n_first, "merged": CLS_IMAGES + NOUN_CONVERT_FSIDS}:
+        raise SystemExit(f"image caches hold {sizes}")
+
+    # ... and whether a row's card embedding depends on the size of its batch
+    emb = Embedder.create(SPEC, weights_path=weights, compute_dtype="bfloat16", device="cuda",
+                          image_batch_size=CLS_IMAGE_BATCH, load_model=True)
+    paths = sorted(glob.glob(os.path.join(img_root, "Imagenette", "*", "val", "*", "*.png")))
+    pixels = emb.get_image_transform()(load_images(paths[:CLS_IMAGE_BATCH]))
+    full = emb.inference_image(pixels)
+    invariance = {}
+    for b in (n_first, 64, 1):
+        part = emb.inference_image(pixels[:b])
+        invariance[str(b)] = {"max_abs_diff": float(np.abs(part - full[:b]).max()),
+                              "cosine_min": float(cosines(part, full[:b]).min()),
+                              "bit_identical": bool(np.array_equal(part, full[:b]))}
+    texts = [f"a photo of a {n}." for n in nouns[:NOUN_EMBED_BATCH]]
+    t_full, t_one = emb.inference_text(texts), emb.inference_text(texts[:1])
+    line["batch_invariance"] = {"image_vs_batch_of": CLS_IMAGE_BATCH, "image": invariance,
+                                "text_1_vs_256_bit_identical": bool(np.array_equal(t_one,
+                                                                                   t_full[:1]))}
+    emit({"phase": "batch_invariance", **line["batch_invariance"]})
+    # One noun-cache flush (256 texts) with the tower padded to 256 rows (this
+    # run) and to 512 (config/train.yaml's batch_size_embed)
+    flush_ms = {}
+    for rows in (NOUN_EMBED_BATCH, 2 * NOUN_EMBED_BATCH):
+        emb.inference_batch_size = rows
+        emb.inference_text(texts)  # warm
+        flush_ms[rows] = wall_ms(lambda: emb.inference_text(texts), repeats=5)
+    del emb
+    torch.cuda.empty_cache()
+    med = {rows: statistics.median(v) for rows, v in flush_ms.items()}
+    line["padding"] = {"texts": NOUN_EMBED_BATCH, "flush_ms_padded_to": med,
+                       "repeats_ms": flush_ms,
+                       "noun_cache_extra_s_at_512": (med[2 * NOUN_EMBED_BATCH]
+                                                     - med[NOUN_EMBED_BATCH]) * gen_batches / 1e3}
+    emit({"phase": "noun_cache_padding", **line["padding"]})
+
+    # 5. test_data_loader over the converted cache, at the FT0 batch and accumulation
+    _, secs = run("test_data_loader", "action=test_data_loader",
+                  f"embedding_dataset={conv_path}", "test_training=true",
+                  f"batch_size={TRAIN_BATCH}", f"accum_factor={TRAIN_ACCUM}", *cut)
+    line["test_data_loader_s"] = secs
+    line["k1_launches"] = sum(k1.values())
+    line["k1_launches_by_step"] = k1
+    line["dropout_launches"] = sum(k3.values())
+    line["seconds"] = time.perf_counter() - phase_t0
+    emit({"phase": "noun_data_done", "seconds": line["seconds"], "k1_launches": k1,
+          "dropout_launches": k3})
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs a GPU", file=sys.stderr)
@@ -2499,7 +2900,7 @@ def main() -> int:
             raise SystemExit(f"{s.name}: ptxas reports {bad[:3]}")
 
     # 3. kernels vs plain
-    k1, k1_dfn5b = phase_kernel(attention)
+    k1, k1_dfn5b, k1_text = phase_kernel(attention)
     k3 = phase_dropout(dropout)
     k2, x4, k2_mma_sync = phase_int8(int8_matmul)
     x5, x5_many = phase_beam_reorder(beam_reorder)
@@ -2639,6 +3040,9 @@ def main() -> int:
         phase_train_card_vs_cpu(workdir)
         # 9. released-weight interop: conversion, reference checkpoints, AdamP
         ref_line = phase_reference(workdir, ck, nouns, frames, name, smi)
+        # 10. the noun dataset, the cache writers and training from text
+        noun_line = phase_noun_data(workdir, os.path.join(workdir, "reference", "siglip_b16.npz"),
+                                    list(nouns), name, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2651,7 +3055,8 @@ def main() -> int:
         "launches": launches,
         "launches_by_phase": {"main_path": launches,
                               "all_decode": all_line["fused_attention_launches"],
-                              "reference": ref_line["fused_attention_launches"]},
+                              "reference": ref_line["fused_attention_launches"],
+                              "noun_data": noun_line["k1_launches"]},
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"]}, {
@@ -2660,7 +3065,8 @@ def main() -> int:
         "replaces": "novic_tpu/ops/dropout.py:103",
         "launches": train_line["dropout_launches"],
         "launches_by_phase": {"train": train_line["dropout_launches"],
-                              "reference": ref_line["dropout_launches"]},
+                              "reference": ref_line["dropout_launches"],
+                              "noun_data": noun_line["dropout_launches"]},
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}, {
@@ -2703,7 +3109,15 @@ def main() -> int:
         "replaces": "novic_tpu/ops/attention.py:71",
         "launches": dfn5b_line["vision_launches"][0], "max_abs_err": k1_dfn5b["max_abs_err"],
         "ms": k1_dfn5b["ms"], "plain_ms": k1_dfn5b["plain_ms"], "bound_ms": k1_dfn5b["bound_ms"],
-        "bound_by": k1_dfn5b["bound_by"], "library_ms": k1_dfn5b["library_ms"]}] + [{
+        "bound_by": k1_dfn5b["bound_by"], "library_ms": k1_dfn5b["library_ms"]}, {
+        # The SigLIP text tower's shape in the noun cache (noun_data phase)
+        "name": "fused_attention_noun_text", "route": "cuda",
+        "source": "novic_tpu_torch/ops/csrc/attention.cu",
+        "replaces": "novic_tpu/ops/attention.py:71",
+        "launches": noun_line["k1_launches_by_step"]["cache_noun_dataset"],
+        "max_abs_err": k1_text["max_abs_err"], "ms": k1_text["ms"],
+        "plain_ms": k1_text["plain_ms"], "bound_ms": k1_text["bound_ms"],
+        "bound_by": k1_text["bound_by"], "library_ms": k1_text["library_ms"]}] + [{
         "name": f"attention_bf16_{case}", "route": "cuda",
         "source": "novic_tpu_torch/ops/csrc/attention_bf16.cu", "replaces": line["replaces"],
         "launches": harness_launches[case], "max_abs_err": line["max_abs_err"],

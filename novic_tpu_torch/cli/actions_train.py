@@ -4,6 +4,10 @@ device, EWA metrics, the checkpoint policy, AdamW or AdamP, and resume from
 a native .npz checkpoint written by either package or from a reference torch
 .model/.train (params, loop state and AdamW moments);
 save_torch_checkpoints=true writes a reference .model beside each .npz.
+embedding_dataset=NounDataset trains from text: batches come from the noun
+cache (noun_cache=true) or are embedded by the text tower on the card while
+training. action=fix_checkpoints retrofits target_nouns into checkpoints that
+lack them (ref train.py:1487-1643): the .npz files and reference .model/.train.
 
 Not ported: orbax checkpoints (a JAX library), data-parallel training over
 several cards.
@@ -11,6 +15,7 @@ several cards.
 
 from __future__ import annotations
 
+import glob
 import math
 import os
 
@@ -24,8 +29,10 @@ from novic_tpu_torch.cli.common import (
     load_embedder,
     load_embedding_dataset,
     load_mean_shift,
+    load_noun_dataset,
     make_run_dir,
     model_config_from_cfg,
+    resolve_path,
 )
 from novic_tpu_torch.data.grad_accum import GradAccum
 from novic_tpu_torch.data.noise import EmbeddingNoise
@@ -34,6 +41,7 @@ from novic_tpu_torch.models.base import count_params, create_decoder, verify_unu
 from novic_tpu_torch.train.checkpoint import (
     load_checkpoint,
     load_reference_checkpoint,
+    read_reference_pickle,
     save_checkpoint,
     save_reference_checkpoint,
 )
@@ -163,3 +171,74 @@ def action_train(cfg, device="cuda"):
     log.info(f"Training finished: loss {ewa.loss:.4e}, top1 {ewa.top1:.3%} "
              f"(max {ewa.top1_max:.3%}); run dir {run_dir}")
     return state, S, ewa
+
+
+def action_fix_checkpoints(cfg, device="cuda"):
+    """Retrofit target_nouns into checkpoints missing them: the native .npz
+    files and the reference's .train/.model pickles (read audited, written
+    back with torch.save). Supports dry_run. The nouns come from the noun
+    dataset's vocabulary; no tower runs."""
+    dev = resolve(device)
+    output_dir = resolve_path(cfg, cfg.output_dir)
+    dry = bool(cfg.get("dry_run"))
+    fixed = scanned = 0
+    target_nouns = None  # computed lazily, once
+
+    def get_target_nouns():
+        nonlocal target_nouns
+        if target_nouns is None:
+            embedder = load_embedder(cfg, load_model=False, device=dev)
+            dataset = load_noun_dataset(cfg, embedder, use_cache=False)
+            # Checkpoint convention: row 0 is the invalid "" noun
+            # (ref train.py:1546-1549 target_nouns_bin)
+            target_nouns = (("",) + tuple(dataset.targets), 1)
+        return target_nouns
+
+    for path in sorted(glob.glob(os.path.join(output_dir, "ovod_*", "*.npz"))):
+        scanned += 1
+        try:
+            ckpt = load_checkpoint(path)
+        except Exception as e:
+            log.warning(f"Skipping unreadable checkpoint {path}: {e}")
+            continue
+        if ckpt["target_nouns"]:
+            continue
+        nouns, num_invalid = get_target_nouns()
+        if dry:
+            log.info(f"[dry run] would fix {path} (+{len(nouns)} target nouns)")
+            fixed += 1
+            continue
+        save_checkpoint(path, params=ckpt["params"], cfg_flat=ckpt["cfg_flat"],
+                        model_config=ckpt["model_config"], target_config=ckpt["target_config"],
+                        data_config=ckpt["data_config"], target_nouns=nouns,
+                        num_invalid_target_nouns=num_invalid,
+                        opt_state_arrays=ckpt["opt_arrays"], train_meta=ckpt["train_meta"])
+        fixed += 1
+        log.info(f"Fixed checkpoint: {path}")
+
+    for pattern in ("*.train", "*.model"):
+        for path in sorted(glob.glob(os.path.join(output_dir, "ovod_*", pattern))):
+            scanned += 1
+            try:
+                ckpt = read_reference_pickle(path)
+            except Exception as e:
+                log.warning(f"Skipping unreadable torch checkpoint {path}: {e}")
+                continue
+            if "cfg_flat" not in ckpt:
+                log.warning(f"Skipping {path}: not a reference checkpoint dict")
+                continue
+            if ckpt.get("target_nouns"):
+                continue
+            nouns, num_invalid = get_target_nouns()
+            if dry:
+                log.info(f"[dry run] would fix {path} (+{len(nouns)} target nouns)")
+                fixed += 1
+                continue
+            ckpt["target_nouns"] = nouns
+            ckpt["num_invalid_target_nouns"] = num_invalid
+            torch.save(ckpt, path)
+            fixed += 1
+            log.info(f"Fixed torch checkpoint: {path}")
+    log.info(f"fix_checkpoints: scanned {scanned}, fixed {fixed}"
+             f"{' (dry run)' if dry else ''}")
+    return fixed

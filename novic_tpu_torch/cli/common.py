@@ -1,9 +1,8 @@
 """Shared CLI plumbing for training (the train parts of novic_tpu.cli.common):
 config paths, embedder and dataset loading, target/data-config negotiation,
 checkpoint discovery and config diffs (reference train.py:3583-3957).
-
-Only the embedding-cache dataset is ported: embedding_dataset=NounDataset
-needs the text tower and raises.
+embedding_dataset is a cache path or NounDataset (texts embedded by the
+embedder's text tower, or read from its noun cache).
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ from typing import Any, Optional
 import numpy as np
 
 from novic_tpu_torch.data.cache import CacheExpectation, EmbeddingCache
+from novic_tpu_torch.data.noun_dataset import NounDataset
 from novic_tpu_torch.embedders.base import Embedder
 from novic_tpu_torch.models.base import decoder_class
 from novic_tpu_torch.models.config import DecoderModelConfig
@@ -112,13 +112,46 @@ def resolve_cache_path(cfg, path: str) -> str:
     return path
 
 
+def save_cache_path(cfg) -> str:
+    path = cfg.save_embedding_cache
+    if not path:
+        raise ValueError("save_embedding_cache must be specified for cache actions")
+    path = resolve_path(cfg, path)
+    if os.path.basename(path) == path:
+        cache_dir = resolve_path(cfg, cfg.embedding_cache_dir)
+        os.makedirs(cache_dir, exist_ok=True)
+        path = os.path.join(cache_dir, path)
+    return path
+
+
+def load_noun_dataset(cfg, embedder: Embedder, use_cache: Optional[bool] = None,
+                      vocab_json=None, prompt_json=None) -> NounDataset:
+    use_cache = cfg.noun_cache if use_cache is None else use_cache
+    return NounDataset(
+        embedder,
+        vocab_path=resolve_path(cfg, cfg.vocab_path) if vocab_json is None else None,
+        vocab_json=vocab_json,
+        prompt_path=(resolve_path(cfg, cfg.prompt_path)
+                     if prompt_json is None and cfg.prompt_path else None),
+        prompt_json=prompt_json,
+        prompt_collection=cfg.prompt_collection,
+        hypernym_collection=cfg.hypernym_collection,
+        vocab_thres=cfg.vocab_thres,
+        cache_dir=resolve_path(cfg, cfg.noun_cache_dir) if use_cache else None,
+        force_recache=cfg.noun_recache,
+        check_consistent=cfg.check_consistent,
+    )
+
+
 def load_embedding_dataset(cfg, embedder: Embedder, spec: Optional[str] = None,
                            training: bool = True):
-    """A cache path → configured CacheDataset (ref train.py:3631-3711)."""
+    """'NounDataset' or a cache path → configured dataset (ref train.py:3631-3711)."""
     spec = spec or cfg.embedding_dataset
     if spec == "NounDataset":
-        raise NotImplementedError("embedding_dataset=NounDataset is not ported yet (it needs "
-                                  "the text tower); pass an embedding cache path")
+        dataset = load_noun_dataset(cfg, embedder)
+        gen_target_config(cfg, embedder, dataset.targets)
+        dataset.configure_target()
+        return dataset
     cache_path = resolve_cache_path(cfg, spec)
     cache = EmbeddingCache(cache_path, strict_embedder=False)
     # Validate strictly once the target config is known

@@ -6,8 +6,11 @@ novic_tpu.cli.train).
 All keys default from config/train.yaml (the file the JAX package reads);
 nested keys are dotted; +key=value adds new keys. --config=PATH reads another
 defaults file, and --device=DEVICE picks the device (default cuda, which
-raises where CUDA is missing). action=train and action=convert_embedder are
-ported; the other actions of the JAX package raise "not ported yet".
+raises where CUDA is missing). action=train, convert_embedder, fix_checkpoints,
+the seven cache actions (cache_noun_dataset, convert_noun_dataset,
+cache_noun_multiset, cache_captions, cache_cls, cache_images, merge_caches)
+and test_data_loader / test_embed_cache are ported; the other actions of the
+JAX package raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -19,18 +22,26 @@ from novic_tpu_torch.utils.config import default_config_path, load_config
 from novic_tpu_torch.utils.logger import log
 
 NOT_PORTED = (
-    "test_data_loader", "test_embed_cache", "embedder_zero_shot", "cache_noun_dataset",
-    "convert_noun_dataset", "cache_noun_multiset", "cache_captions", "cache_cls", "cache_images",
-    "merge_caches", "fix_checkpoints", "eval", "eval_cls", "eval_cls_decoding", "infer",
-    "format_preds", "format_metrics", "format_wandb", "collect_wiki_images", "sample_images",
+    "embedder_zero_shot", "eval", "eval_cls", "eval_cls_decoding", "infer", "format_preds",
+    "format_metrics", "format_wandb", "collect_wiki_images", "sample_images",
 )
 
 
 def build_action_registry() -> dict:
-    from novic_tpu_torch.cli import actions_misc, actions_train
+    from novic_tpu_torch.cli import actions_cache, actions_misc, actions_train
 
     return {"train": actions_train.action_train,
-            "convert_embedder": actions_misc.action_convert_embedder}
+            "fix_checkpoints": actions_train.action_fix_checkpoints,
+            "convert_embedder": actions_misc.action_convert_embedder,
+            "cache_noun_dataset": actions_cache.action_cache_noun_dataset,
+            "convert_noun_dataset": actions_cache.action_convert_noun_dataset,
+            "cache_noun_multiset": actions_cache.action_cache_noun_multiset,
+            "cache_captions": actions_cache.action_cache_captions,
+            "cache_cls": actions_cache.action_cache_cls,
+            "cache_images": actions_cache.action_cache_images,
+            "merge_caches": actions_cache.action_merge_caches,
+            "test_data_loader": actions_cache.action_test_data_loader,
+            "test_embed_cache": actions_cache.action_test_embed_cache}
 
 
 def main(argv: Optional[Sequence[str]] = None):

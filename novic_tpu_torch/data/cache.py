@@ -34,7 +34,7 @@ import mmap as mmap_mod
 import os
 import random
 import struct
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 
@@ -254,6 +254,22 @@ class EmbeddingCacheWriter:
         self.cache_fd: Optional[int] = None
         self._map: Optional[mmap_mod.mmap] = None
         self.default_weights_matrix: Optional[np.ndarray] = None
+
+    def tensorize_embed_targets(self, embed_targets_str: Sequence[Union[str, Sequence[str]]]
+                                ) -> np.ndarray:
+        """Target noun strings → zero-padded BxM noun-ID array
+        (ref embedding_cache.py:248-264)."""
+        if not self.use_targets:
+            raise ValueError("Tensorizing target noun IDs requires use_targets=True")
+        out = np.zeros((len(embed_targets_str), self.header.embed_targets_dim),
+                       dtype=self.embed_targets_dtype)
+        for i, targets in enumerate(embed_targets_str):
+            if isinstance(targets, str):
+                out[i, 0] = self.target_noun_map[targets]
+            else:
+                for j, target in enumerate(targets):
+                    out[i, j] = self.target_noun_map[target]
+        return out
 
     def __enter__(self) -> "EmbeddingCacheWriter":
         log.info(f"Writing embedding cache {self.cache_path} ({self.meta.total_size / (1 << 30):.3f}GiB)")

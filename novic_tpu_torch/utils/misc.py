@@ -1,8 +1,14 @@
-"""Dict flatten/unflatten, AttrDict and float formatting (host-only helpers)."""
+"""Dict flatten/unflatten, AttrDict, float formatting, canonical noun forms
+and a/an indefinite articles (host-only helpers; the port's copies of
+novic_tpu.utils.misc's)."""
 
 from __future__ import annotations
 
+import re
+import unicodedata
 from typing import Any
+
+from novic_tpu_torch.utils.logger import log
 
 
 def flatten_dict(D: dict, parent_key: str | None = None) -> dict:
@@ -64,3 +70,42 @@ class AttrDict(dict):
 def format_semifix(value: float, precision: int) -> str:
     """Fixed-precision float format without trailing zeros."""
     return f"{value:.{precision}f}".rstrip("0").rstrip(".")
+
+
+ALLOWED_CHARS_CANON = frozenset("abcdefghijklmnopqrstuvwxyz0123456789 ")
+
+
+def sanitize_ascii(text: str) -> str:
+    """Best-effort unicode->ascii transliteration (stand-in for unidecode)."""
+    normalized = unicodedata.normalize("NFKD", text)
+    return normalized.encode("ascii", "ignore").decode("ascii")
+
+
+def get_canon(noun: str, sanitize: bool) -> str:
+    """Canonical form of a noun for class-name alignment (ref utils.py:323-331)."""
+    if sanitize:
+        noun = sanitize_ascii(" ".join(noun.split()))
+    canon = noun.lower()
+    canon = canon.replace("'", "").replace(".", "")
+    canon = " ".join(part for part in re.split(r"[\s/-]+", canon) if part)
+    if set(canon) - ALLOWED_CHARS_CANON:
+        log.warning(f"Canonicalization produced bad chars: {canon}")
+    return canon
+
+
+INDEFINITE_REGEXES = (
+    (re.compile(r"^[AEFHILMNORSX][B-Z][A-Z]?\b"), "an "),
+    (re.compile(r"^([aefhilmnorsx][.-]|hour)", re.IGNORECASE), "an "),
+    (re.compile(r"^([a-z][.-]|e[uw]|onc?e\b|uni|u[bcfghjkqrst][aeiou])", re.IGNORECASE), "a "),
+    (re.compile(r"^[aeiou]", re.IGNORECASE), "an "),
+)
+
+
+def make_indefinite(noun: str, suffix: str | None = None) -> str:
+    """Prefix a noun with a/an (ref noun_dataset.py:952-968)."""
+    for regexen, article in INDEFINITE_REGEXES:
+        if regexen.match(noun):
+            break
+    else:
+        article = "a "
+    return f"{article}{noun}{suffix}" if suffix is not None else article + noun

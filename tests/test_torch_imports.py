@@ -11,7 +11,9 @@ nothing of the root exp/ either; the flash-attention slice's
 ops.flash_attention, exp.attn_variants and the text.clip_bpe / sentencepiece /
 wordpiece tokenizers; the exhaustive-decode slice's models.precompute_store and
 models.dud; the released-weight slice's embedders.convert/registry,
-cli.actions_misc and train.checkpoint/optim) and chip_smoke.
+cli.actions_misc and train.checkpoint/optim; the noun-data slice's
+data.noun_dataset, data.cache_writers, data.classification, cli.actions_cache
+and cli.actions_eval) and chip_smoke.
 """
 
 import os
@@ -73,6 +75,10 @@ REFERENCE_SLICE_MODULES = ["novic_tpu_torch.embedders.convert",
                            "novic_tpu_torch.embedders.registry",
                            "novic_tpu_torch.cli.actions_misc",
                            "novic_tpu_torch.train.checkpoint", "novic_tpu_torch.train.optim"]
+NOUN_DATA_SLICE_MODULES = ["novic_tpu_torch.data.noun_dataset",
+                           "novic_tpu_torch.data.cache_writers",
+                           "novic_tpu_torch.data.classification",
+                           "novic_tpu_torch.cli.actions_cache", "novic_tpu_torch.cli.actions_eval"]
 
 
 def test_port_imports_without_jax():
@@ -81,10 +87,10 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     lines = res.stdout.strip().splitlines()
-    assert int(lines[-1]) >= 59
+    assert int(lines[-1]) >= 64
     assert set(TRAINING_MODULES + INT8_AND_TEXT_MODULES + DFN5B_SLICE_MODULES
-               + FLASH_SLICE_MODULES + ALL_SLICE_MODULES
-               + REFERENCE_SLICE_MODULES) <= set(lines[-2].split())
+               + FLASH_SLICE_MODULES + ALL_SLICE_MODULES + REFERENCE_SLICE_MODULES
+               + NOUN_DATA_SLICE_MODULES) <= set(lines[-2].split())
 
 
 def test_train_cli_runs_without_jax():

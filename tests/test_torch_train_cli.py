@@ -244,14 +244,13 @@ def test_jax_checkpoint_resumes_in_the_port(workdir):
 def test_not_ported_surfaces_raise(workdir):
     with pytest.raises(NotImplementedError, match="not ported"):
         main(["action=eval", "--device=cpu"] + _args(workdir, "x"))
-    with pytest.raises(NotImplementedError, match="NounDataset"):
-        main(["action=train", "embedding_dataset=NounDataset", "--device=cpu"]
-             + [a for a in _args(workdir, "x") if not a.startswith("embedding_dataset")])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        main(["action=eval_cls", "--device=cpu"] + _args(workdir, "x"))
     # AdamP is ported (tests/test_torch_adamp.py); what still raises:
     with pytest.raises(NotImplementedError, match="orbax"):
         main(["action=train", "checkpoint_format=orbax", "--device=cpu"] + _args(workdir, "x"))
     with pytest.raises(NotImplementedError, match="not ported"):
-        main(["action=fix_checkpoints", "--device=cpu"] + _args(workdir, "x"))
+        main(["action=infer", "--device=cpu"] + _args(workdir, "x"))
     with pytest.raises(NotImplementedError, match="CLIPA"):
         main(["action=convert_embedder", "embedder=openclip:rwightman/ViT-L-14-CLIPA-datacomp1B",
               f"embedder_weights={workdir}/clipa.npz", "--device=cpu"])
