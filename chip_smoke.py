@@ -157,6 +157,24 @@ Phases, each printing JSON lines; any failure exits nonzero:
      (the config's batch_size_embed); test_data_loader over the converted
      cache; K1 and K3' launches
      under launches_by_phase["noun_data"];
+  11. eval (the evaluation, inference and results actions), every step through
+     the CLI on the card over phase 10's workdir, phase 9's SigLIP-B/16 and
+     its FT0 .model: embedder_zero_shot measure_gap=true over the 1,024 PNGs
+     (top-1, angles, images/s), the gap JSON read back by load_mean_shift (768
+     finite values) and feeding a 2-step mean_shift=true training chunk; eval
+     over the multiset cache with phase 10's checkpoint (guided, 4 x 128
+     rows) on the card, on the CPU (loss within EVAL_LOSS_RTOL, flipped token
+     argmaxes of the first batch within EVAL_FLIP_SHARE) and with
+     eval_train=true (25 K3' launches a batch); eval_cls over the PNGs and
+     eval_cls_decoding over 64 of them (greedy unguided and guided, guided
+     beam k=10, 'all' over the 42,919 FT0 nouns), each gencfg's decode
+     seconds beside estimate_generation_cost's and the constants they give,
+     then a max_gencfg_cost between the beam and 'all' estimates that must
+     skip 'all'; infer over one class folder and 3 texts with
+     infer_ann_json_update; format_preds in its four modes, format_metrics
+     and format_wandb over the run dirs; sample_images twice with the same
+     seed (the same files); K1 held to 12 per tower forward in every step,
+     under launches_by_phase["eval"] with K3';
 then the kernels line and, last, {"ok": true, "device": {...}}.
 Exits nonzero without printing a result when CUDA is not available.
 """
@@ -323,6 +341,26 @@ CAPTION_TEMPLATES = (["a photo of a {singular} on a table", "there is a {singula
                       "an old {singular} next to a wall", "a close-up of a {singular}"],
                      ["two {plural} in a row", "many {plural} on the ground",
                       "a pile of {plural}"])
+# Phase 11 (eval): the evaluation, inference and results actions over phase 10's
+# workdir and phase 9's FT0 .model. eval reads EVAL_BATCHES batches of
+# EVAL_BATCH rows of the multiset cache (3 targets a row, 28 character tokens a
+# target); eval_cls_decoding decodes EVAL_SAMPLES_MAX images in one batch.
+EVAL_BATCH, EVAL_BATCHES = 128, 4
+EVAL_SAMPLES_MAX = 64
+EVAL_GENCFGS = ["greedy_k1_vnone_gn_t1_a0", "greedy_k1_vnone_gp_t1_a0",
+                "beam_k10_vnone_gp_t1_a0", "all_k10_vnone_gp_t1_a0"]
+INFER_GENCFGS = ["greedy_k1_vnone_gn_t1_a0", "beam_k10_vnone_gp_t1_a0"]
+INFER_TEXTS = ["a photo of a dog", "a close-up of a red apple", "a fire truck in the street"]
+SAMPLE_COUNT = 16
+# eval on the card vs on the CPU, the same batches: both sides compute float32
+# logits (TF32 off) with GEMMs summed in another order, so logits differ by
+# ~1e-6 relative. The loss, a mean of log-softmaxes, moves by as much: phase
+# 8's loss bar (STEP_LOSS_RTOL) holds with room. A token's argmax flips only
+# where its top two logits lie within that error; at 1e-6 of logits of order
+# 10 that is a gap under ~1e-5, which a share of at most 1e-3 of the scored
+# tokens of a trained decoder shows (in practice none).
+EVAL_LOSS_RTOL = STEP_LOSS_RTOL
+EVAL_FLIP_SHARE = 1e-3
 
 
 def emit(obj: dict) -> None:
@@ -2843,6 +2881,345 @@ def phase_noun_data(workdir: str, weights: str, nouns: list, name: str, smi: str
     return line
 
 
+def phase_eval(workdir: str, weights: str, nouns: list, name: str, smi: str) -> dict:
+    """Phase 11: the evaluation, inference and results actions, every step through
+    `novic_tpu_torch.cli.train` on the card, over phase 10's workdir (its vocab of
+    the FT0 nouns, the multiset and converted caches, the checkpoint it trained
+    from the noun cache and its 1,024 PNGs in 10 classes) with phase 9's seeded
+    SigLIP-B/16 (bf16) and phase 9's FT0 .model."""
+    from novic_tpu_torch import infer
+    from novic_tpu_torch.cli import actions_train
+    from novic_tpu_torch.cli.common import (gen_data_config, load_embedder,
+                                            load_embedding_dataset, load_mean_shift)
+    from novic_tpu_torch.cli.train import main as train_main
+    from novic_tpu_torch.data.classification import load_image_dataset_prompts
+    from novic_tpu_torch.embedders.base import TorchEmbedder
+    from novic_tpu_torch.infer import GenerationConfig, GenerationTask
+    from novic_tpu_torch.ops import attention, dropout
+    from novic_tpu_torch.text.simple import make_test_tokenizer
+    from novic_tpu_torch.utils.config import load_config
+
+    nd = os.path.join(workdir, "noun_data")
+    wd = os.path.join(workdir, "eval")
+    os.makedirs(wd)
+    phase_t0 = time.perf_counter()
+    vocab = os.path.join(nd, "vocab.json")
+    multiset = os.path.join(nd, "cache", "cache_noun_multiset.bin")
+    converted = os.path.join(nd, "cache", "convert_noun_dataset.bin")
+    (ckpt,) = glob.glob(os.path.join(nd, "train_noun_cache_true", "ovod_*", "*.npz"))[-1:]
+    ft0_model = os.path.join(workdir, "reference", "ovod_chunk0001_ft0.model")
+    img_root = os.path.join(nd, "images")
+    folders = sorted(glob.glob(os.path.join(img_root, "Imagenette", "*", "val", "*")))
+    n_first = len(os.listdir(folders[0]))
+    out_dir = os.path.join(wd, "out")
+    common = [f"embedder={SPEC}", f"embedder_weights={weights}", "embedder_compute_dtype=bfloat16",
+              f"vocab_path={vocab}", f"prompt_collection={NOUN_COLLECTION}",
+              "hypernym_collection=None", f"batch_size_embed={NOUN_EMBED_BATCH}",
+              f"batch_size_image={CLS_IMAGE_BATCH}", f"output_dir={out_dir}", f"seed={SEED}"]
+    cls = ["cls_dataset=Imagenette", f"cls_dataset_root={img_root}", "cls_split=valid"]
+    line = {"phase": "eval", "device": name, "nvidia_smi": smi}
+    k1, k3, secs = {}, {}, {}
+
+    def run(label: str, *args: str, device: str = "cuda"):
+        """One CLI action: its result; its seconds, K1 and K3' launches by label."""
+        attention.LAUNCHES = dropout.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_main(list(args) + [f"--device={device}"])
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        k1[label], k3[label] = attention.LAUNCHES, dropout.LAUNCHES
+        return out
+
+    def tower_forwards(images: int = 0, text_calls: int = 0, texts_per_call: int = 0) -> int:
+        return (math.ceil(images / CLS_IMAGE_BATCH)
+                + text_calls * math.ceil(texts_per_call / NOUN_EMBED_BATCH))
+
+    def expect(label: str, forwards: int, dropouts: int = 0):
+        if (k1[label], k3[label]) != (12 * forwards, dropouts):
+            raise SystemExit(f"eval {label}: fused_attention launched {k1[label]} times, dropout "
+                             f"{k3[label]}; expected {12 * forwards} (12 per tower forward) "
+                             f"and {dropouts}")
+
+    # 1. embedder_zero_shot with the modality gap; its JSON feeds a training chunk
+    gap_path = os.path.join(wd, "modality_gap.json")
+    prompts = load_image_dataset_prompts("Imagenette", "clip")
+    zs = run("embedder_zero_shot", "action=embedder_zero_shot", "measure_gap=true",
+             f"gap_output_path={gap_path}", *cls, *common)
+    expect("embedder_zero_shot", tower_forwards(CLS_IMAGES, CLS_CLASSES, len(prompts)))
+    with open(gap_path) as f:
+        gap = json.load(f)
+    shift_cfg = load_config(None, ["action=train", "mean_shift=true",
+                                   f"mean_shift_path={gap_path}", *common])
+    shift = load_mean_shift(shift_cfg, load_embedder(shift_cfg, device="cuda"))
+    line["embedder_zero_shot"] = {
+        "top1": zs["Imagenette"], "seconds": secs["embedder_zero_shot"],
+        "images_per_s": CLS_IMAGES / secs["embedder_zero_shot"],
+        "angle_mean": gap["angle_mean"], "angle_std": gap["angle_std"],
+        "all_angle_mean": gap["all_angle_mean"], "all_angle_std": gap["all_angle_std"],
+        "angle_count": sum(gap["angle_histc"]["counts"]), "device_key": gap["cfg_embedder"]["device"],
+        "mean_shift_norm": float(np.linalg.norm(shift)), "prompts": len(prompts),
+        "k1_launches": k1["embedder_zero_shot"]}
+    emit({"phase": "eval_zero_shot", **line["embedder_zero_shot"]})
+    if shift.shape != (768,) or not np.isfinite(shift).all() or \
+            line["embedder_zero_shot"]["angle_count"] != CLS_IMAGES:
+        raise SystemExit(f"modality gap: shift {shift.shape}, {gap['angle_histc']['bins']} bins")
+    # ... one chunk of 2 steps at the FT0 recipe over the converted cache, mean_shift=true
+    loaded = []
+    original = actions_train.load_mean_shift
+    actions_train.load_mean_shift = lambda cfg, emb: loaded.append(original(cfg, emb)) or loaded[-1]
+    try:
+        state, S, _ = run("train_mean_shift", "action=train", f"embedding_dataset={converted}",
+                          "mean_shift=true", f"mean_shift_path={gap_path}",
+                          # 2 steps of TRAIN_ACCUM loader batches; a chunk is chunk_scale
+                          # x the cache's target nouns (a hair under, for the ceil)
+                          f"chunk_scale={(2 * TRAIN_ACCUM * TRAIN_BATCH - 0.5) / NOUN_CONVERT!r}",
+                          "max_chunks=1", "save_every_max=1000000", "save_top1_min=200",
+                          *common, f"output_dir={wd}/train_mean_shift", *FT0_RECIPE)
+    finally:
+        actions_train.load_mean_shift = original
+    with open(glob.glob(os.path.join(wd, "train_mean_shift", "ovod_*", "metrics.jsonl"))[0]) as f:
+        chunk = json.loads(f.readline())
+    line["train_mean_shift"] = {"steps": state.step, "chunk_loss": chunk["chunk_loss"],
+                                "seconds": secs["train_mean_shift"],
+                                "dropout_launches": k3["train_mean_shift"]}
+    emit({"phase": "eval_train_mean_shift", **line["train_mean_shift"]})
+    if not (len(loaded) == 1 and np.array_equal(loaded[0], np.asarray(gap["mean_shift"],
+                                                                      np.float32))):
+        raise SystemExit("training did not read the measured mean shift")
+    if state.step != 2 or not math.isfinite(chunk["chunk_loss"]):
+        raise SystemExit(f"mean-shift chunk: {state.step} steps, loss {chunk['chunk_loss']}")
+    expect("train_mean_shift", 0, DROPOUT_SITES * 2 * 2 * TRAIN_ACCUM)
+
+    # 2. eval over the multiset cache with phase 10's checkpoint: card, CPU, train mode
+    eval_args = ["action=eval", f"embedding_dataset={multiset}", f"load_model={ckpt}",
+                 "multi_target=true", "use_weights=true", "eval_guided=true",
+                 f"batch_size={EVAL_BATCH}",
+                 f"eval_batches={EVAL_BATCHES}", *common]
+    evals = {}
+    for label, extra, device in (("eval", [], "cuda"), ("eval_cpu", [], "cpu"),
+                                 ("eval_train", ["eval_train=true"], "cuda")):
+        (evals[label],) = run(label, *eval_args, *extra, device=device).values()
+    expect("eval", 0)
+    expect("eval_train", 0, DROPOUT_SITES * EVAL_BATCHES)
+    card, cpu, trained = evals["eval"], evals["eval_cpu"], evals["eval_train"]
+    # Flipped argmaxes, counted on the first batch: the decoder's logits on both sides
+    cfg = load_config(None, eval_args)
+    emb = load_embedder(cfg, device="cuda")
+    dset = load_embedding_dataset(cfg, emb, training=False)
+    gen_data_config(cfg, dset)
+    preds = {}
+    for device in ("cuda", "cpu"):
+        dec = infer.load_decoder_from_checkpoint(ckpt, emb, device=device)
+        dset.set_translation(emb.target_config)
+        with dset.loaded():
+            loader, _ = dset.create_loader(batch_size=EVAL_BATCH, training=False)
+            e, t, m, w = next(iter(loader))
+        e, t, m = (None if x is None else torch.from_numpy(np.array(x)).to(device)
+                   for x in (e, t, m))
+        with torch.no_grad():
+            logits, pad = dec.model(e.float(), t, m)[:2]
+        argmax = logits.argmax(-1).cpu().numpy()
+        preds[device] = (argmax, np.zeros(argmax.shape, bool) if pad is None
+                         else pad.cpu().numpy())
+    scored = ~preds["cpu"][1]
+    flips = int(((preds["cuda"][0] != preds["cpu"][0]) & scored).sum())
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    line["eval"] = {"rows": card["num_samples"], "tokens": card["tokens"],
+                    "card": {k: card[k] for k in ("loss", "token_top1", "noun_top1")},
+                    "cpu": {k: cpu[k] for k in ("loss", "token_top1", "noun_top1")},
+                    "train_mode": {k: trained[k] for k in ("loss", "token_top1", "noun_top1")},
+                    "loss_rel_diff": loss_rel, "loss_bar": EVAL_LOSS_RTOL,
+                    "flipped_argmaxes": flips, "scored_tokens_first_batch": int(scored.sum()),
+                    "flip_bar": EVAL_FLIP_SHARE,
+                    "seconds": {k: secs[k] for k in ("eval", "eval_cpu", "eval_train")},
+                    "dropout_launches_train_mode": k3["eval_train"]}
+    emit({"phase": "eval_eval", **line["eval"]})
+    if loss_rel > EVAL_LOSS_RTOL or flips > EVAL_FLIP_SHARE * scored.sum() or \
+            card["tokens"] != cpu["tokens"] or card["num_samples"] != EVAL_BATCH * EVAL_BATCHES:
+        raise SystemExit(f"eval: card and CPU disagree ({loss_rel} relative, {flips} flips)")
+    if not all(math.isfinite(trained[k]) for k in ("loss", "token_top1", "noun_top1")):
+        raise SystemExit("eval_train: non-finite metrics")
+
+    # 3. eval_cls and eval_cls_decoding with the FT0 .model (its tokenizer: the
+    # word-level test tokenizer over its nouns, which the CLI has no key for);
+    # the decode seconds of each gencfg beside estimate_generation_cost's
+    spans = {}
+
+    def timed(key_fn, fn):
+        def wrapper(self, *a, **kw):
+            key = key_fn(self, *a)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *a, **kw)
+            torch.cuda.synchronize()
+            if key is not None:
+                spans[key] = spans.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    originals = (TorchEmbedder._build_tokenizer, GenerationTask.generate,
+                 GenerationTask.ensure_precomputed, GenerationTask._maybe_trie)
+    TorchEmbedder._build_tokenizer = staticmethod(
+        lambda arch, path: make_test_tokenizer(nouns, context_length=arch.text.context_length))
+    GenerationTask.generate = timed(lambda t, *a: ("generate", t.gencfg.name), originals[1])
+    GenerationTask.ensure_precomputed = timed(
+        lambda t, *a: ("precompute", t.gencfg.name) if t.precompute is None else None,
+        originals[2])
+    GenerationTask._maybe_trie = timed(lambda t, *a: ("trie", t.gencfg.name), originals[3])
+    cls_ft0 = [*cls, "class_names_variant=", f"load_model={ft0_model}", *common]
+    try:
+        eval_cls = run("eval_cls", "action=eval_cls", *cls_ft0)
+        spans.clear()
+        # (the later key wins: one batch of EVAL_SAMPLES_MAX images)
+        rows = run("eval_cls_decoding", "action=eval_cls_decoding", *cls_ft0,
+                   f"gencfgs=[{', '.join(EVAL_GENCFGS)}]", f"eval_samples_max={EVAL_SAMPLES_MAX}",
+                   f"batch_size_image={EVAL_SAMPLES_MAX}", "eval_topk=3")
+        decode = dict(spans)
+        (res,) = eval_cls.values()
+        W = len(nouns)  # the FT0 vocabulary, all encodable by its tokenizer
+        est = {g: infer.estimate_generation_cost(GenerationConfig.from_name(g), EVAL_SAMPLES_MAX, W)
+               for g in EVAL_GENCFGS}
+        cap = (est["beam_k10_vnone_gp_t1_a0"] + est["all_k10_vnone_gp_t1_a0"]) / 2
+        capped = run("eval_cls_decoding_capped", "action=eval_cls_decoding", *cls_ft0,
+                     f"gencfgs=[{EVAL_GENCFGS[2]}, {EVAL_GENCFGS[3]}]", f"max_gencfg_cost={cap}",
+                     f"eval_samples_max={EVAL_SAMPLES_MAX}",
+                     f"batch_size_image={EVAL_SAMPLES_MAX}")
+
+        # 4. infer over one class folder and a few texts, with an annotation JSON
+        ann_path = os.path.join(wd, "annotations.json")
+        first = sorted(os.listdir(folders[0]))
+        with open(ann_path, "w") as f:
+            json.dump({INFER_TEXTS[0]: {"correct_primary": ["dog"], "close_primary": []},
+                       first[0]: {"correct_primary": [], "close_primary": []}}, f)
+        spans.clear()
+        out = run("infer", "action=infer", f"infer_all_dir={folders[0]}",
+                  f"infer_texts=[{', '.join(INFER_TEXTS)}]", f"gencfgs=[{', '.join(INFER_GENCFGS)}]",
+                  f"infer_ann_json={ann_path}", "infer_ann_json_update=true",
+                  f"load_model={ft0_model}", *common)
+        infer_decode = dict(spans)
+    finally:
+        (TorchEmbedder._build_tokenizer, GenerationTask.generate,
+         GenerationTask.ensure_precomputed, GenerationTask._maybe_trie) = (
+            staticmethod(originals[0]), *originals[1:])
+    expect("eval_cls", tower_forwards(CLS_IMAGES))
+    expect("eval_cls_decoding", 1)
+    expect("eval_cls_decoding_capped", 1)
+    per_gencfg = {}
+    for g in EVAL_GENCFGS:
+        fixed = decode.get(("precompute", g), 0.0) + decode.get(("trie", g), 0.0)
+        per_gencfg[g] = {"seconds": decode[("generate", g)], "fixed_s": fixed,
+                         "decode_s": decode[("generate", g)] - fixed,
+                         "per_image_s": (decode[("generate", g)] - fixed) / EVAL_SAMPLES_MAX,
+                         "estimate_s": est[g]}
+    greedy = max(per_gencfg[g]["per_image_s"] for g in EVAL_GENCFGS[:2])
+    line["eval_cls"] = {"images": CLS_IMAGES, "seconds": secs["eval_cls"],
+                        "images_per_s": CLS_IMAGES / secs["eval_cls"],
+                        "direct_top1": res["direct_top1"], "guided_top1": res["guided_top1"],
+                        "buckets": res["buckets"]}
+    line["eval_cls_decoding"] = {
+        "images": EVAL_SAMPLES_MAX, "guide_targets": W, "seconds": secs["eval_cls_decoding"],
+        "images_per_s": EVAL_SAMPLES_MAX / secs["eval_cls_decoding"],
+        "rows": [r[2:6] for r in rows], "per_gencfg": per_gencfg,
+        "constants_in_use": {"greedy": infer.GREEDY_S_PER_IMAGE,
+                             "beam_k10": infer.BEAM_K10_S_PER_IMAGE, "all": infer.ALL_S_PER_IMAGE},
+        "constants_measured": {
+            "greedy": greedy,
+            "beam_k10": per_gencfg[EVAL_GENCFGS[2]]["per_image_s"] - greedy,
+            "all": per_gencfg[EVAL_GENCFGS[3]]["per_image_s"]},
+        "cap_s": cap, "capped_rows": [r[2] for r in capped],
+        "capped_seconds": secs["eval_cls_decoding_capped"]}
+    emit({"phase": "eval_cls", **line["eval_cls"]})
+    emit({"phase": "eval_cls_decoding", "device": name, "nvidia_smi": smi,
+          **line["eval_cls_decoding"]})
+    if sum(res["buckets"].values()) != CLS_IMAGES or [r[2] for r in rows] != EVAL_GENCFGS:
+        raise SystemExit(f"eval_cls: {res['buckets']}; decoding rows {[r[2] for r in rows]}")
+    if [r[2] for r in capped] != [EVAL_GENCFGS[2]]:
+        raise SystemExit(f"max_gencfg_cost={cap}: kept {[r[2] for r in capped]}")
+
+    # ... the predictions JSON and the annotation skeleton
+    keys = INFER_TEXTS + [os.path.join(folders[0], f) for f in first]
+    with open(ann_path) as f:
+        ann = json.load(f)
+    (model_out,) = out["models"].values()
+    expect("infer", tower_forwards(n_first, 1, len(INFER_TEXTS)))
+    bad = [g for g, k in ((INFER_GENCFGS[0], 1), (INFER_GENCFGS[1], 10))
+           if len(model_out["gencfgs"][g]["pred"]) != len(keys)
+           or any(len(row) != k for row in model_out["gencfgs"][g]["pred"])
+           or not np.isfinite(np.asarray(model_out["gencfgs"][g]["score"])).all()]
+    line["infer"] = {"samples": len(keys), "seconds": secs["infer"],
+                     "samples_per_s": len(keys) / secs["infer"],
+                     "decode_s": {g: infer_decode[("generate", g)] for g in INFER_GENCFGS},
+                     "annotated_samples": len(ann), "first": [
+                         model_out["gencfgs"][g]["pred"][0][:3] for g in INFER_GENCFGS]}
+    emit({"phase": "eval_infer", **line["infer"]})
+    if out["keys"] != keys or bad or sorted(ann) != sorted(INFER_TEXTS + first) or \
+            ann[first[1]] != {"correct_primary": [], "close_primary": []}:
+        raise SystemExit(f"infer: keys {len(out['keys'])}/{len(keys)}, bad rows {bad}, "
+                         f"annotations {len(ann)}")
+
+    # 5. format_preds in its four modes; format_metrics and format_wandb over the run dirs
+    (pred_path,) = glob.glob(os.path.join(out_dir, "ovod_*", "predictions.json"))
+    beam = model_out["gencfgs"][INFER_GENCFGS[1]]["pred"]
+    rng = np.random.default_rng(SEED + 11)
+    for i, key in enumerate(out["keys"]):
+        sample = os.path.basename(key)
+        ann[sample] = {"correct_primary": [beam[i][int(rng.integers(0, 10))]],
+                       "close_primary": [beam[i][0]] if i % 2 else []}
+    with open(ann_path, "w") as f:
+        json.dump(ann, f)
+    formats = {}
+    for mode in ("nouns_v1", "model_topk_v1", "model_max_v1", "gencfg_model_v1"):
+        formats[mode] = run(f"format_preds_{mode}", "action=format_preds",
+                            f"predictions_path={pred_path}", f"annotations_paths=[{ann_path}]",
+                            f"format_mode={mode}", *common)
+    metrics_rows = run("format_metrics", "action=format_metrics", *common)
+    wandb_rows = run("format_wandb", "action=format_wandb", "fmt_type=all_v1", *common)
+    top1 = formats["model_max_v1"]
+    line["format"] = {"model_max_v1_top1": {g: [round(s, 3) for s in v[0]]
+                                            for g, d in top1.items() for v in d.values()},
+                      "format_metrics_rows": len(metrics_rows),
+                      "format_wandb_rows": len(wandb_rows),
+                      "format_wandb_actions": sorted({r[1] for r in wandb_rows}),
+                      "seconds": sum(v for k, v in secs.items() if k.startswith("format"))}
+    emit({"phase": "eval_format", **line["format"]})
+    # (eval_cls_decoding's run dir holds no config.json, as in novic_tpu, so the
+    # database lists it only where it shares eval_cls's dir)
+    if not metrics_rows or not wandb_rows or not all(formats.values()) or \
+            {"eval", "eval_cls", "infer"} - set(line["format"]["format_wandb_actions"]):
+        raise SystemExit(f"format: {len(metrics_rows)} metrics rows, {len(wandb_rows)} "
+                         f"database rows of {line['format']['format_wandb_actions']}")
+
+    # 6. sample_images over one folder, weighted toward two of its classes' nouns; twice
+    special = [os.path.basename(folders[0]).replace("_", " "),
+               os.path.basename(folders[1]).replace("_", " ")]
+    chosen = []
+    for label in ("sample_images", "sample_images_again"):
+        _, picked = run(label, "action=sample_images", f"sample_input_dir={folders[0]}",
+                        f"sample_output_dir={wd}/sampled", f"sample_count={SAMPLE_COUNT}",
+                        f"sample_special=[{', '.join(special)}]",
+                        "sample_special_factor=[2.0, 1.0]", *common)
+        chosen.append(picked)
+        imagenet_prompts = len(load_image_dataset_prompts("imagenet1k", "clip"))
+        expect(label, tower_forwards(n_first, len(special), imagenet_prompts))
+    line["sample_images"] = {"images": n_first, "count": SAMPLE_COUNT, "special": special,
+                             "seconds": secs["sample_images"],
+                             "images_per_s": n_first / secs["sample_images"],
+                             "same_choice": chosen[0] == chosen[1]}
+    emit({"phase": "eval_sample_images", **line["sample_images"]})
+    if chosen[0] != chosen[1] or len(set(chosen[0])) != min(SAMPLE_COUNT, n_first):
+        raise SystemExit(f"sample_images: {chosen}")
+
+    line["k1_launches"] = sum(k1.values())
+    line["k1_launches_by_step"] = k1
+    line["dropout_launches"] = sum(k3.values())
+    line["dropout_launches_by_step"] = {k: v for k, v in k3.items() if v}
+    line["seconds"] = time.perf_counter() - phase_t0
+    emit({"phase": "eval_done", "seconds": line["seconds"], "k1_launches": k1,
+          "dropout_launches": line["dropout_launches_by_step"], "action_seconds": secs})
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs a GPU", file=sys.stderr)
@@ -3043,6 +3420,9 @@ def main() -> int:
         # 10. the noun dataset, the cache writers and training from text
         noun_line = phase_noun_data(workdir, os.path.join(workdir, "reference", "siglip_b16.npz"),
                                     list(nouns), name, smi)
+        # 11. the evaluation, inference and results actions
+        eval_line = phase_eval(workdir, os.path.join(workdir, "reference", "siglip_b16.npz"),
+                               list(nouns), name, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3056,7 +3436,8 @@ def main() -> int:
         "launches_by_phase": {"main_path": launches,
                               "all_decode": all_line["fused_attention_launches"],
                               "reference": ref_line["fused_attention_launches"],
-                              "noun_data": noun_line["k1_launches"]},
+                              "noun_data": noun_line["k1_launches"],
+                              "eval": eval_line["k1_launches"]},
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"]}, {
@@ -3066,7 +3447,8 @@ def main() -> int:
         "launches": train_line["dropout_launches"],
         "launches_by_phase": {"train": train_line["dropout_launches"],
                               "reference": ref_line["dropout_launches"],
-                              "noun_data": noun_line["dropout_launches"]},
+                              "noun_data": noun_line["dropout_launches"],
+                              "eval": eval_line["dropout_launches"]},
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}, {

@@ -33,6 +33,7 @@ from novic_tpu_torch.cli.common import (
     make_run_dir,
     model_config_from_cfg,
     resolve_path,
+    wandb_init_kwargs,
 )
 from novic_tpu_torch.data.grad_accum import GradAccum
 from novic_tpu_torch.data.noise import EmbeddingNoise
@@ -128,7 +129,9 @@ def action_train(cfg, device="cuda"):
 
     run_dir = make_run_dir(cfg)
     stamp = os.path.basename(run_dir)[len("ovod_"):]
-    metrics = MetricsLogger(run_dir=run_dir, use_wandb=cfg.use_wandb, config=config_to_flat(cfg))
+    metrics = MetricsLogger(run_dir=run_dir, use_wandb=cfg.use_wandb,
+                            wandb_kwargs=wandb_init_kwargs(cfg), project=cfg.wandb_project,
+                            config=config_to_flat(cfg))
 
     C = TrainLoopConfig(
         chunk_batches=chunk_batches, chunk_samples=chunk_batches * cfg.batch_size,

@@ -1,6 +1,7 @@
-"""Shared CLI plumbing for training (the train parts of novic_tpu.cli.common):
-config paths, embedder and dataset loading, target/data-config negotiation,
-checkpoint discovery and config diffs (reference train.py:3583-3957).
+"""Shared CLI plumbing (the counterpart of novic_tpu.cli.common): config
+paths, wandb run metadata, embedder and dataset loading, target/data-config
+negotiation, checkpoint discovery and config diffs (reference
+train.py:3583-3957).
 embedding_dataset is a cache path or NounDataset (texts embedded by the
 embedder's text tower, or read from its noun cache).
 """
@@ -33,6 +34,17 @@ MODEL_CFGS = set(DecoderModelConfig.__dataclass_fields__)
 def resolve_path(cfg, path: str) -> str:
     return resolve_path_tags(path, image_dir=cfg.get("infer_all_dir") or None,
                              embedder_spec=cfg.get("embedder"))
+
+
+def wandb_init_kwargs(cfg) -> dict:
+    """entity/group/name/tags/job_type passthrough for MetricsLogger
+    (ref wandb_* keys, ref config/train.yaml:24-33)."""
+    tags = cfg.get("wandb_tags", None)
+    if isinstance(tags, str):
+        tags = [t for t in tags.split() if t] or None
+    return {"entity": cfg.get("wandb_entity", ""), "group": cfg.get("wandb_group", ""),
+            "name": cfg.get("wandb_name", ""), "tags": tags,
+            "job_type": cfg.get("wandb_job_type", "")}
 
 
 def make_run_dir(cfg) -> str:

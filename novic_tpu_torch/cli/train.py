@@ -6,11 +6,11 @@ novic_tpu.cli.train).
 All keys default from config/train.yaml (the file the JAX package reads);
 nested keys are dotted; +key=value adds new keys. --config=PATH reads another
 defaults file, and --device=DEVICE picks the device (default cuda, which
-raises where CUDA is missing). action=train, convert_embedder, fix_checkpoints,
-the seven cache actions (cache_noun_dataset, convert_noun_dataset,
-cache_noun_multiset, cache_captions, cache_cls, cache_images, merge_caches)
-and test_data_loader / test_embed_cache are ported; the other actions of the
-JAX package raise "not ported yet".
+raises where CUDA is missing). Every action of the JAX package's CLI is
+ported: train and fix_checkpoints, the cache actions, test_data_loader and
+test_embed_cache, embedder_zero_shot, eval, eval_cls, eval_cls_decoding,
+infer, format_preds, format_metrics, format_wandb, collect_wiki_images,
+sample_images and convert_embedder.
 """
 
 from __future__ import annotations
@@ -21,18 +21,14 @@ from typing import Optional, Sequence
 from novic_tpu_torch.utils.config import default_config_path, load_config
 from novic_tpu_torch.utils.logger import log
 
-NOT_PORTED = (
-    "embedder_zero_shot", "eval", "eval_cls", "eval_cls_decoding", "infer", "format_preds",
-    "format_metrics", "format_wandb", "collect_wiki_images", "sample_images",
-)
 
 
 def build_action_registry() -> dict:
-    from novic_tpu_torch.cli import actions_cache, actions_misc, actions_train
+    from novic_tpu_torch.cli import actions_cache, actions_eval, actions_misc, actions_train
 
-    return {"train": actions_train.action_train,
-            "fix_checkpoints": actions_train.action_fix_checkpoints,
-            "convert_embedder": actions_misc.action_convert_embedder,
+    return {"test_data_loader": actions_cache.action_test_data_loader,
+            "test_embed_cache": actions_cache.action_test_embed_cache,
+            "embedder_zero_shot": actions_eval.action_embedder_zero_shot,
             "cache_noun_dataset": actions_cache.action_cache_noun_dataset,
             "convert_noun_dataset": actions_cache.action_convert_noun_dataset,
             "cache_noun_multiset": actions_cache.action_cache_noun_multiset,
@@ -40,8 +36,18 @@ def build_action_registry() -> dict:
             "cache_cls": actions_cache.action_cache_cls,
             "cache_images": actions_cache.action_cache_images,
             "merge_caches": actions_cache.action_merge_caches,
-            "test_data_loader": actions_cache.action_test_data_loader,
-            "test_embed_cache": actions_cache.action_test_embed_cache}
+            "train": actions_train.action_train,
+            "fix_checkpoints": actions_train.action_fix_checkpoints,
+            "eval": actions_eval.action_eval,
+            "eval_cls": actions_eval.action_eval_cls,
+            "eval_cls_decoding": actions_eval.action_eval_cls_decoding,
+            "infer": actions_eval.action_infer,
+            "format_preds": actions_eval.action_format_preds,
+            "format_metrics": actions_eval.action_format_metrics,
+            "format_wandb": actions_eval.action_format_wandb,
+            "collect_wiki_images": actions_misc.action_collect_wiki_images,
+            "sample_images": actions_misc.action_sample_images,
+            "convert_embedder": actions_misc.action_convert_embedder}
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -74,9 +80,6 @@ def main(argv: Optional[Sequence[str]] = None):
     registry = build_action_registry()
     action = registry.get(cfg.action)
     if action is None:
-        if cfg.action in NOT_PORTED:
-            raise NotImplementedError(f"action={cfg.action} is not ported yet (ported: "
-                                      f"{', '.join(sorted(registry))})")
         raise ValueError(f"Unknown action '{cfg.action}'. Available: {', '.join(sorted(registry))}")
     log.info(f"Running action: {cfg.action} on {device}")
     return action(cfg, device=device)

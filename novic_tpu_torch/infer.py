@@ -130,6 +130,33 @@ class GenerationConfig:
         return gencfg
 
 
+# Decode seconds per image of the FT0 decoder (12.76M params, 42,919 nouns) on
+# the card, measured by chip_smoke.py phase 11 (eval_cls_decoding over 64
+# images at B=64, each gencfg's seconds less its one-off trie build and 'all'
+# precompute; NVIDIA H100 80GB HBM3, 700.00 W): the greedy floor (the guided
+# greedy's 0.7107 ms; unguided 0.6430), the beam term at k=10 (guided beam
+# 0.9182 ms less the floor), and exhaustive 'all' scoring at 42,919 targets.
+GREEDY_S_PER_IMAGE = 7.107e-4
+BEAM_K10_S_PER_IMAGE = 2.075e-4
+ALL_S_PER_IMAGE = 0.16046
+ALL_REFERENCE_TARGETS = 42919
+
+
+def estimate_generation_cost(gencfg: GenerationConfig, num_images: int,
+                             num_guide_targets: int = 0) -> float:
+    """Estimated decode seconds for running a gencfg over num_images
+    embeddings on the card: a greedy floor per image, a beam term linear in
+    k, and 'all' linear in the guide-target count W. For budgeting grids
+    (budget_gencfgs), not for predicting wall time on other hardware."""
+    if gencfg.method == "all":
+        per_img = ALL_S_PER_IMAGE * max(num_guide_targets, 1) / ALL_REFERENCE_TARGETS
+    elif gencfg.method == "beam":
+        per_img = GREEDY_S_PER_IMAGE + BEAM_K10_S_PER_IMAGE * max(gencfg.topk, 1) / 10.0
+    else:
+        per_img = GREEDY_S_PER_IMAGE
+    return per_img * num_images
+
+
 # ---------------------------------------------------------------------------
 # Decoder holder and GenerationTask
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
-"""Dict flatten/unflatten, AttrDict, float formatting, canonical noun forms
-and a/an indefinite articles (host-only helpers; the port's copies of
-novic_tpu.utils.misc's)."""
+"""Dict flatten/unflatten, AttrDict, float formatting, canonical noun forms,
+a/an indefinite articles and JSON with compact lists (host-only helpers; the
+port's copies of novic_tpu.utils.misc's)."""
 
 from __future__ import annotations
 
+import json
 import re
 import unicodedata
 from typing import Any
@@ -109,3 +110,43 @@ def make_indefinite(noun: str, suffix: str | None = None) -> str:
     else:
         article = "a "
     return f"{article}{noun}{suffix}" if suffix is not None else article + noun
+
+
+def _json_default(o):
+    """Serialize numpy scalars/arrays that leak into result dicts."""
+    import numpy as np
+
+    if isinstance(o, np.generic):
+        return o.item()
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    raise TypeError(f"Object of type {type(o).__name__} is not JSON serializable")
+
+
+def json_dumps(obj: Any, *, indent: int | str | None = None, **kwargs) -> str:
+    """Dump JSON without indentation inside lists (ref utils.py:405-427);
+    numpy scalars/arrays serialize natively."""
+    kwargs.setdefault("default", _json_default)
+    lines: list[str] = []
+    line_parts: list[str] = []
+    open_lists = 0
+    for line in json.dumps(obj, indent=indent, **kwargs).splitlines():
+        line_content = line.strip()
+        if not line_content:
+            continue
+        if line_content[0] == "]":
+            open_lists -= 1
+        if line_content[-1] == "[":
+            open_lists += 1
+        if open_lists > 0:
+            part = line_content if line_parts else line
+            line_parts.append(part + " " if part[-1] == "," else part)
+        elif line_parts:
+            line_parts.append(line_content)
+            lines.append("".join(line_parts))
+            line_parts.clear()
+        else:
+            lines.append(line)
+    if open_lists != 0:
+        raise ValueError("json_dumps: unbalanced list brackets")
+    return "\n".join(lines)

@@ -2,7 +2,8 @@
 
 tests/conftest.py has already imported JAX in this process, so the check runs
 in a subprocess whose import hook raises on jax, flax, optax, novic_tpu and
-novic_tpu.* (not novic_tpu_torch), then imports every module of
+novic_tpu.* (not novic_tpu_torch), and on tabulate (the port renders its
+tables itself: the card's machine has no tabulate), then imports every module of
 novic_tpu_torch (the serving modules, the int8 and text-tower modules:
 ops.int8_matmul, embedders.vit/base, bridge; and the training path's:
 ops.dropout, data.*, train.*, cli.*, utils.config/metrics; the DFN5B slice's
@@ -13,7 +14,8 @@ wordpiece tokenizers; the exhaustive-decode slice's models.precompute_store and
 models.dud; the released-weight slice's embedders.convert/registry,
 cli.actions_misc and train.checkpoint/optim; the noun-data slice's
 data.noun_dataset, data.cache_writers, data.classification, cli.actions_cache
-and cli.actions_eval) and chip_smoke.
+and cli.actions_eval; the eval slice's cli.actions_eval (every action),
+cli.actions_misc and utils.metrics) and chip_smoke.
 """
 
 import os
@@ -30,7 +32,7 @@ REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 _GUARD = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "novic_tpu", "exp")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "novic_tpu", "exp", "tabulate")
 
 class Block:
     def find_spec(self, name, path=None, target=None):

@@ -241,25 +241,34 @@ def test_jax_checkpoint_resumes_in_the_port(workdir):
     assert jax_steps == 8 and state.step == jax_steps + 4  # one more chunk of 4 batches
 
 
-def test_not_ported_surfaces_raise(workdir):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["action=eval", "--device=cpu"] + _args(workdir, "x"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["action=eval_cls", "--device=cpu"] + _args(workdir, "x"))
-    # AdamP is ported (tests/test_torch_adamp.py); what still raises:
+def test_not_ported_surfaces_raise(workdir, monkeypatch):
+    # What still raises: orbax checkpoints, the CLIPA conversion, CUDA absent
     with pytest.raises(NotImplementedError, match="orbax"):
         main(["action=train", "checkpoint_format=orbax", "--device=cpu"] + _args(workdir, "x"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["action=infer", "--device=cpu"] + _args(workdir, "x"))
     with pytest.raises(NotImplementedError, match="CLIPA"):
         main(["action=convert_embedder", "embedder=openclip:rwightman/ViT-L-14-CLIPA-datacomp1B",
               f"embedder_weights={workdir}/clipa.npz", "--device=cpu"])
-    with pytest.raises(NotImplementedError, match="wandb"):
-        main(["action=train", "use_wandb=true", "max_chunks=1", "--device=cpu"]
-             + _args(workdir, "x"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["action=train"] + _args(workdir, "x"))
+    # Every action of the JAX CLI reaches the port's own action of the same
+    # name, module for module, with the device: none is left "not ported"
+    import importlib
+
+    from novic_tpu.cli.train import build_action_registry as jax_registry
+    from novic_tpu_torch.cli.train import build_action_registry
+
+    jax_actions, port_actions = jax_registry(), build_action_registry()
+    assert set(port_actions) == set(jax_actions)
+    calls = []
+    for name, fn in jax_actions.items():
+        module = importlib.import_module(fn.__module__.replace("novic_tpu.", "novic_tpu_torch.", 1))
+        assert getattr(module, fn.__name__) is port_actions[name]
+        monkeypatch.setattr(module, fn.__name__,
+                            lambda cfg, device="cuda": calls.append((cfg.action, device)))
+    for name in sorted(jax_actions):
+        main([f"action={name}", "--device=cpu"] + _args(workdir, "x"))
+    assert calls == [(name, "cpu") for name in sorted(jax_actions)]
 
 
 def test_native_cacheio_is_prebuilt_whole():
