@@ -175,6 +175,22 @@ Phases, each printing JSON lines; any failure exits nonzero:
      and format_wandb over the run dirs; sample_images twice with the same
      seed (the same files); K1 held to 12 per tower forward in every step,
      under launches_by_phase["eval"] with K3';
+  12. towers (the EVA02, CLIPA and ALIGN families and 'test-structured:'):
+     K1 against its plain version at the L/14 vision towers' (64,257,16,64),
+     EVA02-E's (32,257,16,112) and ALIGN's BERT (256,64,12,64) with a ragged
+     (B, S) key bias, timed beside SDPA and the bound, and a fully masked
+     64-key tile adding exactly 0; EVA02-L/14 (a seeded open_clip state dict
+     converted through action=convert_embedder) and CLIPA-L/14 (seeded)
+     serving the FT0 decoder, guided beam k=10, over phase 4's 2 x 64 frames
+     (24 K1 launches a tower forward; card vs CPU on 2 frames, cosine and
+     top-1; images/s, tower ms, texts/s at B=256); EVA02-E-14-plus at full
+     width and depth (64 layers of 1792, MLP 15360; weights drawn on the card)
+     at B=32 images and B=256 texts, peak memory, card vs CPU at full width
+     with 4 layers; ALIGN's EfficientNet-B7 at 289 px (B=32) and BERT over
+     256 ragged texts (12 key-bias K1 launches a forward), card vs CPU, and
+     embedder_zero_shot over phase 10's 1,024 PNGs through the CLI; with
+     'test-structured:768', cache_noun_multiset, embedder_zero_shot with its
+     gap and one mean_shift=true training chunk through the CLI (K3');
 then the kernels line and, last, {"ok": true, "device": {...}}.
 Exits nonzero without printing a result when CUDA is not available.
 """
@@ -361,6 +377,30 @@ SAMPLE_COUNT = 16
 # tokens of a trained decoder shows (in practice none).
 EVAL_LOSS_RTOL = STEP_LOSS_RTOL
 EVAL_FLIP_SHARE = 1e-3
+# Phase 12 (towers): the EVA02, CLIPA and ALIGN families at full width. The
+# two L/14 towers embed in 768 dims, so the FT0 decoder serves them; EVA02-E
+# runs at full width and depth with its weights drawn on the card (20 GB in
+# float32), and is held card vs CPU at full width with EVA_E_CPU_LAYERS layers
+EVA_L_SPEC = "openclip:timm/eva02_large_patch14_clip_224.merged2b_s4b_b131k"
+CLIPA_L_SPEC = "openclip:rwightman/ViT-L-14-CLIPA-datacomp1B"
+EVA_E_SPEC = "openclip:timm/eva02_enormous_patch14_plus_clip_224.laion2b_s9b_b144k"
+ALIGN_SPEC = "transformers:kakaobrain/align-base"
+EVA_E_BATCH, ALIGN_BATCH, EVA_E_CPU_LAYERS = 32, 32, 4
+# Card vs CPU for EVA02-L/14 at bf16 compute. Its class-token pool sees one
+# token's noise: a last-bit difference between the card's sums and the CPU's
+# becomes a bf16 ulp of an LN output now and then (four LNs a block), and 1 -
+# cosine grows with depth. The first run of this phase read, on seeded
+# towers: 4e-5 at 6 layers, 8e-5 at 12, 1.3e-4 at 24, and 1.5e-4 at 24 with
+# the card's attention swapped for its plain version (so not K1); CLIPA-L/14,
+# which averages 256 tokens, read 1e-6. So its bf16 bar is DFN5B's 24-layer
+# text bar, 0.9998, and both L/14 towers are also held card vs CPU at
+# float32 compute (the residual stream in float32) to COSINE_MIN
+EVA_L_BF16_COSINE_MIN = DFN5B_TEXT_COSINE_MIN
+# The structured test embedder's mean-shift chunk: 32 classes, 8 images each
+STRUCTURED_SPEC = "test-structured:768:60:10:0"
+STRUCTURED_CLASSES, STRUCTURED_IMAGES = 32, 8
+STRUCTURED_MODEL = ["batch_size=256", "hidden_dim=256", "num_layers=2", "num_heads=4",
+                    "mlp_seq_len=2", "input_dropout=0.1", "layer_dropout=0.1"]
 
 
 def emit(obj: dict) -> None:
@@ -438,10 +478,11 @@ def wall_ms(fn, repeats: int = 5) -> list[float]:
     return out
 
 
-def attention_bound_ms(B, S, H, hd, bias: bool) -> tuple[float, str]:
-    """Least time for the function: bytes (q, k, v read, o written, f32; bias read)
-    over HBM rate vs operations (two S x S x hd products) over the bf16 peak."""
-    nbytes = 4 * B * S * H * hd * 4 + (S * S * 4 if bias else 0)
+def attention_bound_ms(B, S, H, hd, bias: bool, key_bias: bool = False) -> tuple[float, str]:
+    """Least time for the function: bytes (q, k, v read, o written, f32; the
+    (S, S) bias or the (B, S) key bias read) over HBM rate vs operations (two
+    S x S x hd products) over the bf16 peak."""
+    nbytes = 4 * B * S * H * hd * 4 + (S * S * 4 if bias else 0) + (B * S * 4 if key_bias else 0)
     flops = 2 * 2 * B * H * S * S * hd
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -452,13 +493,62 @@ def attention_bound_ms(B, S, H, hd, bias: bool) -> tuple[float, str]:
 K1_KERNELS = ("::to_bf16_kernel(", "::attention_kernel<")
 
 
+def k1_check(attention, gen, B, S, H, hd, causal: bool = False, key_pads: bool = False,
+             timed: bool = True, optional_profile: bool = False) -> dict:
+    """One K1 shape on the card against its plain version (stated tolerance),
+    with its times, SDPA's, its bound and the pre-pass's share where `timed`.
+    `causal`: the (S, S) causal bias; `key_pads`: a (B, S) key bias of -1e30
+    past each row's seeded length (key 0 always kept), BERT's pad mask. With
+    `optional_profile`, a profiler that shows no K1 kernel leaves the share
+    unmeasured (None) instead of failing the run."""
+    import torch.nn.functional as F
+
+    q, k, v = (torch.randn(B, S, H, hd, device="cuda", generator=gen) for _ in range(3))
+    bias = key_bias = mask = None
+    if causal:
+        i = torch.arange(S, device="cuda")
+        bias = mask = torch.where(i[None, :] <= i[:, None], 0.0, -1e30).float().contiguous()
+    if key_pads:
+        lengths = torch.randint(1, S + 1, (B,), device="cuda", generator=gen)
+        key_bias = torch.where(torch.arange(S, device="cuda")[None, :] < lengths[:, None],
+                               0.0, -1e30).float().contiguous()
+        mask = key_bias[:, None, None, :]
+    out = attention.fused_attention(q, k, v, bias, key_bias)
+    torch.cuda.synchronize()
+    ref = attention.attention_reference(q, k, v, bias, key_bias)
+    diff = (out - ref).abs()
+    err = diff.max().item()
+    vmax = v.to(torch.bfloat16).float().abs().amax(dim=1, keepdim=True)  # over keys
+    rel_fro = ((out - ref).norm() / ref.norm()).item()
+    ok = bool((diff <= KERNEL_ATOL + 2.0 ** -7 * vmax).all()) and rel_fro <= KERNEL_REL_FRO
+    line = {"phase": "kernel", "name": "fused_attention", "instance": "wgmma",
+            "shape": [B, S, H, hd], "causal_bias": causal, "key_bias": key_pads,
+            "max_abs_err": err, "rel_fro_err": rel_fro,
+            "tol": f"|d| <= {KERNEL_ATOL} + 2^-7 max|v|, rel_fro <= {KERNEL_REL_FRO}", "ok": ok}
+    if timed:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        run = lambda: attention.fused_attention(q, k, v, bias, key_bias)  # noqa: E731
+        prof = device_profile(run, match=K1_KERNELS, require=K1_KERNELS[1:],
+                              optional=optional_profile)
+        bound_ms, bound_by = attention_bound_ms(B, S, H, hd, causal, key_pads)
+        line.update(ms=cuda_ms(run), plain_ms=cuda_ms(
+            lambda: attention.attention_reference(q, k, v, bias, key_bias)),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      attn_mask=mask)),
+            bound_ms=bound_ms, bound_by=bound_by,
+            device_ms_by_kernel=prof and {name.strip(":(<"): sum(
+                m[1] for m in prof["matched_kernels"] if name in m[0]) for name in K1_KERNELS})
+    emit(line)
+    if not ok:
+        raise SystemExit(f"fused_attention disagrees with its plain version at {line['shape']}")
+    return line
+
+
 def phase_kernel(attention) -> tuple[dict, dict, dict]:
     """Phase 3: fused_attention (kernel) against attention_reference (plain) on
     the card, at the towers' shapes (timed, with the pre-pass's share of the
     device time) and at edge shapes. Returns the lines of the serving shape,
     the DFN5B shape and the noun cache's text-tower shape."""
-    import torch.nn.functional as F
-
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     result = dfn5b = text = None
     for B, S, H, hd, causal, timed in [
@@ -474,39 +564,7 @@ def phase_kernel(attention) -> tuple[dict, dict, dict]:
             # k-step, zero-filled past hd) and 128 (two atoms, three consumers)
             (2, 1, 3, 64, False, False), (2, 65, 3, 64, True, False),
             (2, 100, 3, 8, False, False), (2, 129, 3, 128, True, False)]:
-        q, k, v = (torch.randn(B, S, H, hd, device="cuda", generator=gen) for _ in range(3))
-        bias = None
-        if causal:
-            i = torch.arange(S, device="cuda")
-            bias = torch.where(i[None, :] <= i[:, None], 0.0, -1e30).float().contiguous()
-        out = attention.fused_attention(q, k, v, bias)
-        torch.cuda.synchronize()
-        ref = attention.attention_reference(q, k, v, bias)
-        diff = (out - ref).abs()
-        err = diff.max().item()
-        vmax = v.to(torch.bfloat16).float().abs().amax(dim=1, keepdim=True)  # over keys
-        rel_fro = ((out - ref).norm() / ref.norm()).item()
-        ok = bool((diff <= KERNEL_ATOL + 2.0 ** -7 * vmax).all()) and rel_fro <= KERNEL_REL_FRO
-        line = {"phase": "kernel", "name": "fused_attention", "instance": "wgmma",
-                "shape": [B, S, H, hd], "causal_bias": causal, "max_abs_err": err,
-                "rel_fro_err": rel_fro,
-                "tol": f"|d| <= {KERNEL_ATOL} + 2^-7 max|v|, rel_fro <= {KERNEL_REL_FRO}", "ok": ok}
-        if timed:
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            run = lambda: attention.fused_attention(q, k, v, bias)  # noqa: E731
-            prof = device_profile(run, match=K1_KERNELS, require=K1_KERNELS[1:])
-            bound_ms, bound_by = attention_bound_ms(B, S, H, hd, causal)
-            line.update(ms=cuda_ms(run), plain_ms=cuda_ms(
-                lambda: attention.attention_reference(q, k, v, bias)),
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                          attn_mask=bias)),
-                bound_ms=bound_ms, bound_by=bound_by,
-                device_ms_by_kernel={name.strip(":(<"): sum(m[1] for m in prof["matched_kernels"]
-                                                           if name in m[0])
-                                     for name in K1_KERNELS})
-        emit(line)
-        if not ok:
-            raise SystemExit(f"fused_attention disagrees with its plain version at {line['shape']}")
+        line = k1_check(attention, gen, B, S, H, hd, causal=causal, timed=timed)
         if result is None:
             result = line  # the serving shape
         if (B, S, H, hd) == (32, 730, 16, 80):
@@ -1220,14 +1278,16 @@ def cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 
 def device_profile(fn, match: tuple = ("dropout_f32", "dropout_bf16"), host: bool = True,
-                   require: tuple = ()) -> dict:
+                   require: tuple = (), optional: bool = False) -> dict | None:
     """Wall time, device busy time and the largest device ops of one call of fn;
     "matched_kernels" lists the device ops whose name holds one of `match`.
     Without `host`, only device activity is traced (a call of tens of thousands
     of launches then takes seconds, not minutes, to read back). A window that
     holds no device event, or no event for a name in `require` (kernels the
     call is known to launch), is repeated, as in device_ms; after 5 such
-    windows the run fails rather than report a share of nothing."""
+    windows the run fails rather than report a share of nothing, or, where
+    the profile is `optional` (no check reads it), prints what the last
+    window held and returns None."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
@@ -1245,6 +1305,10 @@ def device_profile(fn, match: tuple = ("dropout_f32", "dropout_bf16"), host: boo
         if events and all(any(r in e.key for e in events) for r in require):
             break
     else:
+        if optional:
+            emit({"phase": "device_profile_missing", "require": list(require),
+                  "events": len(events), "last_window": [e.key[:90] for e in events[:20]]})
+            return None
         raise SystemExit(f"device_profile: 5 windows without device events for {require or 'any op'}")
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]
@@ -2160,13 +2224,10 @@ def phase_train_card_vs_cpu(workdir: str) -> None:
         raise SystemExit("card and CPU disagree on the training step")
 
 
-def siglip_openclip_state_dict(arch, seed: int) -> dict:
-    """A SigLIP backbone in open_clip naming, with the keys and shapes
-    convert_openclip_state_dict(sd, "siglip", layers, layers) reads: the timm
-    trunk under visual.trunk (packed qkv, MAP head with packed kv) and the
-    HF-named text tower under text.text_model. Seeded float32 weights: normal
-    with std fan_in**-0.5, biases and embeddings std 0.02, norm scales near 1."""
-    v, t = arch.vision, arch.text
+def seeded_writers(seed: int):
+    """(rand, linear, norm) writing seeded float32 tensors into a state dict:
+    normal weights with std fan_in**-0.5, biases and embeddings std 0.02,
+    norm scales near 1; one CPU generator, drawn in call order."""
     gen = torch.Generator().manual_seed(seed)
 
     def rand(*shape, std=0.02):
@@ -2177,6 +2238,18 @@ def siglip_openclip_state_dict(arch, seed: int) -> dict:
 
     def norm(sd, name, width):
         sd[f"{name}.weight"], sd[f"{name}.bias"] = 1.0 + rand(width), rand(width)
+
+    return rand, linear, norm
+
+
+def siglip_openclip_state_dict(arch, seed: int) -> dict:
+    """A SigLIP backbone in open_clip naming, with the keys and shapes
+    convert_openclip_state_dict(sd, "siglip", layers, layers) reads: the timm
+    trunk under visual.trunk (packed qkv, MAP head with packed kv) and the
+    HF-named text tower under text.text_model. Seeded float32 weights
+    (seeded_writers)."""
+    v, t = arch.vision, arch.text
+    rand, linear, norm = seeded_writers(seed)
 
     E, M, P, tr = v.width, v.mlp_dim, v.patch_size, "visual.trunk"
     sd = {f"{tr}.patch_embed.proj.weight": rand(E, 3, P, P, std=(3 * P * P) ** -0.5),
@@ -2206,6 +2279,45 @@ def siglip_openclip_state_dict(arch, seed: int) -> dict:
         for name, out, inp in (("self_attn.q_proj", T, T), ("self_attn.k_proj", T, T),
                                ("self_attn.v_proj", T, T), ("self_attn.out_proj", T, T),
                                ("mlp.fc1", TM, T), ("mlp.fc2", T, TM)):
+            linear(sd, f"{b}.{name}", out, inp)
+    return sd
+
+
+def eva_openclip_state_dict(arch, seed: int) -> dict:
+    """An EVA02 backbone of the SwiGLU/rope/sub-LN kind in open_clip naming,
+    with the keys and shapes convert_openclip_state_dict(sd, "eva02", ...)
+    reads: timm's Eva trunk under visual.trunk (separate q/k/v, k without a
+    bias, the head under the trunk) and the stock CLIP text tower. Seeded
+    float32 weights (seeded_writers)."""
+    v, t = arch.vision, arch.text
+    rand, linear, norm = seeded_writers(seed)
+    E, M, P, tr = v.width, v.mlp_hidden, v.patch_size, "visual.trunk"
+    sd = {f"{tr}.patch_embed.proj.weight": rand(E, 3, P, P, std=(3 * P * P) ** -0.5),
+          f"{tr}.patch_embed.proj.bias": rand(E), f"{tr}.cls_token": rand(1, 1, E),
+          f"{tr}.pos_embed": rand(1, v.grid ** 2 + 1, E)}
+    norm(sd, f"{tr}.norm", E)
+    linear(sd, f"{tr}.head", v.embed_dim, E)
+    for i in range(v.layers):
+        b = f"{tr}.blocks.{i}"
+        for name, width in (("norm1", E), ("norm2", E), ("attn.norm", E), ("mlp.norm", M)):
+            norm(sd, f"{b}.{name}", width)
+        for name, out, inp in (("attn.q_proj", E, E), ("attn.v_proj", E, E), ("attn.proj", E, E),
+                               ("mlp.fc1_g", M, E), ("mlp.fc1_x", M, E), ("mlp.fc2", E, M)):
+            linear(sd, f"{b}.{name}", out, inp)
+        sd[f"{b}.attn.k_proj.weight"] = rand(E, E, std=E ** -0.5)
+    T, TM = t.width, t.mlp_dim
+    sd["token_embedding.weight"] = rand(t.vocab_size, T)
+    sd["positional_embedding"] = rand(t.context_length, T)
+    sd["text_projection"] = rand(T, t.embed_dim, std=T ** -0.5)
+    norm(sd, "ln_final", T)
+    for i in range(t.layers):
+        b = f"transformer.resblocks.{i}"
+        norm(sd, f"{b}.ln_1", T)
+        norm(sd, f"{b}.ln_2", T)
+        sd[f"{b}.attn.in_proj_weight"] = rand(3 * T, T, std=T ** -0.5)
+        sd[f"{b}.attn.in_proj_bias"] = rand(3 * T)
+        for name, out, inp in (("attn.out_proj", T, T), ("mlp.c_fc", TM, T),
+                               ("mlp.c_proj", T, TM)):
             linear(sd, f"{b}.{name}", out, inp)
     return sd
 
@@ -3220,6 +3332,361 @@ def phase_eval(workdir: str, weights: str, nouns: list, name: str, smi: str) -> 
     return line
 
 
+def phase_towers(workdir: str, frames: list, nouns: list, name: str, smi: str) -> dict:
+    """Phase 12: the EVA02, CLIPA and ALIGN tower families and the structured
+    test embedder on the card. K1 at the towers' new shapes (hd 112; BERT's
+    (B, S) key bias) against its plain version; EVA02-L/14 converted through
+    the CLI and CLIPA-L/14 (seeded) serving the FT0 decoder, guided beam k=10,
+    2 x 64 frames; EVA02-E-14-plus at full width and depth (weights drawn on
+    the card); ALIGN's EfficientNet-B7 and BERT towers, and zero-shot over
+    phase 10's PNGs through the CLI; a mean_shift=true chunk with
+    'test-structured:' through the CLI (K3'). Returns the kernels line's
+    inputs: K1's three lines and their launches on this phase's path."""
+    from novic_tpu_torch.cli.train import main as train_main
+    from novic_tpu_torch.embedders.base import Embedder, TorchEmbedder
+    from novic_tpu_torch.embedders.registry import lookup
+    from novic_tpu_torch.embedders.structured import (make_structured_vocab,
+                                                      write_structured_cls_dataset)
+    from novic_tpu_torch.infer import NOVICModel
+    from novic_tpu_torch.ops import attention, dropout
+    from novic_tpu_torch.text.simple import make_test_tokenizer
+
+    wd = os.path.join(workdir, "towers")
+    os.makedirs(wd)
+    phase_t0 = time.perf_counter()
+    line = {"phase": "towers", "device": name, "nvidia_smi": smi}
+    failures = []
+
+    # 1. K1 at the new shapes: the L/14 towers' (hd 64, 257 tokens), EVA02-E's
+    # (hd 112, K1's KS = 7 instance) and ALIGN's BERT with its ragged key bias
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # (the profiles here are optional: one full run's profiler showed no K1
+    # kernel at this point of the script, though phase 12 alone shows them)
+    k1 = {"vision_l14": k1_check(attention, gen, BATCH, 257, 16, 64, optional_profile=True),
+          "eva02_e": k1_check(attention, gen, EVA_E_BATCH, 257, 16, 112, optional_profile=True),
+          "key_bias": k1_check(attention, gen, TEXT_BATCH, 64, 12, 64, key_pads=True,
+                               optional_profile=True)}
+    # ... and a whole 64-key tile masked by the key bias adds exactly 0
+    q, k, v = (torch.randn(4, 150, 4, 64, device="cuda", generator=gen) for _ in range(3))
+    key_bias = torch.zeros(4, 150, device="cuda")
+    key_bias[:, 64:128] = -1e30
+    v2 = v.clone()
+    v2[:, 64:128] = 1e3
+    masked_tile_exact = torch.equal(attention.fused_attention(q, k, v, key_bias=key_bias),
+                                    attention.fused_attention(q, k, v2, key_bias=key_bias))
+    emit({"phase": "towers_masked_tile", "shape": [4, 150, 4, 64], "masked_keys": [64, 128],
+          "exact_zero": masked_tile_exact})
+    if not masked_tile_exact:
+        raise SystemExit("K1: a fully masked 64-key tile moved the output")
+    launches = {key: 0 for key in k1}
+
+    def ids_for(arch, rows: int, seed: int) -> np.ndarray:
+        """Seeded token ids: the highest id (the argmax pool's end token) at a
+        seeded position of each row, pads after it."""
+        rng = np.random.default_rng(seed)
+        ctx, vocab = arch.text.context_length, arch.text.vocab_size
+        ids = rng.integers(1, vocab - 1, size=(rows, ctx)).astype(np.int32)
+        ends = rng.integers(1, ctx, size=rows)
+        ids[np.arange(rows), ends] = vocab - 1
+        ids[np.arange(ctx)[None, :] > ends[:, None]] = 0
+        return ids
+
+    # 2. EVA02-L/14 (converted through the CLI) and CLIPA-L/14 (seeded) serve
+    # the FT0 decoder, guided beam k=10, 2 batches of 64
+    eva_l = lookup(EVA_L_SPEC)
+    t0 = time.perf_counter()
+    sd = eva_openclip_state_dict(eva_l, SEED)
+    binpath, eva_weights = os.path.join(wd, "eva02_l14.bin"), os.path.join(wd, "eva02_l14.npz")
+    torch.save(sd, binpath)
+    backbone_params = sum(x.numel() for x in sd.values())
+    del sd
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_main(["action=convert_embedder", f"embedder={EVA_L_SPEC}", f"load_model={binpath}",
+                f"embedder_weights={eva_weights}", "--device=cuda"])
+    line["eva02_l_conversion"] = {"params": backbone_params, "make_s": make_s,
+                                  "convert_s": time.perf_counter() - t0}
+    os.remove(binpath)
+    guided, unguided = "beam_k10_vnone_gp_t1_a0", "beam_k10_vnone_gn_t1_a0"
+    guide = set(nouns)
+    for label, spec, extra in (("eva02_l14", EVA_L_SPEC, {"weights_path": eva_weights}),
+                               ("clipa_l14", CLIPA_L_SPEC, {"seed": SEED})):
+        arch = lookup(spec)
+        ekw = {"tokenizer": make_test_tokenizer(nouns, context_length=arch.text.context_length),
+               **extra}
+        with NOVICModel(FT0, embedder_spec=spec, embedder_kwargs=ekw, gencfg=guided,
+                        batch_size=BATCH, device="cuda") as model:
+            attention.LAUNCHES = 0
+            t0 = time.perf_counter()
+            out = model.classify_images(frames)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            got = attention.LAUNCHES
+            check_output(out, len(frames), guide)
+            want = arch.vision.layers * math.ceil(len(frames) / BATCH)
+            launches["vision_l14"] += got
+            e2e_ms = wall_ms(lambda: model.classify_images(frames), repeats=3)
+            pixels = model.transform_images(frames[:BATCH])
+            tower_ms = cuda_ms(lambda: model.embedder.embed_image_tensor(pixels), iters=5,
+                               warmup=1)
+            tids = torch.from_numpy(ids_for(arch, TEXT_BATCH, SEED + 12)).cuda()
+            text_ms = cuda_ms(lambda: model.embedder.embed_token_tensor(tids), iters=5, warmup=1)
+            prof = device_profile(lambda: model.embedder.embed_image_tensor(pixels),
+                                  match=K1_KERNELS, require=K1_KERNELS[1:], optional=True) or {
+                "device_busy_ms": None, "top_device_kernels_ms": None, "matched_kernels": None}
+            k1_ms = prof["matched_kernels"] and sum(m[1] for m in prof["matched_kernels"])
+            e_gpu = model.embed_images(frames[:2])
+            top_gpu = [r[0] for r in model.classify_embeds(e_gpu, gencfg=unguided).preds]
+        with NOVICModel(FT0, embedder_spec=spec, embedder_kwargs=ekw, gencfg=unguided,
+                        batch_size=2, device="cpu") as cpu:
+            e_cpu = cpu.embed_images(frames[:2])
+            top_cpu = [r[0] for r in cpu.classify_embeds(e_cpu).preds]
+        cos = cosines(e_cpu, e_gpu)
+        # ... and at float32 compute, the same weights
+        f32 = [Embedder.create(spec, compute_dtype="float32", device=dev, image_batch_size=2,
+                               **ekw) for dev in ("cuda", "cpu")]
+        e32 = [emb.inference_image(emb.get_image_transform()(frames[:2])) for emb in f32]
+        del f32
+        cos32 = cosines(e32[1], e32[0])
+        bar = EVA_L_BF16_COSINE_MIN if label == "eva02_l14" else COSINE_MIN
+        res = {"spec": spec, "images": len(frames), "batch": BATCH, "gencfg": guided,
+               "tokens": arch.vision.grid ** 2 + 1, "layers": [arch.vision.layers,
+                                                               arch.text.layers],
+               "fused_attention_launches": got, "expected_launches": want,
+               "first_call_s": first_s, "e2e_images_per_s": len(frames) / (
+                   statistics.median(e2e_ms) / 1e3), "e2e_ms": e2e_ms,
+               "tower_ms_per_batch": tower_ms, "tower_images_per_s": BATCH / (tower_ms / 1e3),
+               "text_batch": TEXT_BATCH, "text_ms_per_batch": text_ms,
+               "texts_per_s": TEXT_BATCH / (text_ms / 1e3),
+               "profile_device_busy_ms": prof["device_busy_ms"],
+               "fused_attention_device_ms": k1_ms,
+               "fused_attention_share": k1_ms and k1_ms / prof["device_busy_ms"],
+               "top_device_kernels_ms": prof["top_device_kernels_ms"],
+               "labels": [r[:3] for r in out.preds[:3]], "card_vs_cpu_cosine": cos.tolist(),
+               "card_vs_cpu_bar": bar, "card_vs_cpu_cosine_float32": cos32.tolist(),
+               "top1_cpu": top_cpu, "top1_gpu": top_gpu}
+        emit({"phase": f"towers_{label}", **res})
+        line[label] = res
+        if got != want:
+            raise SystemExit(f"{label}: fused_attention launched {got} times, expected {want}")
+        if cos.min() < bar or cos32.min() < COSINE_MIN or top_cpu != top_gpu:
+            failures.append(f"{label}: card and CPU disagree")
+
+    # 3. EVA02-E-14-plus at full width and depth, its weights drawn on the card
+    eva_e = lookup(EVA_E_SPEC)
+    e_tok = make_test_tokenizer(nouns, context_length=eva_e.text.context_length)
+
+    def eva_e_embedder(arch):
+        return TorchEmbedder(spec=EVA_E_SPEC, arch=arch, load_model=False, check=False,
+                             weights_path=None, tokenizer=e_tok, compute_dtype="bfloat16",
+                             seed=SEED, device="cuda", init_on_device=True,
+                             inference_batch_size=TEXT_BATCH, image_batch_size=EVA_E_BATCH)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    emb = eva_e_embedder(eva_e)
+    t0 = time.perf_counter()
+    emb.load_model()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_gb = [sum(p.numel() for p in m.parameters()) * 4 / 1e9
+                for m in (emb._vision, emb._text)]
+    pixels = emb.get_image_transform()(frames[:EVA_E_BATCH])
+    attention.LAUNCHES = 0
+    image_embeds = emb.inference_image(pixels)
+    torch.cuda.synchronize()
+    e_launches = attention.LAUNCHES
+    launches["eva02_e"] += e_launches
+    vision_ms = cuda_ms(lambda: emb.embed_image_tensor(pixels), iters=3, warmup=1)
+    ids = ids_for(eva_e, TEXT_BATCH, SEED + 13)
+    attention.LAUNCHES = 0
+    text_embeds = emb.inference_tokens({"input_ids": ids})
+    torch.cuda.synchronize()
+    e_text_launches = attention.LAUNCHES
+    tids = torch.from_numpy(ids).cuda()
+    text_ms = cuda_ms(lambda: emb.embed_token_tensor(tids), iters=3, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del emb
+    torch.cuda.empty_cache()
+    # card vs CPU at full width with EVA_E_CPU_LAYERS layers in each tower
+    arch4 = dataclasses.replace(
+        eva_e, vision=dataclasses.replace(eva_e.vision, layers=EVA_E_CPU_LAYERS),
+        text=dataclasses.replace(eva_e.text, layers=EVA_E_CPU_LAYERS))
+    emb = eva_e_embedder(arch4)
+    emb.load_model()
+    with torch.inference_mode():
+        card = [emb.embed_image_tensor(pixels[:1]).cpu().numpy(),
+                emb.embed_token_tensor(tids[:4]).cpu().numpy()]
+        t0 = time.perf_counter()
+        cpu = [emb._vision.cpu()(pixels[:1].cpu()).numpy(),
+               emb._text.cpu()(tids[:4].cpu()).numpy()]
+        cpu_s = time.perf_counter() - t0
+    del emb
+    cos_img, cos_txt = cosines(cpu[0], card[0]), cosines(cpu[1], card[1])
+    finite = (np.isfinite(image_embeds).all() and np.isfinite(text_embeds).all()
+              and image_embeds.shape == (EVA_E_BATCH, eva_e.vision.embed_dim)
+              and text_embeds.shape == (TEXT_BATCH, eva_e.text.embed_dim))
+    res = {"spec": EVA_E_SPEC, "layers": [eva_e.vision.layers, eva_e.text.layers],
+           "width": [eva_e.vision.width, eva_e.text.width], "mlp": eva_e.vision.mlp_hidden,
+           "param_gb_float32": param_gb, "init_on_card_s": init_s, "batch": EVA_E_BATCH,
+           "vision_launches": e_launches, "text_launches": e_text_launches,
+           "vision_ms_per_batch": vision_ms, "images_per_s": EVA_E_BATCH / (vision_ms / 1e3),
+           "text_batch": TEXT_BATCH, "text_ms_per_batch": text_ms,
+           "texts_per_s": TEXT_BATCH / (text_ms / 1e3), "peak_memory_gb": peak_gb,
+           "cpu_check_layers": EVA_E_CPU_LAYERS, "card_vs_cpu_cosine_image": cos_img.tolist(),
+           "card_vs_cpu_cosine_text": cos_txt.tolist(), "cpu_side_s": cpu_s,
+           "finite": bool(finite)}
+    emit({"phase": "towers_eva02_e", **res})
+    line["eva02_e"] = res
+    if (e_launches, e_text_launches) != (eva_e.vision.layers, eva_e.text.layers) or not finite:
+        raise SystemExit(f"EVA02-E: launches {(e_launches, e_text_launches)} (expected one a "
+                         f"layer a forward), finite {finite}")
+    if cos_img.min() < COSINE_MIN or cos_txt.min() < COSINE_MIN:
+        failures.append("EVA02-E: card and CPU disagree")
+
+    # 4. ALIGN: EfficientNet-B7 at 289 px and BERT over ragged texts
+    align = lookup(ALIGN_SPEC)
+    torch.cuda.reset_peak_memory_stats()
+    emb = torch_embedder(ALIGN_SPEC, align, nouns, "cuda", ALIGN_BATCH)
+    t0 = time.perf_counter()
+    pixels = emb.get_image_transform()(frames[:ALIGN_BATCH])
+    preprocess_s = time.perf_counter() - t0
+    attention.LAUNCHES = 0
+    image_embeds = emb.inference_image(pixels)
+    torch.cuda.synchronize()
+    a_vision_launches = attention.LAUNCHES
+    vision_ms = cuda_ms(lambda: emb.embed_image_tensor(pixels), iters=3, warmup=1)
+    rng = np.random.default_rng(SEED + 14)
+    ctx = align.text.context_length
+    lengths = rng.integers(1, ctx + 1, size=TEXT_BATCH)
+    ids = rng.integers(1000, align.text.vocab_size, size=(TEXT_BATCH, ctx)).astype(np.int32)
+    ids[:, 0] = 101  # [CLS] in BERT-uncased; any nonzero id serves
+    ids[np.arange(ctx)[None, :] >= lengths[:, None]] = align.text.pad_token_id
+    attention.LAUNCHES = 0
+    text_embeds = emb.inference_tokens({"input_ids": ids})
+    torch.cuda.synchronize()
+    a_text_launches = attention.LAUNCHES
+    launches["key_bias"] += a_text_launches
+    tids = torch.from_numpy(ids).cuda()
+    text_ms = cuda_ms(lambda: emb.embed_token_tensor(tids), iters=5, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del emb
+    t0 = time.perf_counter()
+    cpu = torch_embedder(ALIGN_SPEC, align, nouns, "cpu", 4)
+    e_img = cpu.inference_image(pixels[:2].cpu())
+    e_txt = cpu.inference_tokens({"input_ids": ids[:4]})
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    cos_img, cos_txt = cosines(e_img, image_embeds[:2]), cosines(e_txt, text_embeds[:4])
+    finite = (np.isfinite(image_embeds).all() and np.isfinite(text_embeds).all()
+              and image_embeds.shape == (ALIGN_BATCH, align.vision.embed_dim)
+              and text_embeds.shape == (TEXT_BATCH, align.text.embed_dim))
+    res = {"spec": ALIGN_SPEC, "image_size": align.vision.image_size, "batch": ALIGN_BATCH,
+           "host_preprocess_s": preprocess_s, "vision_ms_per_batch": vision_ms,
+           "images_per_s": ALIGN_BATCH / (vision_ms / 1e3), "vision_launches": a_vision_launches,
+           "text_batch": TEXT_BATCH, "text_lengths_min_max": [int(lengths.min()),
+                                                             int(lengths.max())],
+           "text_launches": a_text_launches, "text_ms_per_batch": text_ms,
+           "texts_per_s": TEXT_BATCH / (text_ms / 1e3), "peak_memory_gb": peak_gb,
+           "card_vs_cpu_cosine_image": cos_img.tolist(),
+           "card_vs_cpu_cosine_text": cos_txt.tolist(), "cpu_side_s": cpu_s,
+           "finite": bool(finite)}
+    emit({"phase": "towers_align", **res})
+    line["align"] = res
+    if (a_vision_launches, a_text_launches) != (0, align.text.layers) or not finite:
+        raise SystemExit(f"ALIGN: K1 launches vision {a_vision_launches}, text "
+                         f"{a_text_launches} (expected 0 and {align.text.layers}); "
+                         f"finite {finite}")
+    if cos_img.min() < COSINE_MIN or cos_txt.min() < COSINE_MIN:
+        failures.append("ALIGN: card and CPU disagree")
+
+    # ... zero-shot over phase 10's 1,024 PNGs through the CLI
+    from novic_tpu_torch.data.classification import load_image_dataset_prompts
+
+    img_root = os.path.join(workdir, "noun_data", "images")
+    prompts = load_image_dataset_prompts("Imagenette", "clip")
+    gap_path = os.path.join(wd, "align_gap.json")
+    attention.LAUNCHES = 0
+    t0 = time.perf_counter()
+    zs = train_main(["action=embedder_zero_shot", "measure_gap=true",
+                     f"gap_output_path={gap_path}", f"embedder={ALIGN_SPEC}",
+                     "embedder_compute_dtype=bfloat16",
+                     f"vocab_path={os.path.join(workdir, 'noun_data', 'vocab.json')}",
+                     f"prompt_collection={NOUN_COLLECTION}", "hypernym_collection=None",
+                     f"batch_size_embed={NOUN_EMBED_BATCH}", f"batch_size_image={CLS_IMAGE_BATCH}",
+                     f"output_dir={wd}/out", f"seed={SEED}", "cls_dataset=Imagenette",
+                     f"cls_dataset_root={img_root}", "cls_split=valid", "--device=cuda"])
+    torch.cuda.synchronize()
+    zs_s = time.perf_counter() - t0
+    zs_launches = attention.LAUNCHES
+    launches["key_bias"] += zs_launches
+    want = align.text.layers * CLS_CLASSES * math.ceil(len(prompts) / NOUN_EMBED_BATCH)
+    with open(gap_path) as f:
+        gap = json.load(f)
+    res = {"top1": zs["Imagenette"], "seconds": zs_s, "images_per_s": CLS_IMAGES / zs_s,
+           "k1_launches": zs_launches, "expected_k1_launches": want,
+           "angle_mean": gap["angle_mean"], "angle_count": sum(gap["angle_histc"]["counts"]),
+           "mean_shift_dims": len(gap["mean_shift"])}
+    emit({"phase": "towers_align_zero_shot", **res})
+    line["align_zero_shot"] = res
+    if (zs_launches != want or res["angle_count"] != CLS_IMAGES
+            or res["mean_shift_dims"] != align.vision.embed_dim):
+        raise SystemExit(f"ALIGN zero-shot: {zs_launches} K1 launches (expected {want}), "
+                         f"{res['angle_count']} angles, {res['mean_shift_dims']} dims")
+
+    # 5. 'test-structured:': its cache, its gap and one mean_shift=true chunk
+    sdir = os.path.join(wd, "structured")
+    os.makedirs(sdir)
+    vocab = make_structured_vocab(STRUCTURED_CLASSES, freq=20, seed=SEED)
+    with open(os.path.join(sdir, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    write_structured_cls_dataset(os.path.join(sdir, "cls"), [e["target_noun"] for e in vocab],
+                                 STRUCTURED_IMAGES, seed=SEED + 1)
+    common = [f"embedder={STRUCTURED_SPEC}", f"vocab_path={sdir}/vocab.json", "prompt_path=",
+              "prompt_collection=Basic", "hypernym_collection=None", f"seed={SEED}",
+              f"output_dir={sdir}/out", "--device=cuda"]
+    cache, sgap = os.path.join(sdir, "multiset.bin"), os.path.join(sdir, "gap.json")
+    t0 = time.perf_counter()
+    train_main(["action=cache_noun_multiset", f"save_embedding_cache={cache}",
+                "multi_target_freq=[2,1]"] + common)
+    szs = train_main(["action=embedder_zero_shot", "measure_gap=true", f"gap_output_path={sgap}",
+                      "cls_dataset=Food101", f"cls_dataset_root={sdir}/cls", "cls_split=valid",
+                      "batch_size_image=128"] + common)
+    attention.LAUNCHES = dropout.LAUNCHES = 0
+    state, _, _ = train_main(["action=train", f"embedding_dataset={cache}", "mean_shift=true",
+                              f"mean_shift_path={sgap}", "chunk_scale=16", "max_chunks=1",
+                              "save_every_max=1000000", "save_top1_min=200"]
+                             + STRUCTURED_MODEL + common)
+    torch.cuda.synchronize()
+    with open(glob.glob(os.path.join(sdir, "out", "ovod_*", "metrics.jsonl"))[0]) as f:
+        chunk = json.loads(f.readline())
+    with open(sgap) as f:
+        gap = json.load(f)
+    sites = 1 + 4 * 2  # input dropout + 4 per layer x 2 layers, forward and backward
+    res = {"spec": STRUCTURED_SPEC, "zero_shot_top1": szs["Food101"],
+           "gap_angle_mean": gap["angle_mean"], "steps": state.step,
+           "chunk_loss": chunk["chunk_loss"], "dropout_launches": dropout.LAUNCHES,
+           "expected_dropout_launches": 2 * sites * state.step,
+           "k1_launches": attention.LAUNCHES, "seconds": time.perf_counter() - t0}
+    emit({"phase": "towers_structured", **res})
+    line["structured"] = res
+    if (state.step < 1 or not math.isfinite(chunk["chunk_loss"]) or attention.LAUNCHES
+            or dropout.LAUNCHES != res["expected_dropout_launches"]):
+        raise SystemExit(f"structured mean-shift chunk: {res}")
+
+    # The phase line: every number above beside the card's name and power limit
+    line.update(kernels={case: {key: kl[key] for key in ("shape", "key_bias", "max_abs_err", "ms",
+                                                        "plain_ms", "library_ms", "bound_ms",
+                                                        "bound_by")}
+                         for case, kl in k1.items()},
+                masked_tile_exact_zero=masked_tile_exact, k1_launches=launches,
+                seconds=time.perf_counter() - phase_t0, failures=failures)
+    emit(line)
+    if failures:
+        raise SystemExit("; ".join(failures))
+    return {"k1": k1, "launches": launches, "dropout_launches": res["dropout_launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs a GPU", file=sys.stderr)
@@ -3423,6 +3890,8 @@ def main() -> int:
         # 11. the evaluation, inference and results actions
         eval_line = phase_eval(workdir, os.path.join(workdir, "reference", "siglip_b16.npz"),
                                list(nouns), name, smi)
+        # 12. the EVA02, CLIPA and ALIGN towers and the structured test embedder
+        towers = phase_towers(workdir, frames, list(nouns), name, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3437,7 +3906,8 @@ def main() -> int:
                               "all_decode": all_line["fused_attention_launches"],
                               "reference": ref_line["fused_attention_launches"],
                               "noun_data": noun_line["k1_launches"],
-                              "eval": eval_line["k1_launches"]},
+                              "eval": eval_line["k1_launches"],
+                              "towers": sum(towers["launches"].values())},
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"]}, {
@@ -3448,7 +3918,8 @@ def main() -> int:
         "launches_by_phase": {"train": train_line["dropout_launches"],
                               "reference": ref_line["dropout_launches"],
                               "noun_data": noun_line["dropout_launches"],
-                              "eval": eval_line["dropout_launches"]},
+                              "eval": eval_line["dropout_launches"],
+                              "towers": towers["dropout_launches"]},
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}, {
@@ -3500,6 +3971,14 @@ def main() -> int:
         "max_abs_err": k1_text["max_abs_err"], "ms": k1_text["ms"],
         "plain_ms": k1_text["plain_ms"], "bound_ms": k1_text["bound_ms"],
         "bound_by": k1_text["bound_by"], "library_ms": k1_text["library_ms"]}] + [{
+        # Phase 12's shapes: the EVA02-L and CLIPA-L vision towers (hd 64, 257
+        # tokens), EVA02-E's (hd 112) and ALIGN's BERT with its (B, S) key bias
+        "name": f"fused_attention_{case}", "route": "cuda",
+        "source": "novic_tpu_torch/ops/csrc/attention.cu",
+        "replaces": "novic_tpu/ops/attention.py:71", "launches": towers["launches"][case],
+        "max_abs_err": kl["max_abs_err"], "ms": kl["ms"], "plain_ms": kl["plain_ms"],
+        "bound_ms": kl["bound_ms"], "bound_by": kl["bound_by"], "library_ms": kl["library_ms"]}
+        for case, kl in towers["k1"].items()] + [{
         "name": f"attention_bf16_{case}", "route": "cuda",
         "source": "novic_tpu_torch/ops/csrc/attention_bf16.cu", "replaces": line["replaces"],
         "launches": harness_launches[case], "max_abs_err": line["max_abs_err"],

@@ -31,6 +31,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from novic_tpu_torch.embedders.align import (
+    AlignTextConfig,
+    AlignVisionConfig,
+    BertTextTower,
+    EfficientNetTower,
+)
+from novic_tpu_torch.embedders.eva import EvaVisionConfig, EvaVisionTransformer
 from novic_tpu_torch.embedders.vit import (
     TextTowerConfig,
     TextTransformer,
@@ -62,6 +69,21 @@ def vision_tower_from_numpy(cfg: VisionTowerConfig, tree: dict) -> VisionTransfo
 def text_tower_from_numpy(cfg: TextTowerConfig, tree: dict) -> TextTransformer:
     """TextTransformer (on the CPU) holding the given param tree."""
     return load_tree(TextTransformer(cfg), tree)
+
+
+def eva_tower_from_numpy(cfg: EvaVisionConfig, tree: dict) -> EvaVisionTransformer:
+    """EvaVisionTransformer (on the CPU) holding the given param tree."""
+    return load_tree(EvaVisionTransformer(cfg), tree)
+
+
+def align_vision_from_numpy(cfg: AlignVisionConfig, tree: dict) -> EfficientNetTower:
+    """EfficientNetTower (on the CPU) holding the given param tree."""
+    return load_tree(EfficientNetTower(cfg), tree)
+
+
+def bert_text_from_numpy(cfg: AlignTextConfig, tree: dict) -> BertTextTower:
+    """BertTextTower (on the CPU) holding the given (flat) param tree."""
+    return load_tree(BertTextTower(cfg), tree)
 
 
 def harness_params_from_numpy(layers: list[dict], device="cpu") -> list[dict[str, torch.Tensor]]:

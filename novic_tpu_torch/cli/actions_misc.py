@@ -6,16 +6,17 @@ download with retry/backoff and resizing to at most 0.8 MP; it needs the
 network. sample_images (ref train.py:3512-3576): random or zero-shot-weighted
 multinomial sampling of images from a directory, the towers on `device`.
 
-action=convert_embedder: CLIP/SigLIP backbone weights → the .npz tower
-weights that `embedder_weights=` and the infer CLI's `--weights` read, in the
-JAX package's layout.
+action=convert_embedder: backbone weights of any tower family → the .npz
+tower weights that `embedder_weights=` and the infer CLI's `--weights` read,
+in the JAX package's layout.
 
 Two input modes:
 * load_model=<open_clip_pytorch_model.bin / .pt>: a local open_clip-format
-  state dict (how the released timm-SigLIP and DFN5B backbones ship), read
-  with PyTorch's restricted unpickler and mapped by the spec's family;
+  state dict (how the released timm-SigLIP, DFN5B, CLIPA and EVA02 backbones
+  ship), read with PyTorch's restricted unpickler and mapped by the spec's
+  family;
 * otherwise `transformers.AutoModel.from_pretrained` of the spec's model id
-  or local HF directory (HF CLIPModel / SiglipModel).
+  or local HF directory (HF CLIPModel / SiglipModel / AlignModel).
 """
 
 from __future__ import annotations
@@ -197,11 +198,15 @@ def action_convert_embedder(cfg, device="cuda"):
     arch = lookup(spec)  # what cannot be looked up cannot serve: raises first
 
     if cfg.load_model:
+        if arch.family == "align":
+            raise ValueError("ALIGN converts from a transformers AlignModel (its spec's id or "
+                             "local HF directory), not from an open_clip state dict")
         src = resolve_path(cfg, cfg.load_model)
         sd = torch.load(src, map_location="cpu", weights_only=True)
         if isinstance(sd, dict) and "state_dict" in sd:
             sd = sd["state_dict"]
-        v, t = convert_openclip_state_dict(sd, arch.family, arch.vision.layers, arch.text.layers)
+        v, t = convert_openclip_state_dict(sd, arch.family, arch.vision.layers, arch.text.layers,
+                                           vision_cfg=arch.vision)
     else:
         try:
             import transformers

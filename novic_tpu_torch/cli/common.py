@@ -61,7 +61,7 @@ def load_embedder(cfg, load_model: bool = False, device="cuda") -> Embedder:
         image_batch_size=cfg.batch_size_image,
         load_model=load_model,
     )
-    is_test = cfg.embedder.split(":", 1)[0] == "test"
+    is_test = cfg.embedder.split(":", 1)[0] in ("test", "test-structured")
     if not is_test:
         kwargs.update(
             weights_path=resolve_path(cfg, cfg.embedder_weights) if cfg.embedder_weights else None,
@@ -78,6 +78,12 @@ def load_embedder(cfg, load_model: bool = False, device="cuda") -> Embedder:
             with open(resolve_path(cfg, cfg.vocab_path)) as f:
                 vocab_json = json.load(f)
             kwargs["tokenizer"] = make_test_tokenizer([e["target_noun"] for e in vocab_json])
+            if cfg.embedder.startswith("test-structured:"):
+                # The structured embedder also matches the nouns' variants
+                # (singulars, plurals) in texts, to place them on their class
+                from novic_tpu_torch.embedders.structured import lexicon_from_vocab_json
+
+                kwargs["lexicon"] = lexicon_from_vocab_json(vocab_json)
         except (OSError, ValueError, KeyError, TypeError) as e:
             log.warning(f"Could not build test tokenizer from vocab_path: {e}")
     return Embedder.create(cfg.embedder, **kwargs)

@@ -12,7 +12,8 @@ tokenizer when `bpe_merges_path` or $NOVIC_CLIP_BPE / $NOVIC_SIGLIP_SPM /
 $NOVIC_BERT_VOCAB names a file, else the word-level test tokenizer.
 
 Also provides the 'test:<dim>' embedder, whose BLAKE2-derived vectors are
-byte-identical to the JAX package's.
+byte-identical to the JAX package's, and builds the structured modality-gap
+test embedder 'test-structured:<dim>[:...]' (embedders/structured.py).
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ class Embedder:
 
     @staticmethod
     def create(
-        spec: str,                          # 'TYPE:NAME' (openai:/openclip:/transformers:/test:)
+        spec: str,                          # 'TYPE:NAME' (openai:/openclip:/transformers:/test:/test-structured:)
         *,
         tokenizer_batch_size: int = 1024,
         inference_batch_size: int = 256,
@@ -59,6 +60,7 @@ class Embedder:
         compute_dtype: str = "bfloat16",
         seed: int = 0,
         device: Union[str, torch.device] = "cuda",
+        lexicon: Optional[dict] = None,     # test-structured: variant -> noun matching table
     ) -> "Embedder":
         if ":" not in spec:
             raise ValueError(f"Embedder spec must be of the format 'TYPE:NAME': {spec}")
@@ -68,6 +70,15 @@ class Embedder:
         if kind == "test":
             return HashEmbedder(spec=spec, embed_dim=int(name), check=check, tokenizer=tokenizer,
                                 **sizes)
+        if kind == "test-structured":
+            from novic_tpu_torch.embedders.structured import (
+                StructuredEmbedder,
+                parse_structured_spec,
+            )
+
+            return StructuredEmbedder(spec=spec, lexicon=lexicon, check=check,
+                                      tokenizer=tokenizer, **sizes,
+                                      **parse_structured_spec(spec, name))
         if kind not in ("openai", "openclip", "transformers"):
             raise ValueError(f"Unsupported embedder type: {kind}")
         return TorchEmbedder(spec=spec, arch=lookup(spec), load_model=load_model, check=check,
@@ -234,11 +245,17 @@ class Embedder:
 
 def tower_modules(arch: EmbedderArch):
     """(vision_model, text_model) modules for a registry arch: the single
-    family-dispatch point. The EVA02 and ALIGN towers are not ported yet."""
-    if arch.family in ("align", "eva02"):
-        raise NotImplementedError(f"The {arch.family} towers are not ported yet")
+    family-dispatch point. Each has `init_random(generator)`."""
+    if arch.family == "align":
+        from novic_tpu_torch.embedders.align import BertTextTower, EfficientNetTower
+
+        return EfficientNetTower(arch.vision), BertTextTower(arch.text)
     from novic_tpu_torch.embedders.vit import TextTransformer, VisionTransformer
 
+    if arch.family == "eva02":
+        from novic_tpu_torch.embedders.eva import EvaVisionTransformer
+
+        return EvaVisionTransformer(arch.vision), TextTransformer(arch.text)
     return VisionTransformer(arch.vision), TextTransformer(arch.text)
 
 
@@ -247,16 +264,21 @@ def _unit(x: torch.Tensor) -> torch.Tensor:
 
 
 class TorchEmbedder(Embedder):
-    """PyTorch towers for a registered CLIP-family architecture (the
+    """PyTorch towers for a registered architecture of any family (the
     counterpart of JaxEmbedder). Built directly with a replaced arch it serves
     other tower configurations, e.g. the int8 mode:
     TorchEmbedder(spec=..., arch=dataclasses.replace(arch, vision=dataclasses.replace(
-    arch.vision, quant="int8:pallas")), ...)."""
+    arch.vision, quant="int8:pallas")), ...).
+
+    Random towers (no weights_path) are drawn on the CPU from `seed`, the same
+    on every device; `init_on_device=True` builds and draws them on the
+    embedder's device instead (a CUDA generator: other values than the CPU's),
+    for towers too large to draw on the host."""
 
     def __init__(self, *, spec: str, arch: EmbedderArch, load_model: bool, check: bool,
                  weights_path: Optional[str], tokenizer: Optional[TextTokenizer],
                  compute_dtype: str, seed: int, device: Union[str, torch.device] = "cuda",
-                 bpe_merges_path: Optional[str] = None, **sizes):
+                 bpe_merges_path: Optional[str] = None, init_on_device: bool = False, **sizes):
         if compute_dtype != arch.vision.compute_dtype:
             arch = dataclasses.replace(
                 arch, vision=dataclasses.replace(arch.vision, compute_dtype=compute_dtype),
@@ -265,6 +287,7 @@ class TorchEmbedder(Embedder):
         self.device = resolve(device)
         self.weights_path = weights_path
         self.seed = seed
+        self.init_on_device = init_on_device
         self._vision = self._text = None
         if tokenizer is None:
             tokenizer = self._build_tokenizer(arch, bpe_merges_path)
@@ -337,6 +360,14 @@ class TorchEmbedder(Embedder):
     def load_model(self) -> bool:
         if self._vision is not None:
             return False
+        if self.init_on_device and not self.weights_path:
+            with self.device:
+                vision, text = tower_modules(self.arch)
+            gen = torch.Generator(device=self.device).manual_seed(self.seed)
+            self._vision, self._text = vision.init_random(gen).eval(), text.init_random(gen).eval()
+            log.warning("No tower weights provided => using random initialization on "
+                        f"{self.device} (perf benchmarking / testing only)")
+            return True
         vision, text = tower_modules(self.arch)
         if self.weights_path:
             from novic_tpu_torch.bridge import load_tree
@@ -432,7 +463,7 @@ class HashEmbedder(Embedder):
         tok = tokenizer if tokenizer is not None else SimpleWordTokenizer(words=(), context_length=77)
         super().__init__(spec=spec, configuration={"spec": spec, "embed_dim": embed_dim},
                          tokenizer=tok, embed_dim=embed_dim, check=check,
-                         config_class="HashEmbedder", **sizes)
+                         config_class=type(self).__name__, **sizes)
         self._loaded = True
 
     def load_model(self) -> bool:

@@ -1,32 +1,24 @@
-"""HF and open_clip CLIP/SigLIP state dicts → the port's tower param trees (the
-counterpart of novic_tpu.embedders.convert).
+"""HF and open_clip state dicts → the port's tower param trees (the
+counterpart of novic_tpu.embedders.convert), for every tower family: CLIP and
+SigLIP (HF and open_clip naming), CLIPA and EVA02 (open_clip naming; EVA02's
+trunk under timm's names) and ALIGN (HF AlignModel, its BatchNorms folded).
 
 The output is the JAX package's numpy tree, under the same names, and
 save_params_npz writes the JAX package's .npz layout (the same keys, in the
 same order), so a file written by either package loads in the other;
-load_params_npz and bridge.vision_tower_from_numpy / text_tower_from_numpy
-serve it. Conversion runs on the host and never touches the device.
-
-The CLIPA, EVA02 and ALIGN maps are not ported: their towers are not
-(ROADMAP Queue 1 item 7), and their families raise NotImplementedError.
+load_params_npz and bridge's *_from_numpy functions serve it. Conversion
+runs on the host and never touches the device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
 import torch
 
 from novic_tpu_torch.utils.misc import flatten_dict, unflatten_dict
-
-_TOWERS_NOT_PORTED = ("Its towers are not ported to novic_tpu_torch yet (ROADMAP Queue 1 "
-                      "item 7: other tower families)")
-NOT_PORTED_FAMILIES = {
-    "clipa": "open_clip CLIPA conversion is not ported. " + _TOWERS_NOT_PORTED,
-    "eva02": "open_clip EVA02 conversion is not ported. " + _TOWERS_NOT_PORTED,
-    "align": "HF ALIGN conversion is not ported. " + _TOWERS_NOT_PORTED,
-}
 
 
 def _np(t) -> np.ndarray:
@@ -157,8 +149,8 @@ def convert_hf_model(model, model_type: str) -> tuple[dict, dict]:
         n_v = model.config.vision_config.num_hidden_layers
         n_t = model.config.text_config.num_hidden_layers
         return convert_siglip_vision(sd, n_v), convert_siglip_text(sd, n_t)
-    if model_type in NOT_PORTED_FAMILIES:
-        raise NotImplementedError(NOT_PORTED_FAMILIES[model_type])
+    if model_type == "align":
+        return convert_align_model(model)
     raise ValueError(f"Unsupported model type: {model_type}")
 
 
@@ -210,8 +202,9 @@ def _openclip_block(sd: dict, prefix: str) -> dict:
     }
 
 
-def convert_openclip_clip_vision(state_dict: dict, num_layers: int) -> dict:
-    """open_clip CLIP visual tower (visual.*) → VisionTransformer params.
+def convert_openclip_clip_vision(state_dict: dict, num_layers: int, pre_ln: bool = True) -> dict:
+    """open_clip CLIP visual tower (visual.*) → VisionTransformer params;
+    without `pre_ln` the tower has no ln_pre (CLIPA's no_ln_pre).
 
     Note: open_clip applies the projection as ``pooled @ proj`` with proj of
     shape (width, embed_dim); our proj_weight is torch-layout (out, in), so
@@ -224,12 +217,15 @@ def convert_openclip_clip_vision(state_dict: dict, num_layers: int) -> dict:
         "patch_weight": conv_w.transpose(0, 2, 3, 1).reshape(E, -1),
         "class_embedding": _np(sd["visual.class_embedding"]).reshape(-1),
         "pos_embedding": _np(sd["visual.positional_embedding"]),
-        "pre_ln_weight": _np(sd["visual.ln_pre.weight"]),
-        "pre_ln_bias": _np(sd["visual.ln_pre.bias"]),
+    }
+    if pre_ln:
+        params["pre_ln_weight"] = _np(sd["visual.ln_pre.weight"])
+        params["pre_ln_bias"] = _np(sd["visual.ln_pre.bias"])
+    params.update({
         "post_ln_weight": _np(sd["visual.ln_post.weight"]),
         "post_ln_bias": _np(sd["visual.ln_post.bias"]),
         "proj_weight": _np(sd["visual.proj"]).T,
-    }
+    })
     for i in range(num_layers):
         params[f"blocks_{i}"] = _openclip_block(sd, f"visual.transformer.resblocks.{i}")
     return params
@@ -311,16 +307,32 @@ def convert_openclip_siglip_vision(state_dict: dict, num_layers: int) -> dict:
     return params
 
 
+def convert_openclip_clipa_vision(state_dict: dict, num_layers: int) -> dict:
+    """open_clip CLIPA visual tower → VisionTransformer(pool='avg') params: the
+    stock CLIP naming without ln_pre (its avg pool and final LN after the pool
+    are forward-pass differences only)."""
+    return convert_openclip_clip_vision(state_dict, num_layers, pre_ln=False)
+
+
 def convert_openclip_state_dict(state_dict: dict, family: str,
                                 num_vision_layers: int, num_text_layers: int,
                                 vision_cfg=None) -> tuple[dict, dict]:
-    """Full open_clip checkpoint → (vision_params, text_params) for the
-    families 'clip' (DFN5B-H-14-378 among them) and 'siglip'. `vision_cfg` is
-    taken for the JAX package's signature; the ported families need none."""
-    if family in NOT_PORTED_FAMILIES:
-        raise NotImplementedError(NOT_PORTED_FAMILIES[family])
+    """Full open_clip checkpoint → (vision_params, text_params). `vision_cfg`
+    (the registry's EvaVisionConfig) is required for family='eva02': its block
+    flags select which checkpoint keys must exist."""
+    if family == "eva02":
+        if vision_cfg is None:
+            raise ValueError("family='eva02' conversion needs vision_cfg "
+                             "(the EvaVisionConfig from the registry)")
+        return (convert_openclip_eva_vision(state_dict, vision_cfg),
+                convert_openclip_clip_text(state_dict, num_text_layers))
     if family == "clip":
         return (convert_openclip_clip_vision(state_dict, num_vision_layers),
+                convert_openclip_clip_text(state_dict, num_text_layers))
+    if family == "clipa":
+        # CLIPA's text tower has the stock open_clip naming (its non-causal
+        # mask and last-token pool are forward-pass differences only)
+        return (convert_openclip_clipa_vision(state_dict, num_vision_layers),
                 convert_openclip_clip_text(state_dict, num_text_layers))
     if family == "siglip":
         vision = convert_openclip_siglip_vision(state_dict, num_vision_layers)
@@ -332,3 +344,188 @@ def convert_openclip_state_dict(state_dict: dict, family: str,
                                    else text_sd, num_text_layers)
         return vision, text
     raise ValueError(f"Unsupported open_clip family: {family}")
+
+
+# ---------------------------------------------------------------------------
+# ALIGN (EfficientNet-B7 + BERT; HF AlignModel). BatchNorms are folded into
+# per-channel (scale, bias): the towers are frozen (embedders/align.py).
+# ---------------------------------------------------------------------------
+
+
+def _bn_fold(sd: dict, prefix: str, eps: float) -> tuple[np.ndarray, np.ndarray]:
+    gamma = _np(sd[f"{prefix}.weight"]).astype(np.float64)
+    beta = _np(sd[f"{prefix}.bias"]).astype(np.float64)
+    mean = _np(sd[f"{prefix}.running_mean"]).astype(np.float64)
+    var = _np(sd[f"{prefix}.running_var"]).astype(np.float64)
+    scale = gamma / np.sqrt(var + eps)
+    bias = beta - mean * scale
+    return scale.astype(np.float32), bias.astype(np.float32)
+
+
+def _conv_hwio(t) -> np.ndarray:
+    """torch conv weight (O, I, kh, kw) → HWIO (kh, kw, I, O); a depthwise
+    (C, 1, k, k) becomes (k, k, 1, C)."""
+    return _np(t).transpose(2, 3, 1, 0)
+
+
+def convert_align_vision(state_dict: dict, cfg, eps: float = 1e-3) -> dict:
+    """HF AlignVisionModel state dict (vision_model.*) → EfficientNetTower
+    params over align_block_plan(cfg); `eps` is HF's batch_norm_eps."""
+    from novic_tpu_torch.embedders.align import align_block_plan
+
+    sd = state_dict
+    s, b = _bn_fold(sd, "vision_model.embeddings.batchnorm", eps)
+    params: dict[str, Any] = {
+        "stem_conv_weight": _conv_hwio(sd["vision_model.embeddings.convolution.weight"]),
+        "stem_bn_scale": s, "stem_bn_bias": b,
+    }
+    for i, plan in enumerate(align_block_plan(cfg)):
+        pfx = f"vision_model.encoder.blocks.{i}"
+        blk: dict[str, Any] = {}
+        if plan.expand_ratio != 1:
+            blk["expand_conv_weight"] = _conv_hwio(sd[f"{pfx}.expansion.expand_conv.weight"])
+            blk["expand_bn_scale"], blk["expand_bn_bias"] = _bn_fold(
+                sd, f"{pfx}.expansion.expand_bn", eps)
+        blk["dw_conv_weight"] = _conv_hwio(sd[f"{pfx}.depthwise_conv.depthwise_conv.weight"])
+        blk["dw_bn_scale"], blk["dw_bn_bias"] = _bn_fold(
+            sd, f"{pfx}.depthwise_conv.depthwise_norm", eps)
+        # The SE 1x1 convs (O, I, 1, 1) as dense (O, I)
+        blk["se_reduce_weight"] = _np(sd[f"{pfx}.squeeze_excite.reduce.weight"])[:, :, 0, 0]
+        blk["se_reduce_bias"] = _np(sd[f"{pfx}.squeeze_excite.reduce.bias"])
+        blk["se_expand_weight"] = _np(sd[f"{pfx}.squeeze_excite.expand.weight"])[:, :, 0, 0]
+        blk["se_expand_bias"] = _np(sd[f"{pfx}.squeeze_excite.expand.bias"])
+        blk["project_conv_weight"] = _conv_hwio(sd[f"{pfx}.projection.project_conv.weight"])
+        blk["project_bn_scale"], blk["project_bn_bias"] = _bn_fold(
+            sd, f"{pfx}.projection.project_bn", eps)
+        params[f"block_{i}"] = blk
+    return params
+
+
+def convert_align_text(state_dict: dict, num_layers: int) -> dict:
+    """HF AlignTextModel (text_model.*) + text_projection → BertTextTower params."""
+    sd = state_dict
+    e = "text_model.embeddings"
+    params: dict[str, Any] = {
+        "word_embedding": _np(sd[f"{e}.word_embeddings.weight"]),
+        "pos_embedding": _np(sd[f"{e}.position_embeddings.weight"]),
+        "type_embedding": _np(sd[f"{e}.token_type_embeddings.weight"]),
+        "emb_ln_weight": _np(sd[f"{e}.LayerNorm.weight"]),
+        "emb_ln_bias": _np(sd[f"{e}.LayerNorm.bias"]),
+        "proj_weight": _np(sd["text_projection.weight"]),
+        "proj_bias": _np(sd["text_projection.bias"]),
+    }
+    names = {"q": "attention.self.query", "k": "attention.self.key",
+             "v": "attention.self.value", "attn_out": "attention.output.dense",
+             "attn_ln": "attention.output.LayerNorm", "fc1": "intermediate.dense",
+             "fc2": "output.dense", "out_ln": "output.LayerNorm"}
+    for i in range(num_layers):
+        for ours, hf in names.items():
+            for leaf in ("weight", "bias"):
+                params[f"layers_{i}_{ours}_{leaf}"] = _np(
+                    sd[f"text_model.encoder.layer.{i}.{hf}.{leaf}"])
+    return params
+
+
+def align_cfg_from_hf(hf_vision_config):
+    """HF AlignVisionConfig → the port's AlignVisionConfig (the same field
+    values, and the embed_dim its trunk gives)."""
+    from novic_tpu_torch.embedders.align import AlignVisionConfig
+
+    v = hf_vision_config
+    cfg = AlignVisionConfig(
+        width_coefficient=v.width_coefficient, depth_coefficient=v.depth_coefficient,
+        depth_divisor=v.depth_divisor, kernel_sizes=tuple(v.kernel_sizes),
+        in_channels=tuple(v.in_channels), out_channels=tuple(v.out_channels),
+        strides=tuple(v.strides), num_block_repeats=tuple(v.num_block_repeats),
+        expand_ratios=tuple(v.expand_ratios),
+        depthwise_padding=tuple(v.depthwise_padding),
+        squeeze_expansion_ratio=v.squeeze_expansion_ratio)
+    return dataclasses.replace(cfg, embed_dim=cfg.round_filters(cfg.out_channels[-1]))
+
+
+def convert_align_model(model) -> tuple[dict, dict]:
+    """Full HF AlignModel → (vision_params, text_params)."""
+    sd = model.state_dict()
+    cfg = align_cfg_from_hf(model.config.vision_config)
+    vision = convert_align_vision(sd, cfg, eps=model.config.vision_config.batch_norm_eps)
+    return vision, convert_align_text(sd, model.config.text_config.num_hidden_layers)
+
+
+# ---------------------------------------------------------------------------
+# EVA02 (open_clip delegates the trunk to timm's Eva class: visual.trunk.*;
+# the text towers have the stock open_clip CLIP naming). A missing key raises
+# KeyError for every fact the checkpoint's keys show (SwiGLU or plain MLP,
+# sub-LN, fused or split qkv, layer count, projection naming).
+# ---------------------------------------------------------------------------
+
+
+def convert_openclip_eva_vision(state_dict: dict, cfg) -> dict:
+    """open_clip EVA02 visual trunk → EvaVisionTransformer params. `cfg` is the
+    EvaVisionConfig (its block flags select which keys must exist)."""
+    sd = state_dict
+    t = "visual.trunk"
+    conv_w = _np(sd[f"{t}.patch_embed.proj.weight"])
+    E = conv_w.shape[0]
+    params: dict[str, Any] = {
+        "patch_weight": conv_w.transpose(0, 2, 3, 1).reshape(E, -1),
+        "patch_bias": _np(sd[f"{t}.patch_embed.proj.bias"]),
+        "class_embedding": _np(sd[f"{t}.cls_token"]).reshape(-1),
+        "pos_embedding": _np(sd[f"{t}.pos_embed"]).reshape(-1, E),
+        "final_norm_weight": _np(sd[f"{t}.norm.weight"]),
+        "final_norm_bias": _np(sd[f"{t}.norm.bias"]),
+    }
+    # The projection to the joint space: timm's head (a trunk made with
+    # num_classes=embed_dim) or open_clip's own linear head, by its config's
+    # timm_proj; a missing bias is zero
+    for head in (f"{t}.head", "visual.head.proj"):
+        if f"{head}.weight" in sd:
+            params["head_weight"] = _np(sd[f"{head}.weight"])
+            params["head_bias"] = (_np(sd[f"{head}.bias"]) if f"{head}.bias" in sd
+                                   else np.zeros(params["head_weight"].shape[0], np.float32))
+            break
+    else:
+        raise KeyError("EVA02 checkpoint has neither visual.trunk.head.* nor "
+                       "visual.head.proj.* — unknown projection naming")
+    for i in range(cfg.layers):
+        p = f"{t}.blocks.{i}"
+        blk: dict[str, Any] = {
+            "norm1_weight": _np(sd[f"{p}.norm1.weight"]),
+            "norm1_bias": _np(sd[f"{p}.norm1.bias"]),
+            "norm2_weight": _np(sd[f"{p}.norm2.weight"]),
+            "norm2_bias": _np(sd[f"{p}.norm2.bias"]),
+            "out_proj_weight": _np(sd[f"{p}.attn.proj.weight"]),
+            "out_proj_bias": _np(sd[f"{p}.attn.proj.bias"]),
+            "fc2_weight": _np(sd[f"{p}.mlp.fc2.weight"]),
+            "fc2_bias": _np(sd[f"{p}.mlp.fc2.bias"]),
+        }
+        if cfg.qkv_fused:
+            # One fused (3E, E) qkv weight with separate q and v biases (timm's
+            # k bias is a fixed zero): split row-wise
+            wqkv = _np(sd[f"{p}.attn.qkv.weight"])
+            E = wqkv.shape[1]
+            blk["q_proj_weight"] = wqkv[:E]
+            blk["k_proj_weight"] = wqkv[E:2 * E]
+            blk["v_proj_weight"] = wqkv[2 * E:]
+            blk["q_proj_bias"] = _np(sd[f"{p}.attn.q_bias"])
+            blk["v_proj_bias"] = _np(sd[f"{p}.attn.v_bias"])
+        else:
+            blk["q_proj_weight"] = _np(sd[f"{p}.attn.q_proj.weight"])
+            blk["q_proj_bias"] = _np(sd[f"{p}.attn.q_proj.bias"])
+            blk["k_proj_weight"] = _np(sd[f"{p}.attn.k_proj.weight"])
+            blk["v_proj_weight"] = _np(sd[f"{p}.attn.v_proj.weight"])
+            blk["v_proj_bias"] = _np(sd[f"{p}.attn.v_proj.bias"])
+        if cfg.inner_attn_norm:
+            blk["attn_norm_weight"] = _np(sd[f"{p}.attn.norm.weight"])
+            blk["attn_norm_bias"] = _np(sd[f"{p}.attn.norm.bias"])
+        if cfg.swiglu:
+            blk["fc1_g_weight"] = _np(sd[f"{p}.mlp.fc1_g.weight"])
+            blk["fc1_g_bias"] = _np(sd[f"{p}.mlp.fc1_g.bias"])
+            blk["fc1_x_weight"] = _np(sd[f"{p}.mlp.fc1_x.weight"])
+            blk["fc1_x_bias"] = _np(sd[f"{p}.mlp.fc1_x.bias"])
+            blk["mlp_norm_weight"] = _np(sd[f"{p}.mlp.norm.weight"])
+            blk["mlp_norm_bias"] = _np(sd[f"{p}.mlp.norm.bias"])
+        else:
+            blk["fc1_weight"] = _np(sd[f"{p}.mlp.fc1.weight"])
+            blk["fc1_bias"] = _np(sd[f"{p}.mlp.fc1.bias"])
+        params[f"blocks_{i}"] = blk
+    return params

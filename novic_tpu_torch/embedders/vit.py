@@ -41,6 +41,7 @@ _ACTS = {
     "gelu": lambda x: F.gelu(x),
     "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
     "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x),
+    "swish": lambda x: F.silu(x),  # EfficientNet (ALIGN): HF ACT2FN["swish"] is SiLU
 }
 
 
@@ -254,19 +255,22 @@ def _init_flax_like(module: nn.Module, generator: torch.Generator, width: int,
                     stds: dict[str, float]) -> None:
     """Random init with the flax init's shapes and scales: zero biases, unit norm
     scales, normal weights with std width**-0.5 (fc2: mlp_dim**-0.5; a leaf named
-    in `stds`: that std). Draws on the CPU from `generator` in parameter order."""
+    in `stds`: that std). Draws from `generator`, on its device, in parameter
+    order: a CPU generator gives the same weights whatever the module's device."""
     with torch.no_grad():
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf in stds:
-                p.copy_(torch.randn(p.shape, generator=generator) * stds[leaf])
+                std = stds[leaf]
             elif leaf.endswith("_bias"):
                 p.zero_()
-            elif leaf.endswith(("norm1_weight", "norm2_weight", "ln_weight")):
+                continue
+            elif leaf.endswith(("norm1_weight", "norm2_weight", "ln_weight", "norm_weight")):
                 p.fill_(1.0)
+                continue
             else:
                 std = p.shape[1] ** -0.5 if leaf.endswith("fc2_weight") else width ** -0.5
-                p.copy_(torch.randn(p.shape, generator=generator) * std)
+            p.copy_(torch.randn(p.shape, generator=generator, device=generator.device) * std)
 
 
 class VisionTransformer(nn.Module):

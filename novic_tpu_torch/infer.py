@@ -477,7 +477,7 @@ def load_decoder_from_checkpoint(checkpoint_path: str, embedder: Embedder,
 
     target_config: TargetConfig = ckpt["target_config"]
     valid_nouns = ckpt["target_nouns"][ckpt["num_invalid_target_nouns"]:]
-    if embedder.spec.split(":", 1)[0] == "test":
+    if embedder.spec.split(":", 1)[0] in ("test", "test-structured"):
         # The test embedder's tokenizer must be the one the checkpoint was
         # trained with: the compact map pins its vocab size. Rebuild the
         # word-level tokenizer from the checkpoint's own nouns if it differs.

@@ -1,10 +1,14 @@
 """Tower self-attention: the hand-written CUDA kernel and its plain version.
 
-`fused_attention(q, k, v, bias)` computes softmax(q·kᵀ/√hd + bias)·v per
-(batch, head) with the numerics of the JAX package's Pallas kernel
+`fused_attention(q, k, v, bias, key_bias)` computes softmax(q·kᵀ/√hd + bias)·v
+per (batch, head) with the numerics of the JAX package's Pallas kernel
 (novic_tpu/ops/attention.py): q scaled in float32 then rounded to bf16, k and
 v rounded to bf16, float32 scores and softmax, the normalised probabilities
-rounded to bf16, float32 accumulation of P·v.
+rounded to bf16, float32 accumulation of P·v. The bias is either `bias`, one
+(S, S) float32 matrix shared by every batch row (the causal mask), or
+`key_bias`, a (B, S) float32 row per batch row added to every query row and
+head of it (BERT's pad mask, as novic_tpu's ALIGN text tower adds its
+(B, 1, 1, S) bias); never both.
 
 * On a CPU tensor it runs `attention_reference`, the plain PyTorch version.
 * On a CUDA tensor it launches the kernel in csrc/attention.cu, or raises. It
@@ -43,8 +47,10 @@ _lib_lock = threading.Lock()
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version: q, k, v (B, S, H, hd) float32; bias optional (S, S) float32.
+                        bias: Optional[torch.Tensor] = None,
+                        key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version: q, k, v (B, S, H, hd) float32; bias optional (S, S)
+    float32; key_bias optional (B, S) float32.
 
     Mirrors novic_tpu.ops.attention.xla_attention step for step. bf16 operands
     are held in float32, whose products of bf16 values are exact."""
@@ -54,6 +60,8 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.einsum("bqhd,bkhd->bhqk", qb, k.to(torch.bfloat16).float())
     if bias is not None:
         scores = scores + bias
+    if key_bias is not None:
+        scores = scores + key_bias[:, None, None, :]
     attn = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", attn.to(torch.bfloat16).float(),
                         v.to(torch.bfloat16).float())
@@ -70,7 +78,8 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             lib.novic_attention.argtypes = (
-                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int])
             lib.novic_attention.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -87,7 +96,7 @@ def _tma_plans(scratch: torch.Tensor) -> list[int]:
             + _tma_plan(scratch[2], S, KV_ROWS))
 
 
-def _launch(q, k, v, bias):
+def _launch(q, k, v, bias, key_bias=None):
     global LAUNCHES
     lib = _library()
     B, S, H, hd = q.shape
@@ -98,11 +107,14 @@ def _launch(q, k, v, bias):
             raise ValueError(f"fused_attention: {name} shape {tuple(t.shape)} != q {tuple(q.shape)}")
         if t.data_ptr() % 16:
             raise ValueError(f"fused_attention: {name} must start on a 16-byte boundary")
-    if bias is not None:
-        if (bias.dtype != torch.float32 or not bias.is_contiguous() or bias.device != q.device
-                or tuple(bias.shape) != (S, S)):
-            raise ValueError(f"fused_attention: bias must be contiguous float32 ({S}, {S}) "
+    if bias is not None and key_bias is not None:
+        raise ValueError("fused_attention: pass bias or key_bias, not both")
+    for name, t, shape in (("bias", bias, (S, S)), ("key_bias", key_bias, (B, S))):
+        if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()
+                              or t.device != q.device or tuple(t.shape) != shape):
+            raise ValueError(f"fused_attention: {name} must be contiguous float32 {shape} "
                              f"on {q.device}")
+    bias_ptr = next((t.data_ptr() for t in (bias, key_bias) if t is not None), None)
     if hd > MAX_HD or hd % 8:
         raise ValueError(f"fused_attention: unsupported hd={hd} (a multiple of 8, at most "
                          f"{MAX_HD})")
@@ -110,10 +122,11 @@ def _launch(q, k, v, bias):
     scratch = torch.empty((3, B, S, H, hd), dtype=torch.bfloat16, device=q.device)
     plan = ctypes.cast((ctypes.c_longlong * 33)(*_tma_plans(scratch)), ctypes.c_void_p)
     with torch.cuda.device(q.device):
-        err = lib.novic_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  bias.data_ptr() if bias is not None else None, out.data_ptr(),
-                                  scratch.data_ptr(), plan, B, S, H, hd, 1.0 / math.sqrt(hd),
-                                  torch.cuda.current_stream(q.device).cuda_stream)
+        err = lib.novic_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+                                  out.data_ptr(), scratch.data_ptr(), plan, B, S, H, hd,
+                                  1.0 / math.sqrt(hd),
+                                  torch.cuda.current_stream(q.device).cuda_stream,
+                                  int(key_bias is not None))
     if err != 0:
         raise RuntimeError(f"fused_attention kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -121,12 +134,16 @@ def _launch(q, k, v, bias):
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q, k, v: (B, S, H, hd) float32; bias: optional (S, S) additive float32.
-    Returns (B, S, H, hd) float32. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+                    bias: Optional[torch.Tensor] = None,
+                    key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q, k, v: (B, S, H, hd) float32; bias: optional (S, S) additive float32;
+    key_bias: optional (B, S) additive float32, per batch row and key (not
+    with bias). Returns (B, S, H, hd) float32. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if bias is not None and key_bias is not None:
+        raise ValueError("fused_attention: pass bias or key_bias, not both")
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, bias)
+        return attention_reference(q, k, v, bias, key_bias)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
-    return _launch(q, k, v, bias)
+    return _launch(q, k, v, bias, key_bias)

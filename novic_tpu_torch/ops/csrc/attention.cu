@@ -4,7 +4,7 @@
 // (bodies `_attention_kernel` and `_attention_kernel_bias`) and computes what it
 // computes, rounding where it rounds:
 //   * q is scaled in float32, then rounded to bf16; k and v are rounded to bf16;
-//   * scores q.k^T accumulate in float32, the optional (S, S) bias is added in
+//   * scores q.k^T accumulate in float32, the optional bias is added in
 //     float32, and the softmax is float32: exp(s - max) / sum;
 //   * the NORMALISED probabilities are rounded to bf16, and P.v accumulates in
 //     float32. The output is float32.
@@ -12,8 +12,10 @@
 // whole or walked twice (a one-pass form would round p elsewhere).
 //
 // Layout: q, k, v, o are (B, S, H, hd) float32, contiguous, 16-byte aligned;
-// bias is (S, S) float32 or null. Any S >= 1, any hd <= 128 that is a
-// multiple of 8.
+// bias is float32 or null, either (S, S), shared by every batch row and head
+// (a causal mask), or (B, S), one value per key of each batch row, added to
+// every query row and head of that batch row (BERT's pad mask: -1e30 at pad
+// keys). Any S >= 1, any hd <= 128 that is a multiple of 8.
 //
 // Design (Hopper): a pre-pass (`to_bf16_kernel`) rounds q * scale, k and v
 // once into a bf16 scratch buffer (3, B, S, H, hd) that the wrapper
@@ -32,8 +34,9 @@
 // an SM, where hd <= 64; else three and one block) walk the keys twice:
 //   pass 1 (k tiles): S = q.k^T by wgmma m64n64k16 (both operands from shared
 //     memory, B128 swizzle, K-major), the bias added in float32 straight from
-//     global memory (the (S, S) bias is shared by every (b, h) and stays in
-//     L2), and per row a running max and sum of exps (ex2.approx on
+//     global memory through two strides, a batch stride and a query-row
+//     stride ((S, S): 0 and S; (B, S): S and 0; either stays in L2), and per
+//     row a running max and sum of exps (ex2.approx on
 //     (s - m) * log2 e), merged over the four threads of a row after the pass;
 //   pass 2 (k and v tiles): S again, p = exp(s - m) * (1 / l) (one reciprocal
 //     per row), rounded to bf16 in registers, and O += P.v by wgmma
@@ -48,7 +51,9 @@
 // multiplied by 1 / l, so a p can differ in its last float32 bits and move its
 // bf16 rounding by one ulp (<= 2^-7 p): an output then differs by at most
 // 2^-7 * max|v| over the keys (chip_smoke.py checks this bound, and the
-// relative Frobenius error).
+// relative Frobenius error). A key masked with -1e30 (a whole 64-key tile of
+// pad keys included) gets p = ex2(-1.4e30) = 0 exactly, so it adds exactly 0;
+// every row keeps an unmasked key, so its max is finite.
 //
 // Bound on the H100 at SigLIP-B/16 (B=64, S=196, H=12, hd=64): q, k, v and o
 // in float32 are 4 x 64*196*768*4 B = 154 MB per launch, ~46 us at 3.35 TB/s;
@@ -150,7 +155,10 @@ struct Item {
       : q0((item % nq) * q_tile), h((item / nq) % H), b(item / nq / H) {}
 };
 
-template <int KS, bool kBias>  // KS = hd / 16, rounded up: k-steps of q.k^T
+// The bias's form: none, (S, S) shared by every batch row, (B, S) per key
+enum BiasKind { kNoBias = 0, kSharedBias = 1, kKeyBias = 2 };
+
+template <int KS, int kBias>  // KS = hd / 16, rounded up: k-steps of q.k^T
 __global__ void __launch_bounds__(threads((KS + 3) / 4), blocks_per_sm((KS + 3) / 4))
 attention_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap, float* __restrict__ o,
@@ -259,14 +267,17 @@ attention_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
         if (pass == 0) mbar_arrive(&empty[st]);  // k is no longer read
 
         // The bias, added in float32, and the ragged key tail (-inf): element
-        // i is row (i >> 1) & 1 of the thread's two, key 8 (i / 4) + c2 + (i & 1)
+        // i is row (i >> 1) & 1 of the thread's two, key 8 (i / 4) + c2 + (i & 1).
+        // The bias of (b, row, key) is at b * bstride + row * rstride + key
         const int key0 = tile * kKTile;
-        if (kBias || key0 + kKTile > S) {
+        if (kBias != kNoBias || key0 + kKTile > S) {
+          const size_t bstride = kBias == kKeyBias ? S : 0, rstride = kBias == kSharedBias ? S : 0;
+          const float* bias_b = bias + (size_t)w.b * bstride;
 #pragma unroll
           for (int i = 0; i < kSRegs; ++i) {
             const int key = key0 + 8 * (i / 4) + c2 + (i & 1), row = row0 + 8 * ((i >> 1) & 1);
             if (key >= S) s[i] = -INFINITY;
-            else if (kBias && row < S) s[i] += __ldg(bias + (size_t)row * S + key);
+            else if (kBias != kNoBias && row < S) s[i] += __ldg(bias_b + row * rstride + key);
           }
         }
 
@@ -353,7 +364,7 @@ bool plan_matches(const long long* p, int B, int H, int S, int hd, int rows) {
          p[9] == 1 && p[10] == 1;
 }
 
-template <int KS, bool kBias>
+template <int KS, int kBias>
 cudaError_t launch(const CUtensorMap (&maps)[3], float* o, const float* bias, int B, int S, int H,
                    int hd, int dev, int sms, cudaStream_t stream) {
   auto kernel = attention_kernel<KS, kBias>;
@@ -377,7 +388,7 @@ cudaError_t launch(const CUtensorMap (&maps)[3], float* o, const float* bias, in
   return cudaGetLastError();
 }
 
-template <bool kBias>
+template <int kBias>
 cudaError_t dispatch(const CUtensorMap (&maps)[3], float* o, const float* bias, int B, int S,
                      int H, int hd, int dev, int sms, cudaStream_t st) {
   switch ((hd + 15) / 16) {
@@ -402,12 +413,12 @@ extern "C" {
 // scale, k and v. plan: its tensor maps of q, k and v in turn, 11 values
 // each: dims (hd, S, H, B), the byte strides of dims 1-3, box (64, rows, 1,
 // 1), rows the query block for q (128 where hd <= 64, else 192) and 64 for k
-// and v.
+// and v. bias: null, or (S, S) where key_bias is 0, or (B, S) where it is 1.
 int novic_attention(const float* q, const float* k, const float* v, const float* bias, float* o,
                     void* scratch, const long long* plan, int B, int S, int H, int hd, float scale,
-                    void* stream) {
+                    void* stream, int key_bias) {
   if (B <= 0 || S <= 0 || H <= 0 || hd <= 0 || hd > kMaxHd || hd % 8 != 0 || plan == nullptr ||
-      scratch == nullptr)
+      scratch == nullptr || (key_bias != 0 && (key_bias != 1 || bias == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (!plan_matches(plan, B, H, S, hd, q_tile(hd <= kAtom ? 1 : 2)) ||
       !plan_matches(plan + kPlanLen, B, H, S, hd, kKTile) ||
@@ -442,8 +453,9 @@ int novic_attention(const float* q, const float* k, const float* v, const float*
                      static_cast<__nv_bfloat16*>(scratch) + i * n, 4, plan + kPlanLen * i);
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)(bias ? dispatch<true>(maps, o, bias, B, S, H, hd, dev, sms, st)
-                    : dispatch<false>(maps, o, bias, B, S, H, hd, dev, sms, st));
+  if (bias == nullptr) return (int)dispatch<kNoBias>(maps, o, bias, B, S, H, hd, dev, sms, st);
+  return (int)(key_bias ? dispatch<kKeyBias>(maps, o, bias, B, S, H, hd, dev, sms, st)
+                        : dispatch<kSharedBias>(maps, o, bias, B, S, H, hd, dev, sms, st));
 }
 
 }  // extern "C"

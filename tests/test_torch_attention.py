@@ -215,3 +215,90 @@ def test_k1_refused_launch_raises_and_never_falls_back(fake_launch):
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         port._launch(q, q, q, None)
     assert port.LAUNCHES == launches
+
+
+# -- the per-row key bias (ALIGN's BERT pad mask) --------------------------------
+
+
+def _pad_key_bias(B, S, seed):
+    """BERT's additive pad mask: key 0 ([CLS]) and a ragged prefix kept, the
+    rest -1e30, as novic_tpu's BertTextTower derives it from ids == pad."""
+    lengths = np.random.default_rng(seed).integers(1, S + 1, size=B)
+    lengths[0] = 1  # a row that keeps only [CLS]
+    keep = np.arange(S)[None, :] < lengths[:, None]
+    return np.where(keep, 0.0, -1e30).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,S,hd", [(3, 10, 16), (4, 129, 64), (2, 64, 112)])
+def test_key_bias_matches_pallas_per_row(B, S, hd):
+    """The (B, S) key bias against novic_tpu's Pallas kernel given, batch row
+    by batch row, that row's mask broadcast over the queries (the (B, 1, 1, S)
+    bias novic_tpu's BERT adds); the kernel's bar."""
+    q, k, v = _qkv(B * S + hd, B, S, 3, hd)
+    key_bias = _pad_key_bias(B, S, seed=S)
+    ref = np.concatenate([np.asarray(jax_fused_attention(
+        jnp.asarray(q[b:b + 1]), jnp.asarray(k[b:b + 1]), jnp.asarray(v[b:b + 1]),
+        jnp.asarray(np.broadcast_to(key_bias[b], (S, S)).copy()), interpret=True))
+        for b in range(B)])
+    launches = port.LAUNCHES
+    out = port.fused_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                               key_bias=torch.from_numpy(key_bias))
+    assert port.LAUNCHES == launches
+    vmax = np.abs(v).max(axis=1, keepdims=True)
+    assert np.isfinite(out.numpy()).all()
+    assert (np.abs(out.numpy() - ref) <= TOL + 2.0 ** -7 * vmax).all()
+
+
+def test_key_bias_masked_tile_adds_exactly_zero():
+    """A whole 64-key tile masked with -1e30 contributes exactly 0: changing
+    v there changes no output bit (every row keeps key 0)."""
+    B, S, hd = 2, 150, 64
+    q, k, v = _qkv(11, B, S, 2, hd)
+    key_bias = np.zeros((B, S), np.float32)
+    key_bias[:, 64:128] = -1e30
+    out = port.fused_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                               key_bias=torch.from_numpy(key_bias))
+    v2 = v.copy()
+    v2[:, 64:128] = 1e3
+    out2 = port.fused_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v2),
+                                key_bias=torch.from_numpy(key_bias))
+    assert torch.equal(out, out2)
+
+
+def test_key_bias_with_bias_is_refused():
+    q = torch.zeros(2, 8, 1, 16)
+    with pytest.raises(ValueError, match="not both"):
+        port.fused_attention(q, q, q, torch.zeros(8, 8), torch.zeros(2, 8))
+
+
+@pytest.mark.parametrize("B,S,H,hd", [(2, 64, 3, 64), (3, 65, 2, 112), (4, 1, 2, 8)])
+def test_k1_key_bias_launch_arguments(fake_launch, B, S, H, hd):
+    """A (B, S) key bias launches the same kernel with the bias pointer, the
+    same plan, shape and scale, and the key-bias flag (the last argument) set;
+    an (S, S) bias or none leaves the flag 0."""
+    q, k, v = (_aligned_f32((B, S, H, hd)) for _ in range(3))
+    key_bias = torch.from_numpy(_pad_key_bias(B, S, seed=1))
+    launches = port.LAUNCHES
+    out = port._launch(q, k, v, None, key_bias)
+    port._launch(q, k, v, torch.from_numpy(_causal(S)))
+    port._launch(q, k, v, None)
+    (args, shared, none) = fake_launch.calls
+    assert args[:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
+                        out.data_ptr())
+    assert fake_launch.plans[0] == _expected_plan(B, S, H, hd)
+    assert args[7:11] == (B, S, H, hd) and args[11] == pytest.approx(1 / np.sqrt(hd))
+    assert (args[13], shared[13], none[13]) == (1, 0, 0)
+    assert port.LAUNCHES == launches + 3
+
+
+@pytest.mark.parametrize("bad", ["both", "shape", "dtype", "strided"])
+def test_k1_key_bias_refusals(fake_launch, bad):
+    """Both biases at once, a key bias that is not (B, S), not float32 or not
+    contiguous: refused before any launch."""
+    q = _aligned_f32((2, 10, 2, 16))
+    key_bias = {"shape": torch.zeros(10, 10), "dtype": torch.zeros(2, 10, dtype=torch.float64),
+                "strided": torch.zeros(2, 20)[:, ::2]}.get(bad, torch.zeros(2, 10))
+    bias = torch.zeros(10, 10) if bad == "both" else None
+    with pytest.raises(ValueError):
+        port._launch(q, q, q, bias, key_bias)
+    assert not fake_launch.calls

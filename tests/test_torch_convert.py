@@ -17,8 +17,11 @@ against novic_tpu on the CPU.
   novic_tpu's, and the renamed models equal their HF conversion.
 * save_params_npz writes novic_tpu's .npz layout: the same keys in the same
   order; either package's file loads in the other.
-* Local open_clip and HF directories resolve to novic_tpu's archs; CLIPA,
-  EVA02 and ALIGN directories, and those families' conversion, raise.
+* Local open_clip and HF directories resolve to novic_tpu's archs, CLIPA,
+  EVA02 and ALIGN directories too, and those families convert equal to
+  novic_tpu (tests/test_torch_clipa.py, test_torch_eva.py and
+  test_torch_align.py hold their towers); every registered spec resolves to
+  novic_tpu's arch, field by field, and tower_modules builds each family.
 * action=convert_embedder converts a local open_clip .bin and a local HF
   directory to the .npz novic_tpu's conversion writes.
 """
@@ -233,13 +236,54 @@ def test_openclip_fixture_conversion_equals_jax():
         _assert_trees_equal(t, jt)
 
 
+def _tiny_align_model():
+    from transformers.models.align.configuration_align import (
+        AlignConfig,
+        AlignTextConfig,
+        AlignVisionConfig,
+    )
+
+    vision = AlignVisionConfig(image_size=32, width_coefficient=0.25, depth_coefficient=1.0,
+                               depth_divisor=4, kernel_sizes=[3, 5], in_channels=[32, 48],
+                               out_channels=[48, 64], strides=[1, 2], num_block_repeats=[1, 2],
+                               expand_ratios=[1, 6], hidden_dim=64)
+    text = AlignTextConfig(vocab_size=VOCAB, hidden_size=E, num_hidden_layers=L,
+                           num_attention_heads=4, intermediate_size=2 * E,
+                           max_position_embeddings=CTX)
+    torch.manual_seed(0)
+    return transformers.AlignModel(AlignConfig(text_config=text.to_dict(),
+                                               vision_config=vision.to_dict(),
+                                               projection_dim=16)).eval()
+
+
 @pytest.mark.parametrize("family", ["clipa", "eva02", "align"])
-def test_not_ported_families_raise(hf_models, family):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        if family == "align":
-            convert.convert_hf_model(hf_models["clip"], family)
-        else:
-            convert.convert_openclip_state_dict({}, family, 2, 2)
+def test_not_ported_families_raise(family):
+    """These families were refused before they were ported; each now converts
+    to novic_tpu's tree bit for bit (CLIPA's open_clip dict, EVA02's
+    timm-named trunk with the stock text tower, a tiny HF AlignModel)."""
+    if family == "align":
+        model = _tiny_align_model()
+        v, t = convert.convert_hf_model(model, family)
+        jv, jt = jconvert.convert_hf_model(model, family)
+    else:
+        from test_clipa import make_openclip_clipa_sd
+
+        sd = make_openclip_clipa_sd(np.random.default_rng(1))
+        jcfg = None
+        if family == "eva02":
+            from test_eva_parity import _TorchEva
+
+            from novic_tpu.embedders.eva import EvaVisionConfig
+
+            jcfg = EvaVisionConfig(image_size=16, patch_size=8, width=32, layers=2, heads=4,
+                                   mlp_hidden=40, embed_dim=20, ref_feat_shape=4)
+            torch.manual_seed(1)
+            sd = {k: v for k, v in sd.items() if not k.startswith("visual.")}
+            sd.update({f"visual.trunk.{k}": v for k, v in _TorchEva(jcfg).state_dict().items()})
+        v, t = convert.convert_openclip_state_dict(sd, family, 2, 2, vision_cfg=jcfg)
+        jv, jt = jconvert.convert_openclip_state_dict(sd, family, 2, 2, vision_cfg=jcfg)
+    _assert_trees_equal(v, jv)
+    _assert_trees_equal(t, jt)
 
 
 @pytest.mark.parametrize("writer", ["port", "jax"])
@@ -356,12 +400,46 @@ def test_local_directories_resolve_as_jax(tmp_path, kind, cfg):
 @pytest.mark.parametrize("kind,cfg", [("openclip", CLIPA_OPENCLIP), ("openclip", EVA02_OPENCLIP),
                                       ("transformers", ALIGN_HF)], ids=["clipa", "eva02", "align"])
 def test_local_directories_of_unported_families_raise(tmp_path, kind, cfg):
+    """Directories of the families ported last resolve to novic_tpu's arch
+    (they raised before); a missing directory still raises."""
+    import dataclasses
+
     spec = _local_dir(tmp_path, kind, cfg)
-    jlookup(spec)  # novic_tpu builds these towers
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lookup(spec)
+    arch, jarch = lookup(spec), jlookup(spec)
+    for part in ("vision", "text", "preprocess"):
+        assert dataclasses.asdict(getattr(arch, part)) == \
+            dataclasses.asdict(getattr(jarch, part)), part
+    assert (arch.tokenizer, arch.family) == (jarch.tokenizer, jarch.family)
+    assert arch.family == {"openclip": "eva02" if cfg is EVA02_OPENCLIP else "clipa"}.get(
+        kind, "align")
     with pytest.raises(ValueError, match="Unknown embedder spec"):
         lookup(f"{kind}:{tmp_path}/missing")
+
+
+def test_registry_resolves_every_jax_spec():
+    """Every spec of novic_tpu's registry resolves in the port to an arch
+    equal to novic_tpu's, field by field (config classes by name), and
+    tower_modules builds each family's towers (on the meta device: the
+    largest are tens of GB)."""
+    import dataclasses
+
+    from novic_tpu.embedders.registry import REGISTRY as JREGISTRY
+    from novic_tpu_torch.embedders.base import tower_modules
+
+    families = set()
+    for spec, jarch in JREGISTRY.items():
+        arch = lookup(spec)
+        for part in ("vision", "text", "preprocess"):
+            assert type(getattr(arch, part)).__name__ == type(getattr(jarch, part)).__name__
+            assert dataclasses.asdict(getattr(arch, part)) == \
+                dataclasses.asdict(getattr(jarch, part)), (spec, part)
+        assert (arch.tokenizer, arch.family) == (jarch.tokenizer, jarch.family), spec
+        if arch.family not in families:
+            families.add(arch.family)
+            with torch.device("meta"):
+                vision, text = tower_modules(arch)
+            assert hasattr(vision, "init_random") and hasattr(text, "init_random")
+    assert families == {"clip", "siglip", "clipa", "align", "eva02"}
 
 
 # -- action=convert_embedder --------------------------------------------------------

@@ -15,7 +15,8 @@ models.dud; the released-weight slice's embedders.convert/registry,
 cli.actions_misc and train.checkpoint/optim; the noun-data slice's
 data.noun_dataset, data.cache_writers, data.classification, cli.actions_cache
 and cli.actions_eval; the eval slice's cli.actions_eval (every action),
-cli.actions_misc and utils.metrics) and chip_smoke.
+cli.actions_misc and utils.metrics; the tower-family slice's embedders.eva,
+embedders.align and embedders.structured) and chip_smoke.
 """
 
 import os
@@ -83,6 +84,10 @@ NOUN_DATA_SLICE_MODULES = ["novic_tpu_torch.data.noun_dataset",
                            "novic_tpu_torch.cli.actions_cache", "novic_tpu_torch.cli.actions_eval"]
 
 
+TOWER_FAMILY_SLICE_MODULES = ["novic_tpu_torch.embedders.eva", "novic_tpu_torch.embedders.align",
+                              "novic_tpu_torch.embedders.structured"]
+
+
 def test_port_imports_without_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO, env=env,
@@ -92,7 +97,7 @@ def test_port_imports_without_jax():
     assert int(lines[-1]) >= 64
     assert set(TRAINING_MODULES + INT8_AND_TEXT_MODULES + DFN5B_SLICE_MODULES
                + FLASH_SLICE_MODULES + ALL_SLICE_MODULES + REFERENCE_SLICE_MODULES
-               + NOUN_DATA_SLICE_MODULES) <= set(lines[-2].split())
+               + NOUN_DATA_SLICE_MODULES + TOWER_FAMILY_SLICE_MODULES) <= set(lines[-2].split())
 
 
 def test_train_cli_runs_without_jax():

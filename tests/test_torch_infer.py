@@ -158,7 +158,8 @@ def test_gencfg_bad_names_raise(bad):
 def test_unported_generation_raises(setup):
     """A guided 'all' gencfg builds its task (its precompute waits for the first
     batch); the gencfg checks of novic_tpu's GenerationTask hold (unguided 'all',
-    greedy with k > 1 or a vocab prior: ValueError); unported towers raise."""
+    greedy with k > 1 or a vocab prior: ValueError); the ALIGN towers, once
+    unported, resolve."""
     model = infer.NOVICModel(FT0, device="cpu", embedder_spec="test:768",
                              gencfg="all_k3_vnone_gp_t1_a0")
     with model:
@@ -176,8 +177,7 @@ def test_unported_generation_raises(setup):
                                          decoder=jdec, vocab_targets_set=set(),
                                          vocab_targets=np.zeros((1, 8), np.int32),
                                          guide_targets_set=set(), guide_targets=None)
-    with pytest.raises(NotImplementedError):
-        registry.lookup("transformers:kakaobrain/align-base")
+    assert registry.lookup("transformers:kakaobrain/align-base").family == "align"
 
 
 def test_hash_embedder_bytes_match_jax():

@@ -156,11 +156,18 @@ def test_text_random_init_matches_flax_scales():
 
 
 def test_tower_modules_dispatch():
+    from novic_tpu_torch.embedders import align, eva
+
     arch = REGISTRY["openai:ViT-B/16"]
     vision, text = tower_modules(arch)
     assert isinstance(vision, vit.VisionTransformer) and isinstance(text, vit.TextTransformer)
-    with pytest.raises(NotImplementedError):
-        tower_modules(dataclasses.replace(arch, family="eva02"))
+    # eva02: the EVA02 vision tower beside the CLIP text tower; align: both its own
+    eva_arch = REGISTRY["openclip:timm/eva02_base_patch16_clip_224.merged2b_s8b_b131k"]
+    vision, text = tower_modules(eva_arch)
+    assert isinstance(vision, eva.EvaVisionTransformer) and isinstance(text, vit.TextTransformer)
+    with torch.device("meta"):
+        vision, text = tower_modules(REGISTRY["transformers:kakaobrain/align-base"])
+    assert isinstance(vision, align.EfficientNetTower) and isinstance(text, align.BertTextTower)
 
 
 # -- the embedder's text side --------------------------------------------------

@@ -242,12 +242,36 @@ def test_jax_checkpoint_resumes_in_the_port(workdir):
 
 
 def test_not_ported_surfaces_raise(workdir, monkeypatch):
-    # What still raises: orbax checkpoints, the CLIPA conversion, CUDA absent
+    # What still raises: orbax checkpoints, CUDA absent. The CLIPA conversion,
+    # which raised before its towers were ported, converts a local CLIPA
+    # open_clip directory's state dict to novic_tpu's .npz
     with pytest.raises(NotImplementedError, match="orbax"):
         main(["action=train", "checkpoint_format=orbax", "--device=cpu"] + _args(workdir, "x"))
-    with pytest.raises(NotImplementedError, match="CLIPA"):
-        main(["action=convert_embedder", "embedder=openclip:rwightman/ViT-L-14-CLIPA-datacomp1B",
-              f"embedder_weights={workdir}/clipa.npz", "--device=cpu"])
+    from test_clipa import CTX, D, E, L, P, S, V, make_openclip_clipa_sd
+
+    from novic_tpu.embedders.convert import convert_openclip_state_dict, save_params_npz
+
+    clipa = os.path.join(workdir, "clipa_ckpt")
+    os.makedirs(clipa, exist_ok=True)
+    with open(os.path.join(clipa, "open_clip_config.json"), "w") as f:
+        json.dump({"embed_dim": D,
+                   "vision_cfg": {"image_size": S, "layers": L, "width": E, "patch_size": P,
+                                  "head_width": 8, "mlp_ratio": 2.0, "no_ln_pre": True,
+                                  "pool_type": "avg", "final_ln_after_pool": True},
+                   "text_cfg": {"context_length": CTX, "vocab_size": V, "width": E, "heads": 4,
+                                "layers": L, "mlp_ratio": 2.0, "pool_type": "last",
+                                "no_causal_mask": True,
+                                "hf_tokenizer_name": "bert-base-uncased"}}, f)
+    sd = make_openclip_clipa_sd(np.random.default_rng(2))
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, f"{clipa}/model.bin")
+    out = main(["action=convert_embedder", f"embedder=openclip:{clipa}",
+                f"load_model={clipa}/model.bin", f"embedder_weights={workdir}/clipa.npz",
+                "--device=cpu"])
+    save_params_npz(f"{workdir}/clipa_jax.npz", *convert_openclip_state_dict(sd, "clipa", L, L))
+    with np.load(out) as a, np.load(f"{workdir}/clipa_jax.npz") as b:
+        assert a.files == b.files
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["action=train"] + _args(workdir, "x"))
