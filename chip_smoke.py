@@ -25,7 +25,10 @@ Phases, each printing JSON lines; any failure exits nonzero:
      could take (bound);
   3b. dropout kernel: bit-identical to its plain version at the three FT0
      site shapes and a ragged size, rates 0.1 and 0.5; its backward mask is
-     the forward's; the keep share is within 5 sigma of 1 - rate; times;
+     the forward's; the keep share is within 5 sigma of 1 - rate; times; two
+     halves at their element offsets (a data-parallel rank's rows; offsets
+     that are and are not multiples of 4, float32 and bf16) give the whole
+     tensor's mask;
   3c. int8 GEMM (K2): bit-identical to its plain version in the int32 and
      float32+bias epilogues at the int8 towers' shapes and the Hopper
      instance's tile edges (M=1, M=129, N=200, N=199, K=16), and in the int32
@@ -191,6 +194,20 @@ Phases, each printing JSON lines; any failure exits nonzero:
      embedder_zero_shot over phase 10's 1,024 PNGs through the CLI; with
      'test-structured:768', cache_noun_multiset, embedder_zero_shot with its
      gap and one mean_shift=true training chunk through the CLI (K3');
+  13. serving_tools: the demo server (tools/demo_server.py create_server on
+     127.0.0.1, port 0) in front of NOVICModel (SigLIP-B/16 + FT0, the demo's
+     default gencfg beam_k10_vnone_gn_t1_a0, model batch = max_batch as the
+     demo's main sets it) answering 16 concurrent http.client clients, each
+     posting 8 PNGs of phase 4's frames in turn, at max_batch 8 and 64:
+     served images/s, mean and largest group, p50/p95 request ms, K1
+     launches (12 a group); every answer's preds equal to a direct
+     classify_images of its image; one undecodable upload answered 400
+     while the others succeed. Then, on nccl at world size 1: NOVICModel
+     .set_mesh (dp) and TorchEmbedder.set_mesh (tp over a size-1 'model'
+     axis) serve the same preds as without a mesh (logprobs within 1e-5),
+     and one data-parallel training step (phase 7's checkpoint and recipe,
+     1024 x accum 8, dropout and noise on) equals the plain step (params
+     within 1e-6; 400 K3' launches); "multi-card: not run (1 device)";
 then the kernels line and, last, {"ok": true, "device": {...}}.
 Exits nonzero without printing a result when CUDA is not available.
 """
@@ -629,6 +646,23 @@ def phase_dropout(dropout) -> dict:
                 raise SystemExit(f"dropout disagrees with its plain version at {shape}, rate {rate}")
             if result is None:
                 result = line  # the largest FT0 site, rate 0.1
+    # Element offsets (a data-parallel rank's rows): the two halves of a tensor,
+    # each at its offset, give the whole tensor's mask, float32 and bf16, at
+    # offsets that are and are not multiples of 4 (the vector and scalar paths)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, cut in ((2 * 11 * 512 * 512, 11 * 512 * 512), (1_000_003, 499_999)):
+            x = torch.randn(n, device="cuda", generator=gen).to(dtype)
+            seed = dropout.draw_seed(seeds)
+            whole = dropout.dropout_apply(x, seed, 0.1)
+            parts = [dropout.dropout_apply(x[:cut].clone(), seed, 0.1, 0),
+                     dropout.dropout_apply(x[cut:].clone(), seed, 0.1, cut)]
+            ref = dropout.dropout_reference(x[cut:].clone(), seed, 0.1, cut)
+            ok = torch.equal(torch.cat(parts), whole) and torch.equal(parts[1], ref)
+            emit({"phase": "kernel_dropout_offset", "dtype": str(dtype), "n": n, "offset": cut,
+                  "offset_mod_4": cut % 4, "ok": ok})
+            if not ok:
+                raise SystemExit(f"dropout at element offset {cut} ({dtype}) is not the whole "
+                                 f"tensor's mask")
     return result
 
 
@@ -3687,6 +3721,207 @@ def phase_towers(workdir: str, frames: list, nouns: list, name: str, smi: str) -
     return {"k1": k1, "launches": launches, "dropout_launches": res["dropout_launches"]}
 
 
+# Phase 13: the demo server (16 clients x 8 PNGs, at the demo's default
+# max_batch and at 64) and the parallel paths at world size 1 on nccl
+DEMO_CLIENTS, DEMO_PER_CLIENT = 16, 8
+DEMO_MAX_BATCHES = (8, 64)
+DEMO_GENCFG = "beam_k10_vnone_gn_t1_a0"   # the demo server's default
+MESH_LOGPROB_ATOL = 1e-5                  # set_mesh vs no mesh (dp, tp at size 1)
+DP_STEP_PARAM_ATOL = 1e-6                 # the DP step at world 1 vs the plain step
+
+
+def png_bytes(frame: np.ndarray) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(frame).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def serve_clients(server, uploads: list, bad: bytes | None = None) -> tuple[list, list, float]:
+    """Each client posts its PNGs in turn (one connection a request); `bad`
+    goes first from client 0. → (responses per client as (status, json or
+    text), per-request ms, wall seconds of the whole round)."""
+    import http.client
+    from concurrent.futures import ThreadPoolExecutor
+
+    port = server.server_address[1]
+
+    def post(data: bytes):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            t = time.perf_counter()
+            conn.request("POST", "/classify", body=data)
+            resp = conn.getresponse()
+            body = resp.read()
+            ms = (time.perf_counter() - t) * 1e3
+        finally:
+            conn.close()
+        return resp.status, (json.loads(body) if resp.status == 200 else body.decode()), ms
+
+    def client(i: int, row: list):
+        return [post(d) for d in ([bad] if bad is not None and i == 0 else []) + row]
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(uploads)) as pool:
+        results = list(pool.map(client, range(len(uploads)), uploads))
+    seconds = time.perf_counter() - t0
+    ms = [r[2] for res in results for r in res]
+    return [[r[:2] for r in res] for res in results], ms, seconds
+
+
+def phase_serving_tools(workdir: str, frames: list, nouns: list, name: str, smi: str) -> dict:
+    """Phase 13: the demo server in front of NOVICModel (SigLIP-B/16 + FT0,
+    the demo's default gencfg) answering 16 concurrent clients x 8 PNGs at
+    max_batch 8 and 64, every answer equal to a direct classify_images of its
+    image, one undecodable upload answered 400 among them; then set_mesh in
+    dp and tp and one data-parallel training step, at world size 1 on nccl."""
+    import io
+    import threading
+
+    import torch.distributed as dist
+    from PIL import Image
+
+    from novic_tpu_torch.bridge import adamw_state_from_leaves, decoder_from_numpy
+    from novic_tpu_torch.data.noise import EmbeddingNoise
+    from novic_tpu_torch.infer import NOVICModel
+    from novic_tpu_torch.ops import attention, dropout
+    from novic_tpu_torch.parallel.mesh import create_mesh
+    from novic_tpu_torch.text.simple import make_test_tokenizer
+    from novic_tpu_torch.tools.demo_server import create_server
+    from novic_tpu_torch.train.checkpoint import load_checkpoint
+    from novic_tpu_torch.train.optim import create_optimizer
+    from novic_tpu_torch.train.step import TrainRng, TrainState, make_train_step
+
+    phase_t0 = time.perf_counter()
+    n_img = DEMO_CLIENTS * DEMO_PER_CLIENT
+    pngs = [png_bytes(f) for f in frames[:n_img]]
+    pil = [Image.open(io.BytesIO(d)).convert("RGB") for d in pngs]
+    uploads = [pngs[c * DEMO_PER_CLIENT:(c + 1) * DEMO_PER_CLIENT] for c in range(DEMO_CLIENTS)]
+    kw = dict(embedder_spec=SPEC, gencfg=DEMO_GENCFG, device="cuda",
+              embedder_kwargs={"tokenizer": make_test_tokenizer(nouns), "seed": SEED})
+    line = {"phase": "serving_tools", "device": name, "nvidia_smi": smi, "clients": DEMO_CLIENTS,
+            "pngs_per_client": DEMO_PER_CLIENT, "gencfg": DEMO_GENCFG, "runs": {}}
+    k1_launches = 0
+    for max_batch in DEMO_MAX_BATCHES:
+        # The demo's main(): the model batch is max_batch
+        with NOVICModel(FT0, batch_size=max_batch, **kw) as model:
+            direct = model.classify_images(pil)
+            server = create_server(model, host="127.0.0.1", port=0, max_batch=max_batch)
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            try:
+                serve_clients(server, [uploads[0][:1]])  # warm-up: the first request
+                batcher = server.RequestHandlerClass.state.batcher
+                batcher.batches_run = batcher.requests_served = batcher.max_group = 0
+                attention.LAUNCHES = dropout.LAUNCHES = 0
+                bad = b"\x89PNG\r\n\x1a\n" + b"\0" * 64 if max_batch == DEMO_MAX_BATCHES[0] else None
+                results, ms, seconds = serve_clients(server, uploads, bad=bad)
+                torch.cuda.synchronize()
+                launches = attention.LAUNCHES
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(60)
+        if bad is not None:
+            status, text = results[0].pop(0)
+            if status != 400:
+                raise SystemExit(f"demo server: an undecodable upload got {status}, not 400")
+        mismatched = []
+        for c, res in enumerate(results):
+            for j, (status, out) in enumerate(res):
+                i = c * DEMO_PER_CLIENT + j
+                if status != 200:
+                    raise SystemExit(f"demo server: request {i} got {status}: {out}")
+                if out["preds"] != [direct.preds[i]] or out["gencfg"] != DEMO_GENCFG:
+                    mismatched.append(i)
+        if mismatched:
+            raise SystemExit(f"demo server: responses {mismatched[:8]} differ from a direct "
+                             f"classify_images of their images")
+        if launches != 12 * batcher.batches_run or dropout.LAUNCHES:
+            raise SystemExit(f"demo server: {launches} K1 launches for {batcher.batches_run} "
+                             f"groups (12 a tower forward expected), {dropout.LAUNCHES} dropout")
+        k1_launches += launches
+        served = batcher.requests_served
+        line["runs"][f"max_batch_{max_batch}"] = {
+            "images": n_img, "served_images_per_s": n_img / seconds, "seconds": seconds,
+            "groups": batcher.batches_run, "mean_group": served / max(batcher.batches_run, 1),
+            "largest_group": batcher.max_group, "p50_request_ms": float(np.percentile(ms, 50)),
+            "p95_request_ms": float(np.percentile(ms, 95)), "k1_launches": launches,
+            "bad_upload_status": 400 if bad is not None else None}
+        emit({"phase": "serving_tools_run", "max_batch": max_batch, "device": name,
+              "nvidia_smi": smi, **line["runs"][f"max_batch_{max_batch}"]})
+
+    # The parallel paths at world size 1 on nccl (one card: no multi-card run)
+    store = os.path.join(workdir, "dist_store")
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        frames64 = frames[:BATCH]
+        with NOVICModel(FT0, batch_size=BATCH, **kw) as model:
+            ref = model.classify_images(frames64)
+            attention.LAUNCHES = 0
+            model.set_mesh(create_mesh(device="cuda"))
+            dp = model.classify_images(frames64)
+            dp_launches = attention.LAUNCHES
+            model.set_mesh(None)
+            attention.LAUNCHES = 0
+            model.embedder.set_mesh(create_mesh(axis_names=("model",), device="cuda"), "tp")
+            tp = model.classify_images(frames64)
+            tp_launches = attention.LAUNCHES
+        mesh_check = {}
+        for mode, out in (("dp", dp), ("tp", tp)):
+            err = float(np.abs(np.array(out.logprobs) - np.array(ref.logprobs)).max())
+            mesh_check[mode] = {"preds_equal": out.preds == ref.preds, "logprob_max_abs_err": err}
+            if out.preds != ref.preds or err > MESH_LOGPROB_ATOL:
+                raise SystemExit(f"set_mesh {mode}: {mesh_check[mode]} against no mesh")
+        if dp_launches != 12 or tp_launches != 12:
+            raise SystemExit(f"set_mesh: K1 launched {dp_launches} (dp) / {tp_launches} (tp) "
+                             f"times for one batch, expected 12")
+        k1_launches += dp_launches + tp_launches
+
+        # One DP step at world 1 from phase 7's checkpoint and recipe, against the plain step
+        path = sorted(glob.glob(os.path.join(workdir, "outputs", "ovod_*", "*.npz")))[-1]
+        ck = load_checkpoint(path)
+        cf = ck["cfg_flat"]
+        batch = to_device(step_batch(ck, TRAIN_BATCH * TRAIN_ACCUM, SEED + 5), "cuda")
+        noise = EmbeddingNoise.create(cf["noise_scheme"], embed_dim=ck["model_config"].embed_dim,
+                                      vec_norm=cf["noise_vec_norm"], angle_min=cf["noise_angle_min"],
+                                      angle_max=cf["noise_angle_max"], mix_ratio=cf["noise_mix_ratio"])
+        steps = {}
+        for label, mesh in (("plain", None), ("dp", create_mesh(device="cuda"))):
+            model = decoder_from_numpy(ck["model_config"], ck["params"]).to("cuda")
+            opt = create_optimizer(model.named_parameters(), weight_decay=cf["weight_decay"])
+            adamw_state_from_leaves(model, opt, ck["opt_arrays"])
+            step = make_train_step(TrainState(model=model, optimizer=opt), noise=noise,
+                                   gradient_clip=1.0, accum_steps=TRAIN_ACCUM, mesh=mesh)
+            dropout.LAUNCHES = 0
+            m = step(batch, float(cf["init_lr"]), TrainRng.create(SEED, "cuda")).fetch()
+            torch.cuda.synchronize()
+            steps[label] = (m, {n: p.detach().clone() for n, p in model.named_parameters()},
+                            dropout.LAUNCHES)
+        (mp_, pp, _), (md, pd, dp_drop) = steps["plain"], steps["dp"]
+        param_err = max((pd[n] - pp[n]).abs().max().item() for n in pp)
+        dp_step = {"rows": TRAIN_BATCH * TRAIN_ACCUM, "accum": TRAIN_ACCUM,
+                   "loss_plain": float(mp_["loss_sum"] / mp_["loss_basis"]),
+                   "loss_dp": float(md["loss_sum"] / md["loss_basis"]),
+                   "grad_norm_plain": float(mp_["grad_norm"]), "grad_norm_dp": float(md["grad_norm"]),
+                   "param_max_abs_diff": param_err, "tol": DP_STEP_PARAM_ATOL,
+                   "dropout_launches": dp_drop}
+        if param_err > DP_STEP_PARAM_ATOL or dp_drop != TRAIN_ACCUM * 2 * DROPOUT_SITES:
+            raise SystemExit(f"the DP step at world 1 differs from the plain step: {dp_step}")
+    finally:
+        dist.destroy_process_group()
+    print("multi-card: not run (1 device)", flush=True)
+    line.update({"mesh_world_size": 1, "backend": "nccl", "set_mesh": mesh_check,
+                 "dp_train_step": dp_step, "k1_launches": k1_launches,
+                 "dropout_launches": dp_drop, "multi_card": "not run (1 device)",
+                 "seconds": time.perf_counter() - phase_t0})
+    emit(line)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs a GPU", file=sys.stderr)
@@ -3892,6 +4127,8 @@ def main() -> int:
                                list(nouns), name, smi)
         # 12. the EVA02, CLIPA and ALIGN towers and the structured test embedder
         towers = phase_towers(workdir, frames, list(nouns), name, smi)
+        # 13. the demo server; set_mesh and the DP train step at world size 1
+        serving = phase_serving_tools(workdir, frames, list(nouns), name, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3907,7 +4144,8 @@ def main() -> int:
                               "reference": ref_line["fused_attention_launches"],
                               "noun_data": noun_line["k1_launches"],
                               "eval": eval_line["k1_launches"],
-                              "towers": sum(towers["launches"].values())},
+                              "towers": sum(towers["launches"].values()),
+                              "serving_tools": serving["k1_launches"]},
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"]}, {
@@ -3919,7 +4157,8 @@ def main() -> int:
                               "reference": ref_line["dropout_launches"],
                               "noun_data": noun_line["dropout_launches"],
                               "eval": eval_line["dropout_launches"],
-                              "towers": towers["dropout_launches"]},
+                              "towers": towers["dropout_launches"],
+                              "serving_tools": serving["dropout_launches"]},
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}, {

@@ -9,17 +9,23 @@ cache (noun_cache=true) or are embedded by the text tower on the card while
 training. action=fix_checkpoints retrofits target_nouns into checkpoints that
 lack them (ref train.py:1487-1643): the .npz files and reference .model/.train.
 
-Not ported: orbax checkpoints (a JAX library), data-parallel training over
-several cards.
+With data_parallel=true and more than one rank (torchrun --nproc_per_node N,
+or a process group the caller initialised), training is data-parallel over
+the ranks when batch_size divides by their number (else it warns and each
+rank trains alone); only rank 0 writes checkpoints, metrics and logs.
+
+Not ported: orbax checkpoints (a JAX library).
 """
 
 from __future__ import annotations
 
 import glob
+import logging
 import math
 import os
 
 import torch
+import torch.distributed as dist
 
 from novic_tpu_torch.bridge import decoder_from_numpy, opt_state_to_leaves
 from novic_tpu_torch.cli.common import (
@@ -39,6 +45,7 @@ from novic_tpu_torch.data.grad_accum import GradAccum
 from novic_tpu_torch.data.noise import EmbeddingNoise
 from novic_tpu_torch.device import resolve
 from novic_tpu_torch.models.base import count_params, create_decoder, verify_unused
+from novic_tpu_torch.parallel.mesh import create_mesh, init_from_env
 from novic_tpu_torch.train.checkpoint import (
     load_checkpoint,
     load_reference_checkpoint,
@@ -53,18 +60,32 @@ from novic_tpu_torch.utils.metrics import MetricsLogger
 
 
 def action_train(cfg, device="cuda"):
-    dev = resolve(device)
+    dev = init_from_env(device) if cfg.data_parallel else resolve(device)
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
+    if not main_rank:
+        log.setLevel(logging.WARNING)
     ckpt_fmt = str(cfg.get("checkpoint_format", "npz") or "npz").lower()
     if ckpt_fmt == "orbax":
         raise NotImplementedError("checkpoint_format=orbax needs orbax, a JAX library: "
                                   "not ported (npz)")
     if ckpt_fmt != "npz":
         raise ValueError(f"Unsupported checkpoint_format: {ckpt_fmt}")
+    mesh = None
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if cfg.data_parallel and world > 1:
+        if cfg.batch_size % world == 0:
+            mesh = create_mesh(device=dev)
+            log.info(f"Data-parallel training over {world} devices")
+        else:
+            log.warning(f"batch_size {cfg.batch_size} not divisible by {world} devices => "
+                        f"falling back to single-device training")
     embedder = load_embedder(cfg, load_model=False, device=dev)
     dataset = load_embedding_dataset(cfg, embedder, training=True)
     dc = gen_data_config(cfg, dataset)
+    # Data-parallel: host batches, of which the loop moves this rank's rows to the device
     loader, info = dataset.create_loader(batch_size=cfg.batch_size, training=True, seed=cfg.seed,
-                                         prefetch=cfg.loader_prefetch, device=dev,
+                                         prefetch=cfg.loader_prefetch,
+                                         device=dev if mesh is None else None,
                                          num_threads=int(cfg.get("dataset_workers", 4)))
     grad_accum = GradAccum(loader, info, accum_size=cfg.accum_factor)
 
@@ -78,9 +99,6 @@ def action_train(cfg, device="cuda"):
         max_chunks = max(int(math.floor(cfg.max_epochs * epoch_batches / chunk_batches)), 1)
     log.info(f"Chunks of {chunk_batches} batches; training {max_chunks} chunks "
              f"(~{max_chunks * chunk_batches / max(epoch_batches, 1):.1f} epochs)")
-
-    if cfg.data_parallel and dev.type == "cuda" and torch.cuda.device_count() > 1:
-        log.warning("Data-parallel training is not ported yet => training on one card")
 
     model_cfg = model_config_from_cfg(cfg, embedder)
 
@@ -127,11 +145,11 @@ def action_train(cfg, device="cuda"):
                                   mix_ratio=cfg.noise_mix_ratio)
     mean_shift = load_mean_shift(cfg, embedder)
 
-    run_dir = make_run_dir(cfg)
-    stamp = os.path.basename(run_dir)[len("ovod_"):]
-    metrics = MetricsLogger(run_dir=run_dir, use_wandb=cfg.use_wandb,
-                            wandb_kwargs=wandb_init_kwargs(cfg), project=cfg.wandb_project,
-                            config=config_to_flat(cfg))
+    run_dir = make_run_dir(cfg) if main_rank else None
+    stamp = os.path.basename(run_dir)[len("ovod_"):] if main_rank else None
+    metrics = (MetricsLogger(run_dir=run_dir, use_wandb=cfg.use_wandb,
+                             wandb_kwargs=wandb_init_kwargs(cfg), project=cfg.wandb_project,
+                             config=config_to_flat(cfg)) if main_rank else None)
 
     C = TrainLoopConfig(
         chunk_batches=chunk_batches, chunk_samples=chunk_batches * cfg.batch_size,
@@ -168,9 +186,11 @@ def action_train(cfg, device="cuda"):
             multi_first=dc.multi_first, beta1=cfg.beta1, beta2=cfg.beta2,
             weight_decay=cfg.weight_decay, weight_decay_1d=cfg.weight_decay_1d,
             optimizer=cfg.optimizer, nesterov=cfg.nesterov,
-            opt_state_arrays=opt_arrays, opt_moments=opt_moments, metrics=metrics, save_fn=save_fn,
-            profile_dir=(cfg.get("profile_dir", "") or None))
-    metrics.finish()
+            opt_state_arrays=opt_arrays, opt_moments=opt_moments, metrics=metrics,
+            save_fn=save_fn if main_rank else None,
+            profile_dir=(cfg.get("profile_dir", "") or None) if main_rank else None, mesh=mesh)
+    if metrics is not None:
+        metrics.finish()
     log.info(f"Training finished: loss {ewa.loss:.4e}, top1 {ewa.top1:.3%} "
              f"(max {ewa.top1_max:.3%}); run dir {run_dir}")
     return state, S, ewa

@@ -36,6 +36,8 @@ from novic_tpu_torch.embedders.preprocess import (
     preprocess_pil_host,
 )
 from novic_tpu_torch.embedders.registry import EmbedderArch, lookup
+from novic_tpu_torch.parallel.mesh import gather_rows, same_device, shard_rows
+from novic_tpu_torch.parallel.tp import TPGroup, shard_tower, validate_tp_divisibility
 from novic_tpu_torch.text.simple import SimpleWordTokenizer
 from novic_tpu_torch.text.target import TargetConfig, TargetTokenizer, create_target_config
 from novic_tpu_torch.text.tokenizer import TextTokenizer
@@ -226,6 +228,10 @@ class Embedder:
     def is_model_loaded(self) -> bool:
         raise NotImplementedError
 
+    def set_mesh(self, mesh, mode: str = "dp") -> None:
+        """Multi-device inference over a parallel.mesh.Mesh; host-side embedders
+        (the hash and structured test embedders) ignore it."""
+
     def inference_tokens(self, tokens_dict: dict) -> np.ndarray:
         """Tokenized texts ({"input_ids": (B,S)}) → unit-norm float32 embeddings."""
         raise NotImplementedError
@@ -273,7 +279,10 @@ class TorchEmbedder(Embedder):
     Random towers (no weights_path) are drawn on the CPU from `seed`, the same
     on every device; `init_on_device=True` builds and draws them on the
     embedder's device instead (a CUDA generator: other values than the CPU's),
-    for towers too large to draw on the host."""
+    for towers too large to draw on the host.
+
+    `set_mesh` spreads inference over the ranks of a parallel.mesh.Mesh (one
+    process per device, this embedder on its rank's device)."""
 
     def __init__(self, *, spec: str, arch: EmbedderArch, load_model: bool, check: bool,
                  weights_path: Optional[str], tokenizer: Optional[TextTokenizer],
@@ -289,6 +298,7 @@ class TorchEmbedder(Embedder):
         self.seed = seed
         self.init_on_device = init_on_device
         self._vision = self._text = None
+        self._mesh, self._mesh_mode = None, "dp"
         if tokenizer is None:
             tokenizer = self._build_tokenizer(arch, bpe_merges_path)
         configuration = {
@@ -357,6 +367,49 @@ class TorchEmbedder(Embedder):
 
     # -- model lifecycle ---------------------------------------------------------
 
+    def set_mesh(self, mesh, mode: str = "dp") -> None:
+        """Multi-device inference over a parallel.mesh.Mesh (None: one device).
+
+        mode='dp'    Mesh('data'): towers replicated; each rank embeds its
+                     slice of the batch (padded with zero rows to a multiple
+                     of the axis size) and the rows are all-gathered, so every
+                     rank returns the whole output.
+        mode='tp'    Mesh('model'): Megatron tensor parallelism
+                     (parallel/tp.py): attention heads and MLP hidden dims
+                     cut over the ranks, two all-reduces per block; every
+                     rank runs the whole batch.
+        mode='dp_tp' 2-D Mesh('data', 'model'): batch on 'data', TP on 'model'.
+
+        Every rank calls the embedder with the same inputs. Loaded towers are
+        reloaded when their tensor-parallel layout changes."""
+        if mode not in ("dp", "tp", "dp_tp"):
+            raise ValueError(f"Unknown mesh mode: {mode}")
+        if mesh is not None and "tp" in mode:
+            if self.arch.family == "align":
+                raise ValueError(
+                    "Tensor parallelism is not supported for the ALIGN conv "
+                    "tower (parallel/tp.py cuts transformer params); "
+                    "use mode='dp'")
+            if getattr(self.arch.vision, "quant", "") or self.arch.text.quant:
+                raise ValueError("Tensor parallelism is not supported in the int8 quant "
+                                 "mode; use mode='dp'")
+            validate_tp_divisibility(self.arch.vision, self.arch.text,
+                                     axis_size=mesh.axis_size("model"))
+        if mesh is not None and not same_device(mesh.device, self.device):
+            raise ValueError(f"Mesh device {mesh.device} is not the embedder's {self.device}")
+        was_tp = self._tp_group() is not None
+        self._mesh, self._mesh_mode = mesh, mode
+        if self.is_model_loaded() and (was_tp or self._tp_group() is not None):
+            self.unload_model()
+            self.load_model()
+
+    def _tp_group(self):
+        """The 'model' axis group the towers are cut over, or None."""
+        if self._mesh is None or "tp" not in self._mesh_mode:
+            return None
+        m = self._mesh
+        return TPGroup(m.group("model"), m.axis_index("model"), m.axis_size("model"))
+
     def load_model(self) -> bool:
         if self._vision is not None:
             return False
@@ -367,6 +420,7 @@ class TorchEmbedder(Embedder):
             self._vision, self._text = vision.init_random(gen).eval(), text.init_random(gen).eval()
             log.warning("No tower weights provided => using random initialization on "
                         f"{self.device} (perf benchmarking / testing only)")
+            self._shard_towers()
             return True
         vision, text = tower_modules(self.arch)
         if self.weights_path:
@@ -386,7 +440,16 @@ class TorchEmbedder(Embedder):
                         "(perf benchmarking / testing only)")
         self._vision = vision.to(self.device).eval()
         self._text = text.to(self.device).eval()
+        self._shard_towers()
         return True
+
+    def _shard_towers(self) -> None:
+        """Cut the loaded towers to this rank's shards under tensor parallelism."""
+        tp = self._tp_group()
+        if tp is not None:
+            shard_tower(self._vision, tp)
+            shard_tower(self._text, tp)
+            log.info(f"Towers cut over {tp.size} tensor-parallel ranks (rank {tp.rank})")
 
     def unload_model(self) -> bool:
         if self._vision is None:
@@ -400,19 +463,31 @@ class TorchEmbedder(Embedder):
 
     # -- inference ---------------------------------------------------------------
 
+    def _run(self, tower, x: torch.Tensor) -> torch.Tensor:
+        """Unit-norm tower outputs; under data parallelism this rank embeds its
+        slice of the batch (zero rows pad it to a multiple of the 'data' axis)
+        and the slices are all-gathered in rank order."""
+        mesh = self._mesh
+        with torch.inference_mode():
+            if mesh is None or "dp" not in self._mesh_mode:
+                return _unit(tower(x))
+            b = x.shape[0]
+            pad = -b % mesh.axis_size("data")
+            if pad:
+                x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+            return gather_rows(_unit(tower(shard_rows(x, mesh))), mesh)[:b]
+
     def embed_image_tensor(self, images: torch.Tensor) -> torch.Tensor:
         """(B,S,S,3) float32 tensor on the embedder's device → (B,F) unit-norm."""
         if self._vision is None:
             raise RuntimeError("Embedder towers not loaded")
-        with torch.inference_mode():
-            return _unit(self._vision(images))
+        return self._run(self._vision, images)
 
     def embed_token_tensor(self, token_ids: torch.Tensor) -> torch.Tensor:
         """(B,S) int token ids on the embedder's device → (B,F) unit-norm."""
         if self._text is None:
             raise RuntimeError("Embedder towers not loaded")
-        with torch.inference_mode():
-            return _unit(self._text(token_ids))
+        return self._run(self._text, token_ids)
 
     def inference_tokens(self, tokens_dict: dict) -> np.ndarray:
         """Token ids padded to the context length with the pad id, the batch

@@ -18,6 +18,11 @@ compute dtype, float32 products), float32 layer norms, the residual stream in
 the compute dtype, rope in float32. Self-attention goes through
 ops.attention.fused_attention (K1) with no bias: the CUDA kernel on the card,
 its plain version on the CPU.
+
+Under tensor parallelism (parallel/tp.py `shard_tower`) a block holds its
+shards, attends on its local heads, sums out_proj's and fc2's partial products
+over the group before their biases, and normalises the sub-LN and the SwiGLU
+hidden state, both cut over the group, with all-reduced mean and variance.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from torch import nn
 from novic_tpu_torch.device import dtype_of
 from novic_tpu_torch.embedders.vit import _ACTS, _init_flax_like, _param, f32_layer_norm, tower_dense
 from novic_tpu_torch.ops.attention import fused_attention
+from novic_tpu_torch.parallel.tp import row_parallel_finish, tp_layer_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,33 +115,52 @@ class EvaBlock(nn.Module):
         else:
             self.fc1_weight, self.fc1_bias = _param(M, E), _param(M)
         self.fc2_weight, self.fc2_bias = _param(E, M), _param(E)
+        self.tp = None  # parallel.tp.TPGroup when the params are tensor-parallel shards
+
+    def _norm(self, x: torch.Tensor, name: str, out_dtype: torch.dtype,
+              sharded: bool = False) -> torch.Tensor:
+        """f32 LayerNorm with the `name` params; over a dim cut by tensor
+        parallelism (`sharded`) the statistics are all-reduced, and replicated
+        params (attn_norm) are sliced to this rank's columns."""
+        w, b = getattr(self, f"{name}_weight"), getattr(self, f"{name}_bias")
+        eps = self.cfg.layer_norm_eps
+        if not sharded or self.tp is None:
+            return f32_layer_norm(x, w, b, eps, out_dtype=out_dtype)
+        if w.shape[0] != x.shape[-1]:
+            w, b = self.tp.local(w), self.tp.local(b)
+        return tp_layer_norm(x, w, b, eps, self.tp, out_dtype=out_dtype)
 
     def forward(self, x: torch.Tensor, rope: "torch.Tensor | None") -> torch.Tensor:
         cfg = self.cfg
-        E, H, cd, eps = cfg.width, cfg.heads, cfg.compute_dtype, cfg.layer_norm_eps
+        hd, cd = cfg.width // cfg.heads, cfg.compute_dtype
         dt = dtype_of(cd)
         B, S = x.shape[0], x.shape[1]
-        h = f32_layer_norm(x, self.norm1_weight, self.norm1_bias, eps, out_dtype=dt)
-        q = tower_dense(h, self.q_proj_weight, self.q_proj_bias, cd).reshape(B, S, H, E // H)
-        k = tower_dense(h, self.k_proj_weight, None, cd).reshape(B, S, H, E // H)
-        v = tower_dense(h, self.v_proj_weight, self.v_proj_bias, cd).reshape(B, S, H, E // H)
+        h = self._norm(x, "norm1", dt)
+        # -1 heads: all of them, or this rank's under tensor parallelism
+        q = tower_dense(h, self.q_proj_weight, self.q_proj_bias, cd).reshape(B, S, -1, hd)
+        k = tower_dense(h, self.k_proj_weight, None, cd).reshape(B, S, -1, hd)
+        v = tower_dense(h, self.v_proj_weight, self.v_proj_bias, cd).reshape(B, S, -1, hd)
         if rope is not None:
             # Patch tokens only: the class token (index 0) passes unrotated
             q = torch.cat([q[:, :1], apply_rope_cat(q[:, 1:], rope)], dim=1)
             k = torch.cat([k[:, :1], apply_rope_cat(k[:, 1:], rope)], dim=1)
-        out = fused_attention(q.contiguous(), k.contiguous(), v.contiguous()).reshape(B, S, E)
+        out = fused_attention(q.contiguous(), k.contiguous(), v.contiguous()).reshape(B, S, -1)
         if cfg.inner_attn_norm:
-            out = f32_layer_norm(out, self.attn_norm_weight, self.attn_norm_bias, eps, out_dtype=dt)
-        x = x.to(dt) + tower_dense(out, self.out_proj_weight, self.out_proj_bias, cd).to(dt)
+            out = self._norm(out, "attn_norm", dt, sharded=True)
+        out = row_parallel_finish(tower_dense(out, self.out_proj_weight, None, cd),
+                                  self.out_proj_bias, self.tp)
+        x = x.to(dt) + out.to(dt)
 
-        h = f32_layer_norm(x, self.norm2_weight, self.norm2_bias, eps, out_dtype=dt)
+        h = self._norm(x, "norm2", dt)
         if cfg.swiglu:
             g = F.silu(tower_dense(h, self.fc1_g_weight, self.fc1_g_bias, cd))
             hh = g * tower_dense(h, self.fc1_x_weight, self.fc1_x_bias, cd)
-            hh = f32_layer_norm(hh, self.mlp_norm_weight, self.mlp_norm_bias, eps, out_dtype=dt)
+            hh = self._norm(hh, "mlp_norm", dt, sharded=True)
         else:
             hh = _ACTS[cfg.act](tower_dense(h, self.fc1_weight, self.fc1_bias, cd).to(dt))
-        return x + tower_dense(hh, self.fc2_weight, self.fc2_bias, cd).to(dt)
+        out = row_parallel_finish(tower_dense(hh, self.fc2_weight, None, cd), self.fc2_bias,
+                                  self.tp)
+        return x + out.to(dt)
 
 
 class EvaVisionTransformer(nn.Module):

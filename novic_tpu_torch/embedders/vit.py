@@ -21,6 +21,10 @@ Numerics follow the JAX towers:
   the same integers, so both run K2 here. Each weight is quantized once per
   device and value (a cache outside the state dict), which gives the bits of
   JAX's per-call `quantize_weight` since the weights are frozen.
+* Tensor parallelism (parallel/tp.py `shard_tower`): a block whose `tp` is set
+  holds its column shards of q/k/v and fc1 and its row shards of out_proj and
+  fc2, runs attention on its local heads, and sums each row-parallel product
+  over the group before adding the bias once; the MAP head likewise.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from torch import nn
 from novic_tpu_torch.device import dtype_of
 from novic_tpu_torch.ops.attention import fused_attention
 from novic_tpu_torch.ops.int8_matmul import int8_dense, quantize_rows, quantize_weight
+from novic_tpu_torch.parallel.tp import row_parallel_finish
 
 _ACTS = {
     "gelu": lambda x: F.gelu(x),
@@ -169,6 +174,7 @@ class _DenseOwner(nn.Module):
         check_quant(quant)
         self.compute_dtype, self.quant = compute_dtype, quant
         self._qweights: dict[str, tuple] = {}
+        self.tp = None  # parallel.tp.TPGroup when the params are tensor-parallel shards
 
     def dense(self, x: torch.Tensor, name: str,
               rows: Optional[tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
@@ -182,6 +188,15 @@ class _DenseOwner(nn.Module):
         if hit is None or hit[0] != key:
             hit = self._qweights[name] = (key, quantize_weight(w.detach()))
         return int8_dense(x, *hit[1], b, rows)
+
+    def row_dense(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """dense of a row-parallel layer (out_proj, fc2): under tensor
+        parallelism the partial product is summed over the group, then the
+        bias is added once."""
+        if self.tp is None:
+            return self.dense(x, name)
+        w, b = getattr(self, f"{name}_weight"), getattr(self, f"{name}_bias")
+        return row_parallel_finish(tower_dense(x, w, None, self.compute_dtype), b, self.tp)
 
 
 class TowerAttention(_DenseOwner):
@@ -197,22 +212,23 @@ class TowerAttention(_DenseOwner):
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None,
                 kv: Optional[torch.Tensor] = None) -> torch.Tensor:
-        E, H = self.width, self.heads
-        hd = E // H
+        E = self.width
+        hd = E // self.heads
         src = x if kv is None else kv
         B, Sq, Sk = x.shape[0], x.shape[1], src.shape[1]
         # Self-attention in the quant mode: q, k and v quantize the same rows,
         # so they are quantized once (the bits of three quantize_rows calls)
         rows = quantize_rows(x.reshape(-1, E)) if self.quant and kv is None else None
-        q = self.dense(x, "q_proj", rows).reshape(B, Sq, H, hd)
-        k = self.dense(src, "k_proj", rows).reshape(B, Sk, H, hd)
-        v = self.dense(src, "v_proj", rows).reshape(B, Sk, H, hd)
+        # -1 heads: all of them, or this rank's under tensor parallelism
+        q = self.dense(x, "q_proj", rows).reshape(B, Sq, -1, hd)
+        k = self.dense(src, "k_proj", rows).reshape(B, Sk, -1, hd)
+        v = self.dense(src, "v_proj", rows).reshape(B, Sk, -1, hd)
         if kv is None:
             sq_bias = None
             if attn_bias is not None:
                 sq_bias = attn_bias.float().expand(Sq, Sk).contiguous()
             out = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(), sq_bias)
-            return self.dense(out.reshape(B, Sq, E), "out_proj")
+            return self.row_dense(out.reshape(B, Sq, -1), "out_proj")
         # Cross-attention (MAP head): scores and softmax in the compute dtype
         cdt = dtype_of(self.compute_dtype)
         scale = 1.0 / math.sqrt(hd)
@@ -222,7 +238,7 @@ class TowerAttention(_DenseOwner):
             scores = scores + attn_bias.to(cdt)
         attn = torch.softmax(scores.float(), dim=-1).to(cdt)
         out = torch.einsum("bhqk,bkhd->bqhd", attn.float(), v.to(cdt).float())
-        return self.dense(out.reshape(B, Sq, E), "out_proj")
+        return self.row_dense(out.reshape(B, Sq, -1), "out_proj")
 
 
 class TowerBlock(_DenseOwner):
@@ -247,7 +263,7 @@ class TowerBlock(_DenseOwner):
         h = f32_layer_norm(x, self.norm2_weight, self.norm2_bias, self.eps, out_dtype=dt)
         h = self.dense(h, "fc1").to(dt)
         h = _ACTS[self.act](h)
-        h = self.dense(h, "fc2")
+        h = self.row_dense(h, "fc2")
         return x + h.to(dt)
 
 
@@ -306,6 +322,7 @@ class VisionTransformer(nn.Module):
             self.proj_weight = _param(cfg.embed_dim, E)
         if cfg.pool != "map" and cfg.proj_bias:
             self.proj_bias = _param(cfg.embed_dim)
+        self.tp = None  # the MAP head's group under tensor parallelism (parallel/tp.py)
 
     def init_random(self, generator: torch.Generator) -> "VisionTransformer":
         """Random init with the flax init's shapes and scales (normal weights with
@@ -348,7 +365,8 @@ class VisionTransformer(nn.Module):
         h = f32_layer_norm(attn_out, self.map_ln_weight, self.map_ln_bias, eps)
         h = tower_dense(h, self.map_fc1_weight, self.map_fc1_bias, cfg.compute_dtype)
         h = _ACTS[cfg.act](h)
-        h = tower_dense(h, self.map_fc2_weight, self.map_fc2_bias, cfg.compute_dtype)
+        h = row_parallel_finish(tower_dense(h, self.map_fc2_weight, None, cfg.compute_dtype),
+                                self.map_fc2_bias, self.tp)
         out = (attn_out + h)[:, 0, :]
         if cfg.embed_dim != cfg.width:
             return tower_dense(out, self.proj_weight, None, "float32")

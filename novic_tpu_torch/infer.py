@@ -10,6 +10,8 @@ Every decode mode of the JAX package is served: greedy, beam search (with vocab
 priors) and exhaustive ('all') scoring, whose host-side precompute is shared
 between tasks and optionally kept on disk (`precompute_dir`, default
 $NOVIC_PRECOMPUTE_DIR; models/precompute_store.py); and the DudDecoder baseline.
+`NOVICModel.set_mesh` serves data-parallel over the ranks of a
+torch.distributed mesh (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from novic_tpu_torch.models.precompute_store import (
     save_precompute,
 )
 from novic_tpu_torch.models.prefixed_iter import PrefixedIterDecoder
+from novic_tpu_torch.parallel.mesh import gather_rows, same_device, shard_rows
 from novic_tpu_torch.text.target import TargetConfig, TargetTokenizer
 from novic_tpu_torch.utils.logger import log
 from novic_tpu_torch.utils.misc import format_semifix
@@ -208,6 +211,9 @@ class GenerationTask:
     topk_guide: Optional[np.ndarray] = None
     topk: Optional[np.ndarray] = None
     batch_pad: int = 0  # pad ragged batches with unit e0 rows up to this size
+    # Data-parallel serving (parallel/mesh.py Mesh): each rank decodes its slice
+    # of the batch on its own copy of the decoder and the slices are gathered
+    mesh: Any = None
 
     _trie_cache: dict = dataclasses.field(default_factory=dict)
     _targets_device: dict = dataclasses.field(default_factory=dict)
@@ -280,6 +286,26 @@ class GenerationTask:
             t, p, s = self.generate(np.concatenate([np.asarray(embeds, np.float32), pad], axis=0),
                                     precompute=False)
             return t[:true_b], p[:true_b], s[:true_b]
+        if self.mesh is not None:
+            return self._generate_on_mesh(embeds)
+        return self._generate_local(embeds)
+
+    def _generate_on_mesh(self, embeds: np.ndarray):
+        """generate over the mesh: this rank's slice of the batch along 'data',
+        then every rank gathers all slices, so each returns the whole batch."""
+        n = self.mesh.size
+        if embeds.shape[0] % n != 0:
+            raise ValueError(f"Batch size {embeds.shape[0]} not divisible by the "
+                             f"{n}-device mesh (set batch_size to a multiple)")
+        local = shard_rows(torch.from_numpy(np.ascontiguousarray(embeds, dtype=np.float32)),
+                           self.mesh).numpy()
+        dev = self.mesh.device
+        return tuple(gather_rows(torch.from_numpy(np.ascontiguousarray(x)).to(dev),
+                                 self.mesh).cpu().numpy()
+                     for x in self._generate_local(local))
+
+    def _generate_local(self, embeds: np.ndarray):
+        """generate on this device's decoder, batch as given."""
         g = self.gencfg
         model = self.decoder.model
         e = torch.from_numpy(np.ascontiguousarray(embeds, dtype=np.float32)).to(model.device)
@@ -550,6 +576,7 @@ class NOVICModel:
         self.task: Optional[GenerationTask] = None
         self._task_cache: dict[str, GenerationTask] = {}
         self._entered = 0
+        self._mesh = None
 
     @staticmethod
     def _peek_embedder_spec(checkpoint: str) -> Optional[str]:
@@ -632,10 +659,28 @@ class NOVICModel:
             guide_targets_set=set(guide_strs),
             guide_targets=guide_ids if (gencfg.guided or gencfg.method == "all") else None)
         task.batch_pad = self.batch_size
+        task.mesh = self._mesh
         if self.precompute_dir:
             task.precompute_dir = self.precompute_dir
         self._task_cache[gencfg.name] = task
         return task
+
+    def set_mesh(self, mesh) -> None:
+        """Serve data-parallel over a parallel.mesh.Mesh('data') (None: one
+        device): the embedder's towers and the decoder run on every rank's
+        device, each rank embeds and decodes its slice of a batch and gathers
+        the rest, so classify_* return on every rank what one device returns.
+        Every rank calls with the same inputs; a batch (batch_size, as
+        padded) must divide by the mesh size."""
+        if mesh is not None and not same_device(mesh.device, self.device):
+            raise ValueError(f"Mesh device {mesh.device} is not the model's {self.device}")
+        self._mesh = mesh
+        self.embedder.set_mesh(mesh)
+        self._task_cache = {k: t for k, t in self._task_cache.items() if t is self.task}
+        if self.task is not None:
+            self.task.mesh = mesh
+            self.task._trie_cache.clear()
+            self.task._targets_device.clear()
 
     # -- classification -------------------------------------------------------------
 

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["build_guide_trie"]
+__all__ = ["build_guide_trie", "trie_num_nodes"]
 
 
 def build_guide_trie(guide_targets: np.ndarray, vocab_size: int, depth: int) -> dict:
@@ -119,3 +119,14 @@ def build_guide_trie(guide_targets: np.ndarray, vocab_size: int, depth: int) -> 
             "child_cnt": child_cnt, "node_cnt": node_cnt,
             "child_pack": child_pack, "pack_tok_bits": np.int32(tok_bits)}
 
+
+
+def trie_num_nodes(trie: dict) -> int:
+    """Total node-table entries across depths (diagnostic / memory estimate):
+    the sum of the `child_tok` sizes, as in novic_tpu.
+
+    Call it on build_guide_trie's own output. GenerationTask._maybe_trie keeps
+    only depth 0 of `child_tok` on the device when the packed table exists
+    (the deeper depths become (1, 1) placeholders), so on those device tables
+    the sum under-reports."""
+    return int(sum(t.size for t in trie["child_tok"]))

@@ -104,7 +104,12 @@ class FastDropout(nn.Module):
     Every `impl` the JAX package accepts ('auto', 'threefry', 'pallas') takes
     the same mask source here: the dropout kernel on a CUDA tensor, its plain
     version on a CPU tensor. Identity when deterministic or rate <= 0. The
-    rate is an attribute so a trainer can rescale it in place."""
+    rate is an attribute so a trainer can rescale it in place.
+
+    `shard_index` (0 on one device) is a data-parallel rank's index: its
+    input holds rows [i*b, (i+1)*b) of a batch-major tensor, so it draws the
+    mask at element offset i * x.numel(), the mask one device draws for those
+    rows of the whole batch."""
 
     def __init__(self, rate: float, impl: str = "auto"):
         super().__init__()
@@ -112,6 +117,7 @@ class FastDropout(nn.Module):
             raise ValueError(f"Unknown dropout impl: {impl}")
         self.rate = rate
         self.impl = impl
+        self.shard_index = 0
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -119,7 +125,8 @@ class FastDropout(nn.Module):
             return x
         if generator is None:
             raise ValueError("FastDropout needs a CPU generator for its seeds when not deterministic")
-        return dropout(x.contiguous(), draw_seed(generator), self.rate)
+        return dropout(x.contiguous(), draw_seed(generator), self.rate,
+                       self.shard_index * x.numel())
 
     def extra_repr(self) -> str:
         return f"rate={self.rate}, impl={self.impl}"

@@ -16,11 +16,15 @@
 // and the plain version in dropout.py reproduces it bit for bit.
 //
 // Layout: x and y are contiguous, n elements, float32 or bfloat16. Any n.
+// `offset` places x at elements [offset, offset + n) of a larger tensor whose
+// mask is drawn (a data-parallel rank's rows of the global batch): local
+// element i takes the bits of element offset + i.
 //
-// Design: one thread per group of 4 elements (one Philox call gives 4 words),
-// grid-stride. Where x and y are aligned to the group's size (16 bytes in
-// float32, 8 in bfloat16) a group is one vector load and one vector store; the
-// ragged last group, and any misaligned tensor, take scalar accesses. bfloat16
+// Design: one thread per group of 4 global elements (one Philox call gives 4
+// words), grid-stride. Where x and y are aligned to the group's size (16 bytes
+// in float32, 8 in bfloat16) and offset is a multiple of 4, a group is one
+// vector load and one vector store; the ragged first and last groups, and any
+// misaligned tensor or offset, take scalar accesses. bfloat16
 // values are multiplied in float32 (exact: both factors are bfloat16 values)
 // and rounded to nearest even once.
 //
@@ -67,14 +71,17 @@ __device__ __forceinline__ uint32_t word(const uint4& w, int j) {
   return j == 0 ? w.x : j == 1 ? w.y : j == 2 ? w.z : w.w;
 }
 
+// x's element i takes word (skip + i) % 4 of group g0 + (skip + i) / 4, where
+// offset = 4 * g0 + skip. The vector path runs only with skip == 0.
 template <bool kVector>
-__global__ void dropout_f32(const float* __restrict__ x, float* __restrict__ y, int64_t n,
-                            uint32_t k0, uint32_t k1, uint32_t thresh, float inv_keep) {
-  const int64_t groups = (n + 3) / 4;
+__global__ void __launch_bounds__(kThreads, 8)
+dropout_f32(const float* __restrict__ x, float* __restrict__ y, int64_t n, uint64_t g0,
+            int skip, uint32_t k0, uint32_t k1, uint32_t thresh, float inv_keep) {
+  const int64_t groups = (n + skip + 3) / 4;
   for (int64_t g = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; g < groups;
        g += (int64_t)gridDim.x * blockDim.x) {
-    const uint4 w = philox((uint64_t)g, k0, k1);
-    const int64_t i = 4 * g;
+    const uint4 w = philox(g0 + (uint64_t)g, k0, k1);
+    const int64_t i = 4 * g - skip;  // local index of the group's word 0
     if (kVector && i + 4 <= n) {
       const float4 v = *reinterpret_cast<const float4*>(x + i);
       *reinterpret_cast<float4*>(y + i) =
@@ -82,7 +89,7 @@ __global__ void dropout_f32(const float* __restrict__ x, float* __restrict__ y, 
                       apply(v.z, w.z, thresh, inv_keep), apply(v.w, w.w, thresh, inv_keep));
     } else {
       for (int j = 0; j < 4 && i + j < n; ++j)
-        y[i + j] = apply(x[i + j], word(w, j), thresh, inv_keep);
+        if (i + j >= 0) y[i + j] = apply(x[i + j], word(w, j), thresh, inv_keep);
     }
   }
 }
@@ -93,14 +100,15 @@ __device__ __forceinline__ __nv_bfloat16 apply_bf16(__nv_bfloat16 x, uint32_t bi
 }
 
 template <bool kVector>
-__global__ void dropout_bf16(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ y,
-                             int64_t n, uint32_t k0, uint32_t k1, uint32_t thresh,
-                             float inv_keep) {
-  const int64_t groups = (n + 3) / 4;
+__global__ void __launch_bounds__(kThreads, 8)
+dropout_bf16(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ y, int64_t n,
+             uint64_t g0, int skip, uint32_t k0, uint32_t k1, uint32_t thresh,
+             float inv_keep) {
+  const int64_t groups = (n + skip + 3) / 4;
   for (int64_t g = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; g < groups;
        g += (int64_t)gridDim.x * blockDim.x) {
-    const uint4 w = philox((uint64_t)g, k0, k1);
-    const int64_t i = 4 * g;
+    const uint4 w = philox(g0 + (uint64_t)g, k0, k1);
+    const int64_t i = 4 * g - skip;  // local index of the group's word 0
     if (kVector && i + 4 <= n) {
       const uint2 raw = *reinterpret_cast<const uint2*>(x + i);
       const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
@@ -112,7 +120,7 @@ __global__ void dropout_bf16(const __nv_bfloat16* __restrict__ x, __nv_bfloat16*
       *reinterpret_cast<uint2*>(y + i) = *reinterpret_cast<const uint2*>(out);
     } else {
       for (int j = 0; j < 4 && i + j < n; ++j)
-        y[i + j] = apply_bf16(x[i + j], word(w, j), thresh, inv_keep);
+        if (i + j >= 0) y[i + j] = apply_bf16(x[i + j], word(w, j), thresh, inv_keep);
     }
   }
 }
@@ -130,27 +138,34 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Launches on `stream`; returns the CUDA error
 // of the launch (0 = success).
-int novic_dropout(const void* x, void* y, long long n, int dtype, unsigned int seed0,
-                  unsigned int seed1, unsigned int thresh, float inv_keep, void* stream) {
-  if (n <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+int novic_dropout(const void* x, void* y, long long n, long long offset, int dtype,
+                  unsigned int seed0, unsigned int seed1, unsigned int thresh, float inv_keep,
+                  void* stream) {
+  if (n <= 0 || offset < 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int grid = grid_for(n);
+  const uint64_t g0 = (uint64_t)offset / 4;
+  const int skip = (int)(offset % 4);
+  const int grid = grid_for(n + skip);
   const uintptr_t align = dtype == 0 ? 16 : 8;
-  const bool vector = ((uintptr_t)x % align == 0) && ((uintptr_t)y % align == 0);
+  const bool vector = ((uintptr_t)x % align == 0) && ((uintptr_t)y % align == 0) && skip == 0;
   if (dtype == 0) {
     const float* xs = (const float*)x;
     float* ys = (float*)y;
     if (vector)
-      dropout_f32<true><<<grid, kThreads, 0, st>>>(xs, ys, n, seed0, seed1, thresh, inv_keep);
+      dropout_f32<true><<<grid, kThreads, 0, st>>>(xs, ys, n, g0, skip, seed0, seed1,
+          thresh, inv_keep);
     else
-      dropout_f32<false><<<grid, kThreads, 0, st>>>(xs, ys, n, seed0, seed1, thresh, inv_keep);
+      dropout_f32<false><<<grid, kThreads, 0, st>>>(xs, ys, n, g0, skip, seed0, seed1,
+          thresh, inv_keep);
   } else {
     const __nv_bfloat16* xs = (const __nv_bfloat16*)x;
     __nv_bfloat16* ys = (__nv_bfloat16*)y;
     if (vector)
-      dropout_bf16<true><<<grid, kThreads, 0, st>>>(xs, ys, n, seed0, seed1, thresh, inv_keep);
+      dropout_bf16<true><<<grid, kThreads, 0, st>>>(xs, ys, n, g0, skip, seed0, seed1,
+          thresh, inv_keep);
     else
-      dropout_bf16<false><<<grid, kThreads, 0, st>>>(xs, ys, n, seed0, seed1, thresh, inv_keep);
+      dropout_bf16<false><<<grid, kThreads, 0, st>>>(xs, ys, n, g0, skip, seed0, seed1,
+          thresh, inv_keep);
   }
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,17 @@
 """Dropout with a counter-based mask: the hand-written CUDA kernel (K3′) and its
 plain version.
 
-`dropout(x, seed, rate)` computes y = keep ? x * inv_keep : 0 with the
+`dropout(x, seed, rate, offset)` computes y = keep ? x * inv_keep : 0 with the
 semantics of the JAX package's Pallas kernel (novic_tpu/ops/dropout.py
 `hw_dropout`): keep where the element's 32 random bits are below
 thresh = min(round((1 - rate) * 2^32), 2^32 - 1), inv_keep = 1 / (1 - rate)
 rounded to x's float type. The bits are Philox4x32-10 with the two seed words
 as key and counter (lo32(i / 4), hi32(i / 4), 0, 0); element i takes word
-i mod 4, so the mask is a function of (seed, element index) only.
+i mod 4, so the mask is a function of (seed, element index) only. `offset`
+(default 0) shifts the index: x's element i takes the bits of element
+offset + i, so a data-parallel rank that holds rows [r*b, (r+1)*b) of a
+batch-major tensor draws, with offset r * x.numel(), the same mask as one
+device does for the whole batch.
 
 Its gradient is a `torch.autograd.Function` that keeps only the seed words and
 the rate, and regenerates the same mask on dy in the backward pass.
@@ -92,9 +96,10 @@ def philox_bits(seed: tuple[int, int], start: int, count: int,
     return words[off:off + count]
 
 
-def dropout_reference(x: torch.Tensor, seed: tuple[int, int], rate: float) -> torch.Tensor:
+def dropout_reference(x: torch.Tensor, seed: tuple[int, int], rate: float,
+                      offset: int = 0) -> torch.Tensor:
     """Plain version of the kernel: the same bits, the same products, the same rounding."""
-    bits = philox_bits(seed, 0, x.numel(), device=x.device).reshape(x.shape)
+    bits = philox_bits(seed, offset, x.numel(), device=x.device).reshape(x.shape)
     keep = bits < keep_threshold(rate)
     y = x.float() * inv_keep(rate, x.dtype)
     return torch.where(keep, y, torch.zeros((), dtype=y.dtype, device=y.device)).to(x.dtype)
@@ -111,14 +116,15 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             lib.novic_dropout.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                                          ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
-                                          ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
+                                          ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
+                                          ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
+                                          ctypes.c_void_p]
             lib.novic_dropout.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
-def _launch(x: torch.Tensor, seed: tuple[int, int], rate: float) -> torch.Tensor:
+def _launch(x: torch.Tensor, seed: tuple[int, int], rate: float, offset: int) -> torch.Tensor:
     global LAUNCHES
     if x.dtype not in _DTYPE_IDS:
         raise ValueError(f"dropout kernel: unsupported dtype {x.dtype} (float32 or bfloat16)")
@@ -131,7 +137,7 @@ def _launch(x: torch.Tensor, seed: tuple[int, int], rate: float) -> torch.Tensor
     if x.device.index != torch.cuda.current_device():
         raise ValueError(f"dropout kernel: x is on {x.device}, the current device is "
                          f"cuda:{torch.cuda.current_device()}")
-    err = lib.novic_dropout(x.data_ptr(), y.data_ptr(), x.numel(), _DTYPE_IDS[x.dtype],
+    err = lib.novic_dropout(x.data_ptr(), y.data_ptr(), x.numel(), offset, _DTYPE_IDS[x.dtype],
                             seed[0] & _MASK32, seed[1] & _MASK32, keep_threshold(rate),
                             inv_keep(rate, x.dtype), torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -140,32 +146,36 @@ def _launch(x: torch.Tensor, seed: tuple[int, int], rate: float) -> torch.Tensor
     return y
 
 
-def dropout_apply(x: torch.Tensor, seed: tuple[int, int], rate: float) -> torch.Tensor:
+def dropout_apply(x: torch.Tensor, seed: tuple[int, int], rate: float,
+                  offset: int = 0) -> torch.Tensor:
     """One application of the mask (no autograd): CPU tensors take the plain
     version, CUDA tensors launch the kernel."""
     if not 0.0 < rate < 1.0:
         raise ValueError(f"dropout rate must lie in (0, 1): {rate}")
+    if offset < 0:
+        raise ValueError(f"dropout offset must be >= 0: {offset}")
     if x.device.type == "cpu":
-        return dropout_reference(x, seed, rate)
+        return dropout_reference(x, seed, rate, offset)
     if x.device.type != "cuda":
         raise ValueError(f"dropout: unsupported device {x.device}")
-    return _launch(x, seed, rate)
+    return _launch(x, seed, rate, offset)
 
 
 class _Dropout(torch.autograd.Function):
     """Keeps only the seed words and the rate; backward regenerates the mask."""
 
     @staticmethod
-    def forward(ctx, x, seed0: int, seed1: int, rate: float):
-        ctx.mask_args = ((seed0, seed1), rate)
-        return dropout_apply(x, (seed0, seed1), rate)
+    def forward(ctx, x, seed0: int, seed1: int, rate: float, offset: int):
+        ctx.mask_args = ((seed0, seed1), rate, offset)
+        return dropout_apply(x, (seed0, seed1), rate, offset)
 
     @staticmethod
     def backward(ctx, dy):
-        seed, rate = ctx.mask_args
-        return dropout_apply(dy.contiguous(), seed, rate), None, None, None
+        seed, rate, offset = ctx.mask_args
+        return dropout_apply(dy.contiguous(), seed, rate, offset), None, None, None, None
 
 
-def dropout(x: torch.Tensor, seed: tuple[int, int], rate: float) -> torch.Tensor:
-    """Dropout(x) with the counter-based mask of `seed` (two 32-bit words)."""
-    return _Dropout.apply(x, int(seed[0]), int(seed[1]), float(rate))
+def dropout(x: torch.Tensor, seed: tuple[int, int], rate: float, offset: int = 0) -> torch.Tensor:
+    """Dropout(x) with the counter-based mask of `seed` (two 32-bit words), x
+    taking the bits of elements [offset, offset + x.numel())."""
+    return _Dropout.apply(x, int(seed[0]), int(seed[1]), float(rate), int(offset))

@@ -13,6 +13,12 @@ into one accumulated optimizer step (train/step.py) and reads each step's
 metrics one step late, after the next step has been launched, so the card
 always has a step queued. `profile_dir` records a torch.profiler trace of the
 first trained chunk to <profile_dir>/trace.json.
+
+Data parallelism (`mesh`, parallel/mesh.py): every rank iterates the same
+loader (same seed) and moves only its rows of each loader batch to its device
+(the batch axis: dim 0, or dim 1 of multi_first (M, B, ...) targets); the
+step (train/step.py) makes the update equal one device's. The counters count
+the whole batch. Only the caller's rank-0 `metrics` and `save_fn` write.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from novic_tpu_torch.bridge import adamw_state_from_reference, opt_state_from_leaves
 from novic_tpu_torch.data.noise import EmbeddingNoise
+from novic_tpu_torch.parallel.mesh import shard_rows
 from novic_tpu_torch.train.optim import create_optimizer, lr_schedule_per_chunk
 from novic_tpu_torch.train.step import EwaMetrics, TrainRng, TrainState, make_train_step
 from novic_tpu_torch.utils.logger import log
@@ -114,13 +121,17 @@ def compute_chunk_batches(num_valid_targets: int, chunk_scale: float, batch_size
     return max(int(math.ceil(num_valid_targets * chunk_scale / batch_size)), 1)
 
 
+def _host(x) -> torch.Tensor:
+    """A loader batch member as a tensor (numpy is copied: it may view the
+    cache's read-only memory map)."""
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+
+
 def _tensor(x, device: torch.device, dtype: Optional[torch.dtype] = None):
     """Loader batch member → tensor on the training device (device tensors pass)."""
     if x is None:
         return None
-    if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.array(x))
-    x = x.to(device, non_blocking=True)
+    x = _host(x).to(device, non_blocking=True)
     return x.to(dtype) if dtype is not None else x
 
 
@@ -144,6 +155,7 @@ def train(
     metrics: Optional[MetricsLogger] = None,
     save_fn=None,                # callable(chunk_id, state, S) -> path, or None
     profile_dir: Optional[str] = None,
+    mesh=None,                   # parallel.mesh.Mesh: data-parallel over its 'data' axis
 ):
     """Run the training loop on the model's device; returns (TrainState,
     TrainLoopState, EwaMetrics)."""
@@ -165,7 +177,7 @@ def train(
 
     K = max(C.steps_per_dispatch, 1)
     step_kwargs = dict(noise=noise, mean_shift=mean_shift, gradient_clip=C.gradient_clip,
-                       accum_steps=C.accum_size, multi_first=multi_first)
+                       accum_steps=C.accum_size, multi_first=multi_first, mesh=mesh)
     step = make_train_step(state, **step_kwargs)
     step_multi = make_train_step(state, steps_per_call=K, **step_kwargs) if K > 1 else None
 
@@ -267,8 +279,15 @@ def train(
 
             lr = schedule(S.chunk_id)
             embed, target, mask, weight = batch
-            accum_buf.append((_tensor(embed, device, torch.float32), _tensor(target, device),
-                              _tensor(mask, device), _tensor(weight, device, torch.float32)))
+            local = batch
+            if mesh is not None:  # this rank's rows, before the copy to the device
+                tdim = 1 if multi_first and np.ndim(target) == 3 else 0
+                local = tuple(None if x is None
+                              else shard_rows(_host(x), mesh, dim=d).contiguous()
+                              for x, d in zip(batch, (0, tdim, tdim, tdim)))
+            accum_buf.append((_tensor(local[0], device, torch.float32), _tensor(local[1], device),
+                              _tensor(local[2], device),
+                              _tensor(local[3], device, torch.float32)))
             if len(accum_buf) == A:
                 dispatch_accum(lr)
 
@@ -352,7 +371,7 @@ def train(
         log.info(f"Discarding {n_disc} loader batches ({disc_samples} samples) of a "
                  f"partial accumulation group at stop")
         S.batch_id -= n_disc
-        S.sample_id -= disc_samples
+        S.sample_id -= disc_samples * (mesh.axis_size("data") if mesh is not None else 1)
         accum_buf.clear()
     if pending is not None:
         consume(pending)

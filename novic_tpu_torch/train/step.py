@@ -17,6 +17,18 @@ norm) and the AdamW update.
   loop can read step t-1's numbers after launching step t without draining the
   card. The dropout sites draw their seeds from a CPU generator; the noise
   draws from a generator on the batch's device.
+* Data parallelism (`mesh`, a parallel.mesh.Mesh with a 'data' axis): each
+  rank holds its rows of every microbatch. The gradients equal one device's
+  for the whole batch: each rank backpropagates its summed loss over the
+  microbatch's global normaliser (the all-reduced loss basis, never a mean of
+  per-rank means, since the ranks' mask counts differ), and the gradients are
+  all-reduced (summed) before clipping, so grad_norm is the global one. The
+  noise is drawn for the gathered microbatch on every rank from the same
+  generator state, and each rank keeps its rows; the dropout sites draw the
+  mask at this rank's element offset (FastDropout.shard_index). Both then
+  equal one device's for batch-major data; with multi_first data (M, B, ...)
+  the dropout masks are other draws than one device's. The metric sums are
+  all-reduced too.
 * Matmuls run in exact float32: TF32 stays off (torch.backends.cuda.matmul.
   allow_tf32 = False, the default), whatever the config's matmul_precision says.
   On the TPU, "default" meant one bf16 pass; a faster precision is later work.
@@ -29,8 +41,11 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from novic_tpu_torch.data.noise import EmbeddingNoise, apply_mean_shift
+from novic_tpu_torch.models.layers import FastDropout
+from novic_tpu_torch.parallel.mesh import gather_rows, shard_rows
 from novic_tpu_torch.train.optim import clip_by_global_norm, global_norm
 
 METRIC_KEYS = ("loss_sum", "loss_basis", "correct", "tokens", "grad_norm")
@@ -99,23 +114,39 @@ def make_train_step(
     accum_steps: int = 1,
     multi_first: bool = False,
     steps_per_call: int = 1,
+    mesh=None,                       # parallel.mesh.Mesh: data-parallel over its 'data' axis
 ) -> Callable:
     """Build the step: (batch, lr, rng) → StepMetrics, updating `state` in place.
 
     batch = (embed BxF, target, mask, weight) tensors on the model's device, with
-    None members allowed. With steps_per_call = K > 1 the step takes
-    (batches, lrs, rng) with K of each and returns (K, 5) metrics."""
+    None members allowed (under `mesh`: this rank's rows). With steps_per_call
+    = K > 1 the step takes (batches, lrs, rng) with K of each and returns (K, 5)
+    metrics."""
     model, optimizer = state.model, state.optimizer
     params = list(model.parameters())
     device = params[0].device
     shift = (None if mean_shift is None
              else torch.as_tensor(np.asarray(mean_shift), dtype=torch.float32, device=device))
+    dp_group = None
+    if mesh is not None:
+        dp_group = mesh.group("data")
+        for m in model.modules():
+            if isinstance(m, FastDropout):
+                m.shard_index = mesh.axis_index("data")
+
+    def all_reduce(x: torch.Tensor) -> torch.Tensor:
+        if dp_group is not None:
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=dp_group)
+        return x
 
     def microbatch(batch, rng: TrainRng, scale: float) -> torch.Tensor:
         embed, target, mask, weight = batch
         embed = apply_mean_shift(embed.float(), shift)
         if noise is not None:
-            embed = noise(embed, rng.noise)
+            if mesh is None:
+                embed = noise(embed, rng.noise)
+            else:  # the whole microbatch's draws, this rank's rows
+                embed = shard_rows(noise(gather_rows(embed, mesh), rng.noise), mesh)
         _, padding, loss_sum, loss_basis, correct = model(
             embed, target, mask, weight, calc_loss=True, calc_correct=True, only_pred=False,
             guide_targets=None, multi_first=multi_first, deterministic=False,
@@ -124,7 +155,8 @@ def make_train_step(
             tokens = loss_sum.new_full((), float(target.numel()))
         else:
             tokens = padding.numel() - padding.sum()
-        mean_loss = loss_sum / loss_basis.clamp_min(1e-12)
+        basis = all_reduce(loss_basis.detach().clone()) if dp_group is not None else loss_basis
+        mean_loss = loss_sum / basis.clamp_min(1e-12)
         (mean_loss * scale).backward()
         return torch.stack([loss_sum.detach(), loss_basis.detach(), correct.sum().float(),
                             tokens.float()])
@@ -140,6 +172,11 @@ def make_train_step(
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        if dp_group is not None:  # one all-reduce of every gradient and the metric sums
+            flat = all_reduce(torch.cat([g.reshape(-1) for g in grads] + [sums.float()]))
+            for g, part in zip(grads, flat.split([g.numel() for g in grads] + [sums.numel()])):
+                g.copy_(part.view_as(g))
+            sums = flat[-sums.numel():].to(sums.dtype)
         if gradient_clip > 0:
             grad_norm = clip_by_global_norm(grads, gradient_clip)
         else:

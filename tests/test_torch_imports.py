@@ -16,7 +16,10 @@ cli.actions_misc and train.checkpoint/optim; the noun-data slice's
 data.noun_dataset, data.cache_writers, data.classification, cli.actions_cache
 and cli.actions_eval; the eval slice's cli.actions_eval (every action),
 cli.actions_misc and utils.metrics; the tower-family slice's embedders.eva,
-embedders.align and embedders.structured) and chip_smoke.
+embedders.align and embedders.structured; the tools-and-parallel slice's
+tools.* (demo server, caption and annotation tools, specificity), parallel.*
+and utils.debug) and chip_smoke. The hook also raises on openai and cv2, which
+the tools import only when they run.
 """
 
 import os
@@ -33,7 +36,7 @@ REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 _GUARD = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "novic_tpu", "exp", "tabulate")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "novic_tpu", "exp", "tabulate", "openai", "cv2")
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -86,6 +89,13 @@ NOUN_DATA_SLICE_MODULES = ["novic_tpu_torch.data.noun_dataset",
 
 TOWER_FAMILY_SLICE_MODULES = ["novic_tpu_torch.embedders.eva", "novic_tpu_torch.embedders.align",
                               "novic_tpu_torch.embedders.structured"]
+TOOLS_PARALLEL_SLICE_MODULES = [
+    "novic_tpu_torch.tools", "novic_tpu_torch.tools.demo_server",
+    "novic_tpu_torch.tools.specificity", "novic_tpu_torch.tools.caption_check",
+    "novic_tpu_torch.tools.caption_generation", "novic_tpu_torch.tools.gpt_annotation",
+    "novic_tpu_torch.tools.annotate_gui", "novic_tpu_torch.parallel",
+    "novic_tpu_torch.parallel.mesh", "novic_tpu_torch.parallel.tp",
+    "novic_tpu_torch.utils.debug"]
 
 
 def test_port_imports_without_jax():
@@ -97,7 +107,8 @@ def test_port_imports_without_jax():
     assert int(lines[-1]) >= 64
     assert set(TRAINING_MODULES + INT8_AND_TEXT_MODULES + DFN5B_SLICE_MODULES
                + FLASH_SLICE_MODULES + ALL_SLICE_MODULES + REFERENCE_SLICE_MODULES
-               + NOUN_DATA_SLICE_MODULES + TOWER_FAMILY_SLICE_MODULES) <= set(lines[-2].split())
+               + NOUN_DATA_SLICE_MODULES + TOWER_FAMILY_SLICE_MODULES
+               + TOOLS_PARALLEL_SLICE_MODULES) <= set(lines[-2].split())
 
 
 def test_train_cli_runs_without_jax():
