@@ -5,8 +5,9 @@
 Phases, each printing JSON lines; any failure exits nonzero:
   1. device: the card's name and its nvidia-smi name and power limit;
   2. build: compile every kernel (attention.cu, dropout.cu, int8_matmul.cu,
-     beam_reorder.cu, attention_bf16.cu, tiled_matmul.cu, flash_attention.cu)
-     from the checkout's sources, one nvcc each, started together; count
+     beam_reorder.cu, attention_bf16.cu, tiled_matmul.cu, flash_attention.cu,
+     flash_attention_bwd.cu) from the checkout's sources, one nvcc each,
+     started together; count
      HGMMA / IGMMA (wgmma on bf16 / s8), UTMALDG / UTMASTG (TMA load /
      store) and SYNCS (mbarrier) instructions in the SASS of the Hopper
      designs (attention, attention_bf16, flash_attention, tiled_matmul,
@@ -63,7 +64,21 @@ Phases, each printing JSON lines; any failure exits nonzero:
      from the padded (B,Sp,H,hd) projections with segment ids, and at edge
      cases (S=1, S=100 with hd 8/64/80/128, Sq != Skv, two packed segments, a
      query with every key masked, no segment ids); times beside the bound,
-     SDPA with the segment mask and, at the DFN5B shape, attention_bf16's;
+     SDPA with the segment mask and, at the DFN5B shape, attention_bf16's.
+     Then its backward (X6b: the dK/dV and dQ kernels, mma.sync) and its
+     causal and ab options at the harness shapes (256,12,256,64) and
+     (32,16,768,80) with padding ids, (8,12,256,64) causal, the same with a
+     float32 ab, (4,16,768,80) with causal, padding ids and a float32 ab, and
+     (4,12,200,328,80) with causal, padding ids and a bf16 ab: the forward
+     (o, l, m) against the plain forward, each backward kernel against the
+     plain backward on the kernel's o, l and m (dq, dk, dv, dab), and the
+     autograd path (flash_attention with inputs requiring grad: one forward
+     with residuals and one launch of each backward kernel, the same
+     gradients); ms (CUDA events; and device ms, from the profiler) of the
+     forward without and with residuals and without the case's options,
+     beside its bound, its plain version's and SDPA's with the same mask;
+     of each backward kernel beside their bounds, the plain backward's ms
+     and torch.autograd.grad through SDPA with the same mask;
   4. serving path: NOVICModel serving SigLIP-B/16 (random weights from a seed)
      + the FT0 decoder with beam k=10, unguided and guided over all 42,919
      nouns, 2 batches of 64 seeded 224x224 frames; checks the outputs and that
@@ -98,6 +113,12 @@ Phases, each printing JSON lines; any failure exits nonzero:
      variant and tower_bhsd: ms per pass, X6 launches (12 a pass with
      attn_flash), cosine to attn_xla_f32's tower, and the file's flash-vs-xla
      check at B=4;
+  4h. the gradient path through attn_variants' tower with attn_flash, as
+     jax.grad of the root file's tower takes it: forward and backward of a
+     seeded cotangent at B=256, 12 layers, full width (12 X6, 12 dK/dV and
+     12 dQ launches a step, every parameter gradient finite), ms per step
+     and peak memory; card vs CPU at 2 layers, B=8: each parameter
+     gradient's cosine (the key bias, whose exact gradient is 0, by norm);
   4d. decode modes on the 2 x 64 served embeddings: reorder-mode beam k=10
      (G = 7 X5 launches per batch), unguided and trie-guided, against lazy mode
      (top-1 identical, scores within 1e-4); greedy and vocab-prior gencfgs
@@ -265,6 +286,23 @@ KERNEL_REL_FRO_BF16 = 4e-4
 # whichever max it is taken against, so each output stays within
 # 2^-7 * max|v| of the other's.
 KERNEL_REL_FRO_BLOCKING = 2 * math.sqrt(2) * 2.0 ** -8 / math.sqrt(3)
+# Phase 3g, X6b against its plain backward on the same o, l and m: both take
+# the same exact products of bf16 values in float32 and sum them in another
+# order, and exp differs in its last bits, so a bf16 rounding of p or ds can
+# land one ulp (2^-8 relative) apart. Where every one did, a gradient would
+# move by 2^-8 of its norm, and no element by more than 2^-7 of the largest
+# magnitude among its elements; the bf16 result may then round one ulp apart.
+# The forward's l and m: the same sums of exps in another order (ex2.approx
+# against torch.exp), within 1e-5 relative (m of max(|m|, 1))
+BWD_REL_FRO = 2.0 ** -8
+LM_RTOL = 1e-5
+# Phase 4h: the harness tower's parameter gradients card vs CPU at 2 layers
+# (the kernels' 64-key blocking against the single-step plain versions; the
+# CPU tests hold the CPU path against jax.grad at 0.9999). The key bias's
+# exact gradient is 0 (softmax is invariant to a constant added to a row's
+# scores): both sides hold rounding residue, each within 2^-7 of the query
+# bias's gradient norm
+GRAD_COSINE_MIN = 0.9999
 # Phase 3f: bf16 and float32 products within this of a float64 product,
 # relative to the sum of |x*w| over the same terms (float32 sums of K terms)
 MATMUL_REL = 1e-5
@@ -1188,14 +1226,22 @@ def phase_tiled_matmul(tm) -> tuple[dict, dict]:
     return picked, transpose
 
 
-def flash_bound_ms(B, H, sq, skv, hd, seg: bool) -> tuple[float, str]:
+def causal_pairs(sq: int, skv: int, causal: bool) -> int:
+    """The (query, key) pairs a run needs: under causal those with key <=
+    query, else all of them."""
+    return sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+
+
+def flash_bound_ms(B, H, sq, skv, hd, seg: bool, causal: bool = False,
+                   ab_bytes: int = 0) -> tuple[float, str]:
     """Least time: bf16 q, k, v read once, o written once (and the int32
-    segment ids read once) over the HBM rate, vs the two Sq x Skv x hd
-    products over the bf16 peak. Every query row is computed, padded ones
-    included."""
+    segment ids and the bias read once) over the HBM rate, vs the two
+    products over the bf16 peak, over `causal_pairs`. Every query row is
+    computed, padded ones included."""
     nbytes = 2 * B * H * hd * (2 * sq + 2 * skv) + (4 * B * (sq + skv) if seg else 0)
+    nbytes += ab_bytes * B * H * sq * skv
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * B * H * sq * skv * hd / BF16_FLOP_PER_S * 1e3
+    t_ops = 4 * B * H * causal_pairs(sq, skv, causal) * hd / BF16_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1265,7 +1311,8 @@ def phase_flash_attention(fa, ab) -> dict:
                 else f"1 over {seg_kind} tokens, 0 over the padding", "blockings": {}}
         ok = bool(torch.isfinite(out).all())
         for bk in blockings:
-            ref = fa.flash_attention_reference(q, k, v, segs, scale, bk).float()
+            ref = fa.flash_attention_reference(q, k, v, segment_ids=segs, sm_scale=scale,
+                                               block_k=bk)[0].float()
             diff = (out - ref).abs()
             rel_fro = ((out - ref).norm() / ref.norm()).item()
             rel_bar = KERNEL_REL_FRO_BF16 if bk is None else KERNEL_REL_FRO_BLOCKING
@@ -1289,7 +1336,8 @@ def phase_flash_attention(fa, ab) -> dict:
         mask = None if segs is None else segs[0][:, None, :, None] == segs[1][:, None, None, :]
         bound_ms, bound_by = flash_bound_ms(B, H, sq, skv, hd, segs is not None)
         line.update(ms=cuda_ms(run), plain_ms=cuda_ms(
-            lambda: fa.flash_attention_reference(q, k, v, segs, scale), iters=3, warmup=1),
+            lambda: fa.flash_attention_reference(q, k, v, segment_ids=segs, sm_scale=scale),
+            iters=3, warmup=1),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                                       scale=scale)),
             library_call="scaled_dot_product_attention(attn_mask=segment mask)",
@@ -1304,6 +1352,189 @@ def phase_flash_attention(fa, ab) -> dict:
         if label in FLASH_REPLACES:
             lines[label] = line
         del q, k, v, out, mask
+    return lines
+
+
+def flash_bwd_bound_ms(B, H, sq, skv, hd, seg: bool, causal: bool, ab_bytes: int,
+                       kernel: str) -> tuple[float, str]:
+    """Least time of one X6b kernel, or ("pair") of the whole backward: each
+    input read once and each output written once over the HBM rate, vs its
+    products over the bf16 peak. dK/dV: q, k, v, do (bf16), l, m, di
+    (float32), ab and the segment ids read; dk, dv written; 4 products (S, dP,
+    dV, dK). dQ: the same inputs; dq (and dab) written; 3 products (S, dP,
+    dQ). The pair reads its inputs once and writes all four outputs: 7
+    products. A product counts the (query, key) pairs of this run: under
+    causal those with key <= query; every query row otherwise, padded ones
+    included, as the kernels compute them."""
+    pairs = causal_pairs(sq, skv, causal)
+    bf, rows = 2 * B * H * hd, 4 * B * H * sq
+    read = bf * (2 * sq + 2 * skv) + 3 * rows + ab_bytes * B * H * sq * skv
+    read += 4 * B * (sq + skv) if seg else 0
+    written = {"dkv": bf * 2 * skv, "dq": bf * sq + ab_bytes * B * H * sq * skv,
+               "pair": bf * (sq + 2 * skv) + ab_bytes * B * H * sq * skv}[kernel]
+    products = {"dkv": 4, "dq": 3, "pair": 7}[kernel]
+    t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
+    t_ops = products * 2 * B * H * pairs * hd / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# X6b's cases (label, B, H, Sq, Skv, hd, segments, causal, ab dtype): the two
+# harness shapes as phase 3g reads them, then the forward's causal and ab
+# options, together, and Sq != Skv (whose last 10 queries, in a segment of
+# keys past every key they visit, are rows with every visited key masked)
+FLASH_BWD_CASES = [("dfn5b", 32, 16, 768, 768, 80, 730, False, None),
+                   ("attn_variants", 256, 12, 256, 256, 64, 196, False, None),
+                   ("causal", 8, 12, 256, 256, 64, None, True, None),
+                   ("ab_f32", 8, 12, 256, 256, 64, None, False, torch.float32),
+                   ("causal_segments_ab", 4, 16, 768, 768, 80, 730, True, torch.float32),
+                   ("sq_ne_skv", 4, 12, 200, 328, 80, "sq_ne_skv", True, torch.bfloat16)]
+FLASH_BWD_REPLACES = {"dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:796",
+                      "dq": "jax/experimental/pallas/ops/tpu/flash_attention.py:1146"}
+
+
+def _held(got: torch.Tensor, ref: torch.Tensor, atol: torch.Tensor | float,
+          rel_bar: float) -> dict:
+    """Elementwise |got - ref| <= atol and ||got - ref|| / ||ref|| <= rel_bar."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    rel = ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+    return {"max_abs_err": diff.max().item(), "rel_fro_err": rel, "rel_fro_bar": rel_bar,
+            "ok": bool(torch.isfinite(got).all() and (diff <= atol).all() and rel <= rel_bar)}
+
+
+def phase_flash_attention_bwd(fa) -> dict:
+    """Phase 3g, backward: at each FLASH_BWD_CASES case the extended forward
+    (causal, ab, the residuals l and m) against its plain version, the dK/dV
+    and dQ kernels against `flash_attention_bwd_reference` on the kernel's o,
+    l and m, and flash_attention's autograd path (one forward with residuals,
+    one launch of each backward kernel, the same gradients); times beside the
+    bounds, the plain backward and torch.autograd.grad through
+    scaled_dot_product_attention with the same mask. Returns the lines by case."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    bf = torch.bfloat16
+    lines = {}
+    for label, B, H, sq, skv, hd, seg_kind, causal, ab_dtype in FLASH_BWD_CASES:
+        def proj(n):  # (B, n, H, hd) bf16, zero past the real tokens, read as (B, H, n, hd)
+            x = torch.randn(B, n, H, hd, device="cuda", generator=gen).to(bf)
+            if isinstance(seg_kind, int):
+                x[:, seg_kind:] = 0
+            return x.transpose(1, 2)
+
+        q, k, v, do = proj(sq), proj(skv), proj(skv), proj(sq)
+        ab = None if ab_dtype is None else torch.randn(B, H, sq, skv, device="cuda",
+                                                       generator=gen).to(ab_dtype)
+        segs = _flash_segments(seg_kind, B, sq, skv)
+        scale = 1.0 / math.sqrt(hd)
+        line = {"phase": "kernel", "name": "flash_attention_bwd", "case": label,
+                "shape": [B, H, sq, skv, hd], "causal": causal,
+                "ab": None if ab is None else str(ab_dtype).replace("torch.", ""),
+                "segments": seg_kind if seg_kind is None or isinstance(seg_kind, str)
+                else f"1 over {seg_kind} tokens, 0 over the padding",
+                "tol": f"each gradient: |d| <= 1 bf16 ulp + 2^-7 max|ref|, rel_fro <= "
+                       f"{BWD_REL_FRO:.2e}; o: phase 3g's forward bars; l, m: {LM_RTOL} relative"}
+        # The forward with its residuals, against the plain forward
+        ab_bytes = 0 if ab is None else ab.element_size()
+        o, l, m = fa._launch(q, k, v, ab, segs, causal, scale, residuals=True)
+        o_r, l_r, m_r = fa.flash_attention_reference(q, k, v, ab, segs, causal, scale)
+        vmax = v.float().abs().amax(dim=2, keepdim=True)
+        fwd = _held(o, o_r, KERNEL_ATOL + 2.0 ** -7 * vmax + bf16_ulp(o_r), KERNEL_REL_FRO_BF16)
+        fwd["l_rel_err"] = ((l - l_r).abs() / l_r.abs()).max().item()
+        fwd["m_rel_err"] = ((m - m_r).abs() / m_r.abs().clamp_min(1.0)).max().item()
+        fwd["ok"] = fwd["ok"] and fwd["l_rel_err"] <= LM_RTOL and fwd["m_rel_err"] <= LM_RTOL
+        del o_r, l_r, m_r
+        # The backward kernels against the plain backward on the kernel's o, l, m
+        a = fa._bwd_inputs(q, k, v, ab, segs, o, l, m, do, causal, scale)
+        dk, dv = fa._launch_dkv(a)
+        dq, dab = fa._launch_dq(a, ab is not None)
+        refs = fa.flash_attention_bwd_reference(q, k, v, ab, segs, o, l, m, do, causal, scale)
+        grads = {}
+        for gname, got, ref in zip(("dq", "dk", "dv", "dab"), (dq, dk, dv, dab), refs):
+            if ref is not None:
+                grads[gname] = _held(got, ref, bf16_ulp(ref) + 2.0 ** -7 * ref.float().abs().max(),
+                                     BWD_REL_FRO)
+        del refs
+        # The autograd path: one forward with residuals, one launch of each kernel
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        if ab is not None:
+            leaves.append(ab.detach().requires_grad_())
+        fa.LAUNCHES = fa.DKV_LAUNCHES = fa.DQ_LAUNCHES = 0
+        out = fa.flash_attention(*leaves[:3], leaves[3] if ab is not None else None, segs,
+                                 causal=causal, sm_scale=scale)
+        auto = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        launches = {"forward": fa.LAUNCHES, "dkv": fa.DKV_LAUNCHES, "dq": fa.DQ_LAUNCHES}
+        same = torch.equal(out, o) and all(torch.equal(x, y) for x, y in
+                                           zip(auto, (dq, dk, dv, dab)))
+        del out, auto
+        ok = fwd["ok"] and all(g["ok"] for g in grads.values()) and same and \
+            launches == {"forward": 1, "dkv": 1, "dq": 1}
+        # Times: the forward without and with residuals, each backward kernel,
+        # the plain backward, SDPA's backward with the same mask
+        bounds = {kern: flash_bwd_bound_ms(B, H, sq, skv, hd, segs is not None, causal,
+                                           ab_bytes, kern) for kern in ("dkv", "dq", "pair")}
+        # (CUDA events over back-to-back launches; below ~0.1 ms those measure
+        # the wrapper's host time, so the kernels' device time is read too)
+        fwd_runs = {"": lambda: fa._launch(q, k, v, ab, segs, causal, scale),
+                    "_with_residuals": lambda: fa._launch(q, k, v, ab, segs, causal, scale,
+                                                          residuals=True),
+                    "_without_options": lambda: fa._launch(q, k, v, None, segs, False, scale)}
+        for key, run in fwd_runs.items():
+            fwd["ms" + key], fwd["device_ms" + key] = cuda_ms(run), device_ms(run)
+        fwd["bound_ms"], fwd["bound_by"] = flash_bound_ms(B, H, sq, skv, hd, segs is not None,
+                                                          causal, ab_bytes)
+        fwd["plain_ms"] = cuda_ms(lambda: fa.flash_attention_reference(
+            q, k, v, ab, segs, causal, scale), iters=3, warmup=1)
+        dkv_ms, dq_ms = cuda_ms(lambda: fa._launch_dkv(a)), cuda_ms(
+            lambda: fa._launch_dq(a, ab is not None))
+        dkv_dev, dq_dev = device_ms(lambda: fa._launch_dkv(a)), device_ms(
+            lambda: fa._launch_dq(a, ab is not None))
+        plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, ab, segs, o, l, m, do, causal, scale), iters=3, warmup=1)
+        keep = None
+        if segs is not None:
+            keep = segs[0][:, None, :, None] == segs[1][:, None, None, :]
+        if causal:
+            below = torch.arange(skv, device="cuda")[None, :] <= torch.arange(
+                sq, device="cuda")[:, None]
+            keep = below if keep is None else keep & below
+        mask = keep
+        if ab is not None:  # JAX's (q.k + ab) * scale: SDPA adds ab * scale
+            mask = (ab.float() * scale).to(bf)
+            if keep is not None:
+                mask = mask.masked_fill(~keep, -torch.inf)
+            mask = mask.requires_grad_()
+        sd = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.no_grad():
+            fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale))
+        sdpa_out = F.scaled_dot_product_attention(*sd, attn_mask=mask, scale=scale)
+        sd_inputs = sd + ([mask] if ab is not None else [])
+        library_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, sd_inputs, do,
+                                                         retain_graph=True), iters=5, warmup=1)
+        line.update(forward=fwd, grads=grads, autograd_path_equal=same,
+                    autograd_path_launches=launches,
+                    max_abs_err=max(g["max_abs_err"] for g in grads.values()),
+                    dkv={"ms": dkv_ms, "device_ms": dkv_dev, "bound_ms": bounds["dkv"][0],
+                         "bound_by": bounds["dkv"][1]},
+                    dq={"ms": dq_ms, "device_ms": dq_dev, "bound_ms": bounds["dq"][0],
+                        "bound_by": bounds["dq"][1], "writes_dab": ab is not None},
+                    backward_ms=dkv_ms + dq_ms,
+                    pair_bound_ms=bounds["pair"][0], pair_bound_by=bounds["pair"][1],
+                    plain_ms=plain_ms, library_ms=library_ms,
+                    library_device_ms=device_ms(lambda: torch.autograd.grad(
+                        sdpa_out, sd_inputs, do, retain_graph=True), iters=5, warmup=1),
+                    library_call="torch.autograd.grad through scaled_dot_product_attention "
+                                 "(attn_mask: the segment and causal mask, + ab * scale), "
+                                 "forward outside the window", ok=ok)
+        emit(line)
+        del q, k, v, do, ab, o, l, m, a, dk, dv, dq, dab, sd, sdpa_out, mask, keep
+        torch.cuda.empty_cache()
+        if not ok:
+            raise SystemExit(f"flash_attention backward disagrees with its plain version, or "
+                             f"its autograd path with the kernels ({label})")
+        lines[label] = line
     return lines
 
 
@@ -2060,6 +2291,73 @@ def phase_attn_variants(name: str, smi: str) -> int:
         raise SystemExit(f"attn_variants harness: {bad} (launches, finiteness or cosine >= "
                          f"{HARNESS_COSINE_MIN} to attn_xla_f32's tower), or the check")
     return line["attn_flash"]["flash_attention_launches"]
+
+
+def phase_attn_variants_grad(name: str, smi: str) -> dict:
+    """Phase 4h: the gradient path through exp/attn_variants.py's ViT-B/16
+    tower with attn_flash, as jax.grad of the root file's `tower` takes it:
+    forward and backward of a seeded cotangent at full width and depth (B=256,
+    S=196 padded to 256, 12 layers): 12 X6 forward, 12 dK/dV and 12 dQ
+    launches a step, every parameter gradient finite; ms per step and peak
+    memory; then card vs CPU (plain versions) at full width, 2 layers, B=8:
+    the cosine of each parameter gradient (the key bias's by its norm)."""
+    from novic_tpu_torch.exp import attn_variants as av
+    from novic_tpu_torch.ops import flash_attention as fa
+
+    def grads(x, cot, params):
+        leaves = [t.requires_grad_() for layer in params for t in layer.values()]
+        return torch.autograd.grad(av.tower(x, av.attn_flash, params), leaves, cot)
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    x0 = torch.randn((av.B, av.S, av.E), generator=gen)
+    cot = torch.randn((av.B, av.S, av.E), generator=gen)
+    params = av.make_params(av.L, seed=SEED, device="cuda")
+    xg, cg = x0.cuda(), cot.cuda()
+    line = {"phase": "attn_variants_grad", "device": name, "nvidia_smi": smi, "batch": av.B,
+            "layers": av.L, "shape": [av.S, av.E, av.H, av.hd], "padded_to": av.SP}
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = fa.DKV_LAUNCHES = fa.DQ_LAUNCHES = 0
+    g = grads(xg, cg, params)
+    torch.cuda.synchronize()
+    launches = {"forward": fa.LAUNCHES, "dkv": fa.DKV_LAUNCHES, "dq": fa.DQ_LAUNCHES}
+    finite = all(bool(torch.isfinite(t).all()) for t in g)
+    del g
+    ms = cuda_ms(lambda: grads(xg, cg, params), iters=3, warmup=1)
+    line.update(launches=launches, all_grads_finite=finite, ms_per_step=ms,
+                images_per_s=av.B / (ms / 1e3),
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, xg, cg
+    torch.cuda.empty_cache()
+
+    # Card vs CPU at full width, 2 layers, B=8 (the same seeded values)
+    n = 8
+    keys = list(av.make_params(1, seed=SEED + 1, device="cpu")[0])
+    card = grads(x0[:n].cuda(), cot[:n].cuda(), av.make_params(2, seed=SEED + 1, device="cuda"))
+    cpu = grads(x0[:n], cot[:n], av.make_params(2, seed=SEED + 1, device="cpu"))
+    cosine, bk = {}, {}
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        layer, key = divmod(i, len(keys))
+        a, b = a.double().cpu().ravel(), b.double().ravel()
+        tag = f"{layer}.{keys[key]}"
+        if keys[key] == "bk":  # exactly 0 in exact arithmetic: residue on both sides
+            j = i - key + keys.index("bq")
+            bq = [card[j].double().norm().item(), cpu[j].double().norm().item()]
+            bk[tag] = {"norm_card": a.norm().item(), "norm_cpu": b.norm().item(),
+                       "bar": [2.0 ** -7 * x for x in bq]}
+            continue
+        cosine[tag] = float(a @ b / (a.norm() * b.norm()))
+    line.update(card_vs_cpu={"batch": n, "layers": 2, "cosine": cosine,
+                             "cosine_min": min(cosine.values()), "bar": GRAD_COSINE_MIN,
+                             "bk_norms": bk})
+    emit(line)
+    bk_ok = all(v["norm_card"] <= v["bar"][0] and v["norm_cpu"] <= v["bar"][1]
+                for v in bk.values())
+    if launches != {"forward": av.L, "dkv": av.L, "dq": av.L} or not finite \
+            or min(cosine.values()) < GRAD_COSINE_MIN or not bk_ok:
+        raise SystemExit(f"attn_variants gradient: launches {launches} (expected {av.L} each), "
+                         f"finite {finite}, card vs CPU cosine {min(cosine.values())} "
+                         f"(bar {GRAD_COSINE_MIN}), bk within its bar {bk_ok}")
+    return line
 
 
 def x3_loop_key(label: str, form: str) -> str:
@@ -3947,7 +4245,8 @@ def main() -> int:
     # 2. build every kernel of every path, one nvcc per source, started together
     t0 = time.perf_counter()
     sources = [attention.SOURCE, dropout.SOURCE, int8_matmul.SOURCE, beam_reorder.SOURCE,
-               attention_bf16.SOURCE, tiled_matmul.SOURCE, flash_attention.SOURCE]
+               attention_bf16.SOURCE, tiled_matmul.SOURCE, flash_attention.SOURCE,
+               flash_attention.BWD_SOURCE]
     libs = build.build_all(sources, force=True)
     # The Hopper designs (wgmma, TMA, mbarriers) are what was built
     hopper = (attention.SOURCE, attention_bf16.SOURCE, flash_attention.SOURCE,
@@ -3986,6 +4285,7 @@ def main() -> int:
     x12 = phase_attention_bf16(attention_bf16, k1_dfn5b)
     x3, x3_transpose = phase_tiled_matmul(tiled_matmul)
     x6 = phase_flash_attention(flash_attention, attention_bf16)
+    x6b = phase_flash_attention_bwd(flash_attention)
 
     # 4. main path
     ck = load_checkpoint(FT0)
@@ -4047,6 +4347,8 @@ def main() -> int:
         dfn5b_line = phase_dfn5b(nouns, name, smi)
         harness_launches = phase_harnesses(name, smi)
         x6_variants_launches = phase_attn_variants(name, smi)
+        # 4h. the gradient path through the attn_variants tower (X6, X6b)
+        grad_line = phase_attn_variants_grad(name, smi)
 
         # 4d. reorder-mode beam (X5), greedy and vocab priors on the served embeddings
         guide = device_guide(model.decoder, nouns)
@@ -4230,6 +4532,16 @@ def main() -> int:
         "max_abs_err": line["max_abs_err"], "ms": line["ms"], "plain_ms": line["plain_ms"],
         "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
         "library_ms": line["library_ms"]} for case, line in x6.items()] + [{
+        # X6b at the attn_variants tower's shape, launched by its gradient (4h)
+        "name": f"flash_attention_bwd_{kern}", "route": "cuda",
+        "source": "novic_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        "replaces": FLASH_BWD_REPLACES[kern], "launches": grad_line["launches"][kern],
+        "max_abs_err": max(x6b["attn_variants"]["grads"][g]["max_abs_err"]
+                           for g in (("dk", "dv") if kern == "dkv" else ("dq",))),
+        "ms": x6b["attn_variants"][kern]["ms"], "plain_ms": x6b["attn_variants"]["plain_ms"],
+        "bound_ms": x6b["attn_variants"][kern]["bound_ms"],
+        "bound_by": x6b["attn_variants"][kern]["bound_by"],
+        "library_ms": x6b["attn_variants"]["library_ms"]} for kern in ("dkv", "dq")] + [{
         "name": f"tiled_matmul_{label}_{form}", "route": "cuda",
         "source": "novic_tpu_torch/ops/csrc/tiled_matmul.cu",
         **({"engine": S8_ENGINE} if form == "s8" else {}),

@@ -126,14 +126,44 @@ def check_quant(quant: str) -> None:
         raise ValueError(f"Unknown int8 dense impl: {impl}")
 
 
+def bf16_dense_grads(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) of y = bf16(x) @ bf16(w).T for a float32 cotangent dy (N, out),
+    x (N, in), w (out, in), as autograd takes them through the CPU form
+    `x.to(bf16).float() @ w.to(bf16).float().t()` and as jax.grad takes them
+    through dot_general(preferred_element_type=float32): the float32
+    cotangent times the other bf16 operand in float32, rounded to bf16, in the
+    operand's own dtype."""
+    bf = torch.bfloat16
+    dx = (dy @ w.to(bf).float()).to(bf).to(x.dtype)
+    dw = (dy.t() @ x.to(bf).float()).to(bf).to(w.dtype)
+    return dx, dw
+
+
+class _Bf16Dense(torch.autograd.Function):
+    """The CUDA bf16 GEMM (torch.mm with out_dtype, which autograd cannot
+    differentiate) with `bf16_dense_grads` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x.to(torch.bfloat16), w.to(torch.bfloat16).t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return bf16_dense_grads(dy.float(), *ctx.saved_tensors)
+
+
 def tower_dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                 compute_dtype: str, quant: str = "") -> torch.Tensor:
     """x @ w.T + b with torch-layout w; operands rounded to the compute dtype,
     float32 product and result.
 
     bf16 on CUDA: one cuBLAS bf16 GEMM with float32 accumulation and output
-    (torch.mm out_dtype). Elsewhere: a float32 matmul of the bf16-rounded
-    operands. Both form the same exact products; only the sum order differs.
+    (torch.mm out_dtype; under grad through `_Bf16Dense`, whose backward
+    takes the CPU form's gradients). Elsewhere: a float32 matmul of the
+    bf16-rounded operands. Both form the same exact products; only the sum
+    order differs.
 
     quant="int8[:impl]": W8A8 through int8_dense, w quantized per call as in
     the JAX package (the towers' blocks keep theirs quantized instead)."""
@@ -142,7 +172,11 @@ def tower_dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
         return int8_dense(x, *quantize_weight(w), b)
     dt = dtype_of(compute_dtype)
     if dt == torch.bfloat16 and x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]).to(dt), w.to(dt).t(), out_dtype=torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            y = _Bf16Dense.apply(x2, w)
+        else:
+            y = torch.mm(x2.to(dt), w.to(dt).t(), out_dtype=torch.float32)
         y = y.reshape(*x.shape[:-1], w.shape[0])
     else:
         y = torch.matmul(x.to(dt).float(), w.to(dt).float().t())

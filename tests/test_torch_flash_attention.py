@@ -108,10 +108,12 @@ def test_kernel_blocking_against_jax_blockings():
     q, k, v, seg_q, seg_kv = _inputs(3, 2, 3, 200, 192, 80, "padding")
     segs = port.SegmentIds(torch.from_numpy(seg_q), torch.from_numpy(seg_kv))
     own = port.flash_attention(q, k, v, segment_ids=segs, sm_scale=0.1).float()
-    assert torch.equal(own, port.flash_attention_reference(q, k, v, segs, 0.1).float())
+    plain = port.flash_attention_reference(q, k, v, segment_ids=segs, sm_scale=0.1)[0]
+    assert torch.equal(own, plain.float())
     vmax = v.float().abs().amax(dim=2, keepdim=True)
     for block in (128, 192):
-        other = port.flash_attention_reference(q, k, v, segs, 0.1, block_k=block).float()
+        other = port.flash_attention_reference(q, k, v, segment_ids=segs, sm_scale=0.1,
+                                               block_k=block)[0].float()
         bar = torch.from_numpy(_ulp(other.numpy())) + 2.0 ** -8 * vmax + 1e-6
         assert ((own - other).abs() <= bar).all(), block
 
@@ -131,11 +133,16 @@ def test_strided_views_and_one_key():
 
 
 def test_wrapper_checks():
+    """causal and ab are taken (held against JAX in
+    tests/test_torch_flash_attention_bwd.py); an ab of another shape or
+    dtype, or whose keys are not contiguous, is refused."""
     q = torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        port.flash_attention(q, q, q, causal=True)
-    with pytest.raises(NotImplementedError):
-        port.flash_attention(q, q, q, ab=torch.zeros((1, 2, 8, 8)))
+    assert port.flash_attention(q, q, q, causal=True).shape == q.shape
+    assert port.flash_attention(q, q, q, ab=torch.zeros((1, 2, 8, 8))).shape == q.shape
+    for bad in (torch.zeros((1, 2, 8, 7)), torch.zeros((1, 2, 8, 8), dtype=torch.float16),
+                torch.zeros((1, 2, 8, 8)).transpose(2, 3)):
+        with pytest.raises(ValueError, match="ab must be"):
+            port.flash_attention(q, q, q, ab=bad)
     with pytest.raises(ValueError, match="bfloat16"):
         port.flash_attention(q.float(), q, q)
     with pytest.raises(ValueError, match="k and v"):
@@ -185,7 +192,7 @@ def test_x6_tma_plan(case):
         want = [[hd, 1, H, B, hd * 2, hd * 2, H * hd * 2]] * 3
     rows = (128 if hd <= 64 else 192, 64, 64)
     plan = port._tma_plans(q, k, v)
-    assert plan == sum((w + [64, r, 1, 1] for w, r in zip(want, rows)), [])
+    assert plan == sum((w + [64, r, 1, 1] for w, r in zip(want, rows)), []) + [0] * 11
 
 
 class _FakeLibrary:
@@ -200,11 +207,11 @@ class _FakeLibrary:
         import ctypes
 
         self.calls.append(args)
-        self.plans.append(list((ctypes.c_longlong * 33).from_address(args[6].value)))
-        B, skv = args[8], args[11]
-        if args[5] is not None:
+        self.plans.append(list((ctypes.c_longlong * 44).from_address(args[9].value)))
+        B, skv = args[11], args[14]
+        if args[8] is not None:
             n = B * (-(-skv // port.KERNEL_BLOCK_K) * port.KERNEL_BLOCK_K)
-            self.kv_seg.append(list((ctypes.c_int * n).from_address(args[5])))
+            self.kv_seg.append(list((ctypes.c_int * n).from_address(args[8])))
         return self.err
 
 
@@ -253,22 +260,24 @@ def test_x6_instance_every_view_launches_the_wgmma_kernel(fake_launch, hd, sq, s
         segs = port.SegmentIds(torch.ones(B, sq, dtype=torch.int32),
                                torch.arange(B * skv, dtype=torch.int32).view(B, skv))
     launches = port.LAUNCHES
-    out = port._launch(q, k, v, segs, 0.125)  # as flash_attention does for CUDA tensors
+    # as flash_attention does for CUDA tensors without grad: no residuals
+    out, l, m = port._launch(q, k, v, None, segs, False, 0.125)
+    assert l is None and m is None
     assert out.shape == (B, H, sq, hd) and out.dtype == torch.bfloat16 and out.is_contiguous()
     (args,) = fake_launch.calls
-    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    assert args[:7] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(), None, None)
     assert fake_launch.plans == [port._tma_plans(q, k, v)]
-    assert args[8:13] == (B, H, sq, skv, hd) and args[13] == 0.125
+    assert args[11:18] == (B, H, sq, skv, hd, 0, 0) and args[18] == 0.125
     import ctypes
 
-    assert list((ctypes.c_longlong * 3).from_address(args[7].value)) == list(out.stride()[:3])
+    assert list((ctypes.c_longlong * 3).from_address(args[10].value)) == list(out.stride()[:3])
     if seg:
         pad = -skv % port.KERNEL_BLOCK_K
         (kv,) = fake_launch.kv_seg
         want = torch.nn.functional.pad(segs.kv, (0, pad)).flatten().tolist()
         assert kv == want
     else:
-        assert args[4] is None and args[5] is None
+        assert args[7] is None and args[8] is None
     assert port.LAUNCHES == launches + 1
 
 
@@ -282,7 +291,7 @@ def test_x6_refuses_what_a_tensor_map_cannot_take(fake_launch, bad):
                      pad=4 if bad == "row_stride" else 0)
     k = v = _projections(2, 10, 3, hd)
     with pytest.raises(ValueError):
-        port._launch(q, k, v, None, 1.0)
+        port._launch(q, k, v, None, None, False, 1.0)
     assert not fake_launch.calls
 
 
@@ -293,5 +302,5 @@ def test_x6_refused_launch_raises_and_never_falls_back(fake_launch):
     q = _projections(2, 10, 3, 64)
     launches = port.LAUNCHES
     with pytest.raises(RuntimeError, match="CUDA error 1"):
-        port._launch(q, q, q, None, 1.0)
+        port._launch(q, q, q, None, None, False, 1.0)
     assert port.LAUNCHES == launches
