@@ -10,12 +10,13 @@ Phases, each printing JSON lines; any failure exits nonzero:
      started together; count
      HGMMA / IGMMA (wgmma on bf16 / s8), UTMALDG / UTMASTG (TMA load /
      store) and SYNCS (mbarrier) instructions in the SASS of the Hopper
-     designs (attention, attention_bf16, flash_attention, tiled_matmul,
-     int8_matmul), and fail if one has no wgmma or no UTMALDG, if the s8
-     engine's libraries (tiled_matmul, int8_matmul) have no IGMMA or
-     tiled_matmul's no UTMASTG, or if ptxas reports a spill or a wgmma
-     serialisation ("Potential Performance Loss") in attention.cu,
-     flash_attention.cu, tiled_matmul.cu or int8_matmul.cu;
+     designs (attention, attention_bf16, flash_attention,
+     flash_attention_bwd, tiled_matmul, int8_matmul), and fail if one has no
+     wgmma or no UTMALDG, if the s8 engine's libraries (tiled_matmul,
+     int8_matmul) have no IGMMA or tiled_matmul's no UTMASTG, or if ptxas
+     reports a spill or a wgmma serialisation ("Potential Performance Loss")
+     in attention.cu, flash_attention.cu, flash_attention_bwd.cu,
+     tiled_matmul.cu or int8_matmul.cu;
   3. kernel: the attention kernel (K1: a bf16 pre-pass and a TMA + wgmma
      kernel) against its plain PyTorch version on the card, at the serving
      shape, at the DFN5B-H-378 tower's (32,730,16,80), at two more, at the
@@ -65,11 +66,15 @@ Phases, each printing JSON lines; any failure exits nonzero:
      cases (S=1, S=100 with hd 8/64/80/128, Sq != Skv, two packed segments, a
      query with every key masked, no segment ids); times beside the bound,
      SDPA with the segment mask and, at the DFN5B shape, attention_bf16's.
-     Then its backward (X6b: the dK/dV and dQ kernels, mma.sync) and its
+     Then its backward (X6b: the dQ kernel, which computes di, then the
+     dK/dV kernel, both TMA + wgmma) and its
      causal and ab options at the harness shapes (256,12,256,64) and
      (32,16,768,80) with padding ids, (8,12,256,64) causal, the same with a
-     float32 ab, (4,16,768,80) with causal, padding ids and a float32 ab, and
-     (4,12,200,328,80) with causal, padding ids and a bf16 ab: the forward
+     float32 ab, (4,16,768,80) with causal, padding ids and a float32 ab,
+     (4,12,200,328,80) with causal, padding ids and a bf16 ab, and edges of
+     the kernels' instances (hd 128 causal with packed ids and a bf16 ab, hd
+     112 with a masked row and a float32 ab, hd 96 packed, hd 8 with one
+     query): the forward
      (o, l, m) against the plain forward, each backward kernel against the
      plain backward on the kernel's o, l and m (dq, dk, dv, dab), and the
      autograd path (flash_attention with inputs requiring grad: one forward
@@ -77,8 +82,10 @@ Phases, each printing JSON lines; any failure exits nonzero:
      gradients); ms (CUDA events; and device ms, from the profiler) of the
      forward without and with residuals and without the case's options,
      beside its bound, its plain version's and SDPA's with the same mask;
-     of each backward kernel beside their bounds, the plain backward's ms
-     and torch.autograd.grad through SDPA with the same mask;
+     of each backward kernel and of the whole backward (its host code, the
+     maps' encoding and both launches: `_launch_bwd`) beside their bounds,
+     the plain backward's ms and torch.autograd.grad through SDPA with the
+     same mask;
   4. serving path: NOVICModel serving SigLIP-B/16 (random weights from a seed)
      + the FT0 decoder with beam k=10, unguided and guided over all 42,919
      nouns, 2 batches of 64 seeded 224x224 frames; checks the outputs and that
@@ -116,8 +123,9 @@ Phases, each printing JSON lines; any failure exits nonzero:
   4h. the gradient path through attn_variants' tower with attn_flash, as
      jax.grad of the root file's tower takes it: forward and backward of a
      seeded cotangent at B=256, 12 layers, full width (12 X6, 12 dK/dV and
-     12 dQ launches a step, every parameter gradient finite), ms per step
-     and peak memory; card vs CPU at 2 layers, B=8: each parameter
+     12 dQ launches a step, every parameter gradient finite), ms per step,
+     peak memory and X6b's share of a step's device time (profiler, by
+     kernel name); card vs CPU at 2 layers, B=8: each parameter
      gradient's cosine (the key bias, whose exact gradient is 0, by norm);
   4d. decode modes on the 2 x 64 served embeddings: reorder-mode beam k=10
      (G = 7 X5 launches per batch), unguided and trie-guided, against lazy mode
@@ -1359,18 +1367,22 @@ def flash_bwd_bound_ms(B, H, sq, skv, hd, seg: bool, causal: bool, ab_bytes: int
                        kernel: str) -> tuple[float, str]:
     """Least time of one X6b kernel, or ("pair") of the whole backward: each
     input read once and each output written once over the HBM rate, vs its
-    products over the bf16 peak. dK/dV: q, k, v, do (bf16), l, m, di
-    (float32), ab and the segment ids read; dk, dv written; 4 products (S, dP,
-    dV, dK). dQ: the same inputs; dq (and dab) written; 3 products (S, dP,
-    dQ). The pair reads its inputs once and writes all four outputs: 7
-    products. A product counts the (query, key) pairs of this run: under
-    causal those with key <= query; every query row otherwise, padded ones
-    included, as the kernels compute them."""
+    products over the bf16 peak. dQ: q, k, v, do, o (bf16), l, m (float32),
+    ab and the segment ids read; dq (and dab) and the rows' stats (m, 1/l,
+    di: 16 bytes a row) written; 3 products (S, dP, dQ). dK/dV: q, k, v, do,
+    the stats, ab and the segment ids read; dk, dv written; 4 products (S,
+    dP, dV, dK). The pair reads the function's inputs once and writes its
+    four outputs (the stats pass between the kernels): 7 products. A product
+    counts the (query, key) pairs of this run: under causal those with key
+    <= query; every query row otherwise, padded ones included, as the
+    kernels compute them."""
     pairs = causal_pairs(sq, skv, causal)
     bf, rows = 2 * B * H * hd, 4 * B * H * sq
-    read = bf * (2 * sq + 2 * skv) + 3 * rows + ab_bytes * B * H * sq * skv
-    read += 4 * B * (sq + skv) if seg else 0
-    written = {"dkv": bf * 2 * skv, "dq": bf * sq + ab_bytes * B * H * sq * skv,
+    common = bf * (2 * sq + 2 * skv) + ab_bytes * B * H * sq * skv
+    common += 4 * B * (sq + skv) if seg else 0
+    read = {"dq": common + bf * sq + 2 * rows, "dkv": common + 4 * rows,
+            "pair": common + bf * sq + 2 * rows}[kernel]
+    written = {"dkv": bf * 2 * skv, "dq": bf * sq + 4 * rows + ab_bytes * B * H * sq * skv,
                "pair": bf * (sq + 2 * skv) + ab_bytes * B * H * sq * skv}[kernel]
     products = {"dkv": 4, "dq": 3, "pair": 7}[kernel]
     t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
@@ -1381,13 +1393,23 @@ def flash_bwd_bound_ms(B, H, sq, skv, hd, seg: bool, causal: bool, ab_bytes: int
 # X6b's cases (label, B, H, Sq, Skv, hd, segments, causal, ab dtype): the two
 # harness shapes as phase 3g reads them, then the forward's causal and ab
 # options, together, and Sq != Skv (whose last 10 queries, in a segment of
-# keys past every key they visit, are rows with every visited key masked)
+# keys past every key they visit, are rows with every visited key masked);
+# then edges of the kernels' instances: hd 128 and 112 (dK/dV over 32-query
+# halves), hd 96 (its products one after the other), hd 8 with one query,
+# ragged Sq and Skv
 FLASH_BWD_CASES = [("dfn5b", 32, 16, 768, 768, 80, 730, False, None),
                    ("attn_variants", 256, 12, 256, 256, 64, 196, False, None),
                    ("causal", 8, 12, 256, 256, 64, None, True, None),
                    ("ab_f32", 8, 12, 256, 256, 64, None, False, torch.float32),
                    ("causal_segments_ab", 4, 16, 768, 768, 80, 730, True, torch.float32),
-                   ("sq_ne_skv", 4, 12, 200, 328, 80, "sq_ne_skv", True, torch.bfloat16)]
+                   ("sq_ne_skv", 4, 12, 200, 328, 80, "sq_ne_skv", True, torch.bfloat16),
+                   ("hd128_causal_ab", 2, 4, 300, 200, 128, "packed", True, torch.bfloat16),
+                   ("hd112_masked_row_ab", 2, 3, 130, 132, 112, "masked_row", False,
+                    torch.float32),
+                   ("hd96_packed", 2, 3, 200, 200, 96, "packed", False, None),
+                   ("hd8_one_query", 2, 3, 1, 70, 8, None, False, None)]
+# X6b's two kernels by name in a profile (csrc/flash_attention_bwd.cu)
+FLASH_BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 FLASH_BWD_REPLACES = {"dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:796",
                       "dq": "jax/experimental/pallas/ops/tpu/flash_attention.py:1146"}
 
@@ -1404,12 +1426,14 @@ def _held(got: torch.Tensor, ref: torch.Tensor, atol: torch.Tensor | float,
 
 def phase_flash_attention_bwd(fa) -> dict:
     """Phase 3g, backward: at each FLASH_BWD_CASES case the extended forward
-    (causal, ab, the residuals l and m) against its plain version, the dK/dV
-    and dQ kernels against `flash_attention_bwd_reference` on the kernel's o,
-    l and m, and flash_attention's autograd path (one forward with residuals,
-    one launch of each backward kernel, the same gradients); times beside the
-    bounds, the plain backward and torch.autograd.grad through
-    scaled_dot_product_attention with the same mask. Returns the lines by case."""
+    (causal, ab, the residuals l and m) against its plain version, the dQ
+    and dK/dV kernels against `flash_attention_bwd_reference` on the kernel's
+    o, l and m, and flash_attention's autograd path (one forward with
+    residuals, one launch of each backward kernel, the same gradients); times
+    of each kernel and of the whole backward (`_launch_bwd`: its host code,
+    the maps' encoding, dQ with di, dK/dV) beside the bounds, the plain
+    backward and torch.autograd.grad through scaled_dot_product_attention
+    with the same mask. Returns the lines by case."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -1444,10 +1468,11 @@ def phase_flash_attention_bwd(fa) -> dict:
         fwd["m_rel_err"] = ((m - m_r).abs() / m_r.abs().clamp_min(1.0)).max().item()
         fwd["ok"] = fwd["ok"] and fwd["l_rel_err"] <= LM_RTOL and fwd["m_rel_err"] <= LM_RTOL
         del o_r, l_r, m_r
-        # The backward kernels against the plain backward on the kernel's o, l, m
+        # The backward kernels against the plain backward on the kernel's o, l, m:
+        # dQ first (it writes di, m and 1/l a row), then dK/dV
         a = fa._bwd_inputs(q, k, v, ab, segs, o, l, m, do, causal, scale)
-        dk, dv = fa._launch_dkv(a)
         dq, dab = fa._launch_dq(a, ab is not None)
+        dk, dv = fa._launch_dkv(a)
         refs = fa.flash_attention_bwd_reference(q, k, v, ab, segs, o, l, m, do, causal, scale)
         grads = {}
         for gname, got, ref in zip(("dq", "dk", "dv", "dab"), (dq, dk, dv, dab), refs):
@@ -1490,6 +1515,9 @@ def phase_flash_attention_bwd(fa) -> dict:
             lambda: fa._launch_dq(a, ab is not None))
         dkv_dev, dq_dev = device_ms(lambda: fa._launch_dkv(a)), device_ms(
             lambda: fa._launch_dq(a, ab is not None))
+        whole = lambda: fa._launch_bwd(q, k, v, ab, segs, o, l, m, do, causal,  # noqa: E731
+                                       scale, ab is not None)
+        whole_ms, whole_dev = cuda_ms(whole), device_ms(whole)
         plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(
             q, k, v, ab, segs, o, l, m, do, causal, scale), iters=3, warmup=1)
         keep = None
@@ -1521,6 +1549,10 @@ def phase_flash_attention_bwd(fa) -> dict:
                     dq={"ms": dq_ms, "device_ms": dq_dev, "bound_ms": bounds["dq"][0],
                         "bound_by": bounds["dq"][1], "writes_dab": ab is not None},
                     backward_ms=dkv_ms + dq_ms,
+                    whole_backward={"ms": whole_ms, "device_ms": whole_dev,
+                                    "bound_ms": bounds["pair"][0],
+                                    "bound_by": bounds["pair"][1],
+                                    "what": "_launch_bwd: maps, dQ with di, dK/dV"},
                     pair_bound_ms=bounds["pair"][0], pair_bound_by=bounds["pair"][1],
                     plain_ms=plain_ms, library_ms=library_ms,
                     library_device_ms=device_ms(lambda: torch.autograd.grad(
@@ -2323,9 +2355,24 @@ def phase_attn_variants_grad(name: str, smi: str) -> dict:
     finite = all(bool(torch.isfinite(t).all()) for t in g)
     del g
     ms = cuda_ms(lambda: grads(xg, cg, params), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # X6b's and X6's share of one step's device time, by kernel name
+    prof = device_profile(lambda: grads(xg, cg, params), host=False,
+                          match=FLASH_BWD_KERNELS + ("flash_attention_kernel",),
+                          require=FLASH_BWD_KERNELS)
+    matched = prof.pop("matched_kernels")
+    x6b_ms = sum(mk[1] for mk in matched if any(name in mk[0] for name in FLASH_BWD_KERNELS))
+    x6_ms = sum(mk[1] for mk in matched if "flash_attention_kernel" in mk[0])
     line.update(launches=launches, all_grads_finite=finite, ms_per_step=ms,
-                images_per_s=av.B / (ms / 1e3),
-                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+                images_per_s=av.B / (ms / 1e3), peak_memory_gb=peak,
+                profile={"device_busy_ms": prof["device_busy_ms"],
+                         "device_idle_share": prof["device_idle_share"],
+                         "x6b_device_ms": x6b_ms,
+                         "x6b_share_of_device_busy": x6b_ms / prof["device_busy_ms"],
+                         "x6_device_ms": x6_ms,
+                         "x6b_kernels": [mk for mk in matched
+                                         if any(name in mk[0] for name in FLASH_BWD_KERNELS)],
+                         "top_device_kernels_ms": prof["top_device_kernels_ms"][:6]})
     del params, xg, cg
     torch.cuda.empty_cache()
 
@@ -4250,7 +4297,7 @@ def main() -> int:
     libs = build.build_all(sources, force=True)
     # The Hopper designs (wgmma, TMA, mbarriers) are what was built
     hopper = (attention.SOURCE, attention_bf16.SOURCE, flash_attention.SOURCE,
-              tiled_matmul.SOURCE, int8_matmul.SOURCE)
+              flash_attention.BWD_SOURCE, tiled_matmul.SOURCE, int8_matmul.SOURCE)
     sass = {build.library_path(s).name: sass_counts(build.library_path(s)) for s in hopper}
     s8_engine = (build.library_path(tiled_matmul.SOURCE).name,
                  build.library_path(int8_matmul.SOURCE).name)
@@ -4271,7 +4318,8 @@ def main() -> int:
             raise SystemExit(f"{lib}: no s8 wgmma (IGMMA), or X3's int32 epilogue without its TMA "
                              f"store (UTMASTG), in its SASS: {counts}")
     # The Hopper designs that must not spill or serialise a wgmma
-    for s in (attention.SOURCE, flash_attention.SOURCE, tiled_matmul.SOURCE, int8_matmul.SOURCE):
+    for s in (attention.SOURCE, flash_attention.SOURCE, flash_attention.BWD_SOURCE,
+              tiled_matmul.SOURCE, int8_matmul.SOURCE):
         bad = [line for line in ptxas[s.name] if "Potential Performance Loss" in line
                or ("spill" in line and " 0 bytes spill stores" not in line)]
         if bad:

@@ -4,7 +4,9 @@ Each source in ops/csrc/ has a plain C interface (device helpers shared between
 sources live in csrc/*.cuh headers) and is built for sm_90a into
 build/novic_tpu_torch/ at the root of the checkout at first use, then loaded
 through ctypes by its wrapper module. `build_all` starts one nvcc per source at
-once, so a cold start pays the slowest compile rather than the sum.
+once, so a cold start pays the slowest compile rather than the sum, and each
+nvcc splits its compilation over the host's cores (`-split-compile=0`): the
+backward flash kernels' 192 instances build in about half the time so.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ def _start(source: Path) -> tuple[subprocess.Popen, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = library_path(source).with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(source)]
+           "-split-compile=0", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
+           str(source)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp
 
 

@@ -2,10 +2,10 @@
 // mbarrier ring, TMA tensor loads (and their multicast into a cluster) and
 // stores, bulk copies, cluster barriers, warpgroup MMAs (wgmma) with their shared-memory
 // matrix descriptors, and register rebalancing between warpgroups. Included by
-// attention.cu, attention_bf16.cu, flash_attention.cu, tiled_matmul.cu and
-// int8_matmul.cu (the last two through int8_wgmma.cuh, the s8 wgmma engine),
-// each into its own anonymous namespace; the mma.sync kernels
-// keep mma_common.cuh. The wgmma wrappers are written out for the shapes the
+// attention.cu, attention_bf16.cu, flash_attention.cu, flash_attention_bwd.cu,
+// tiled_matmul.cu and int8_matmul.cu (the last two through int8_wgmma.cuh, the
+// s8 wgmma engine), each into its own anonymous namespace; the mma.sync
+// kernels keep mma_common.cuh. The wgmma wrappers are written out for the shapes the
 // kernels use (each names its output registers one by one, as inline PTX
 // must).
 //
@@ -318,6 +318,31 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 // s32 sum wraps (no .satfinite), so it is exact while |D| < 2^31.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(int (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16, 0>(float (&d)[8], uint64_t a, uint64_t b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32, 0>(float (&d)[16], uint64_t a, uint64_t b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64, 0>(float (&d)[32], uint64_t a, uint64_t b,

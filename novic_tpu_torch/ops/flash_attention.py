@@ -36,20 +36,21 @@ written.
 * On CUDA tensors they launch the kernels or raise: the forward in
   csrc/flash_attention.cu (its online-update block is always its 64-key
   tile, so block_k sets only the plain version's blocking), the backward's
-  dK/dV and dQ kernels in csrc/flash_attention_bwd.cu (di is a torch
-  reduction, as JAX computes it outside its kernels). They never fall back
-  to the plain versions.
+  dQ kernel (which also computes di and hands it, with each row's m and
+  1/l, to the next kernel) and then its dK/dV kernel, in
+  csrc/flash_attention_bwd.cu. They never fall back to the plain versions.
 
 q, k and v may be strided (batch, head, seq) views with hd contiguous; the
-forward reads them, and ab (float32 or bf16 (B, H, Sq, Skv), its keys
-contiguous), in place through tensor maps (TMA) that `_tma_plans` lays out,
-and a view a map cannot take (a base or a stride that is not a multiple of
-16 bytes) is refused before any launch. The backward kernels read the same
-views with 16-byte copies; a cotangent `do` they cannot take so is copied
-to a contiguous tensor first (`_bwd_operand`). The kernels are compiled
-with nvcc for sm_90a at first use into build/novic_tpu_torch/ and loaded
-through ctypes. `LAUNCHES`, `DKV_LAUNCHES` and `DQ_LAUNCHES` count the
-forward's, the dK/dV kernel's and the dQ kernel's launches.
+kernels read them, and ab (float32 or bf16 (B, H, Sq, Skv), its keys
+contiguous), in place through tensor maps (TMA): the forward's laid out by
+`_tma_plans`, the backward's by `_bwd_plans` and encoded once a backward
+for both of its kernels. A view a map cannot take (a base or a stride that
+is not a multiple of 16 bytes) is refused before any launch; a cotangent
+`do` a map cannot take is copied to a contiguous tensor first
+(`_bwd_operand`). The kernels are compiled with nvcc for sm_90a at first
+use into build/novic_tpu_torch/ and loaded through ctypes. `LAUNCHES`,
+`DKV_LAUNCHES` and `DQ_LAUNCHES` count the forward's, the dK/dV kernel's
+and the dQ kernel's launches.
 """
 
 from __future__ import annotations
@@ -76,6 +77,7 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # flash_attention.py 
 KERNEL_BLOCK_K = 64  # the kernel's key tile, over which it updates the softmax online
 CAUSAL_BLOCK = 128   # JAX's default block_q and block_k_major: the causal skip's blocks
 MAX_HD = 128  # the largest hd the kernels take (a multiple of 8)
+BWD_TILE = 64  # the backward's tiles: rows of every map's box; Sq and the segment ids pad to it
 _AB_DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
 _bwd_lib = None
@@ -237,9 +239,14 @@ def _bwd_library():
     with _lib_lock:
         if _bwd_lib is None:
             lib = ctypes.CDLL(str(build_bwd()))
-            for fn in (lib.novic_flash_attention_bwd_dkv, lib.novic_flash_attention_bwd_dq):
-                fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
-                               + [ctypes.c_float, ctypes.c_void_p])
+            lib.novic_flash_attention_bwd_maps.argtypes = (
+                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            lib.novic_flash_attention_bwd_dq.argtypes = (
+                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+            lib.novic_flash_attention_bwd_dkv.argtypes = (
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+            for fn in (lib.novic_flash_attention_bwd_maps, lib.novic_flash_attention_bwd_dq,
+                       lib.novic_flash_attention_bwd_dkv):
                 fn.restype = ctypes.c_int
             _bwd_lib = lib
     return _bwd_lib
@@ -343,101 +350,136 @@ def _launch(q, k, v, ab, segment_ids: Optional[SegmentIds], causal: bool, sm_sca
     return out, l, m
 
 
+def _bwd_plans(q, k, v, do, o, ab=None) -> list[int]:
+    """The backward kernels' tensor maps of q, k, v, do, o and ab, 11 values
+    each: every (B, H, S, hd) view read as its (B, S, H, hd) transpose
+    through `attention_bf16._tma_plan`, dims (hd, S, H, B) with the view's
+    byte strides and a box of one 64-wide atom by BWD_TILE rows; ab (B, H,
+    Sq, Skv) the same way, dims (Skv, Sq, H, B), a box of one 128-byte row of
+    keys (32 float32 or 64 bf16) by BWD_TILE queries; eleven zeros without
+    ab. Both kernels read every map through these boxes, so one encoding
+    serves both."""
+    plan = []
+    for t in (q, k, v, do, o):
+        plan += _tma_plan(t.transpose(1, 2), t.shape[2], BWD_TILE)
+    if ab is None:
+        return plan + [0] * 11
+    ab_plan = _tma_plan(ab.transpose(1, 2), ab.shape[2], BWD_TILE)
+    ab_plan[7] = 128 // ab.element_size()
+    return plan + ab_plan
+
+
 def _bwd_operand(t: torch.Tensor) -> torch.Tensor:
-    """t as the backward kernels read it: 16-byte copies need a 16-byte
-    aligned base and (batch, head, seq) strides that are multiples of 8
-    elements (a size-1 dimension is never stepped; a broadcast one, stride
-    0, reads one row again), with hd contiguous; anything else is copied to
-    a contiguous tensor."""
-    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
-            st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1):
-        return t
+    """The cotangent as the backward's map reads it: in place where a map
+    can take it (a 16-byte aligned base, hd contiguous, byte strides that
+    are positive multiples of 16; a size-1 dimension is never stepped), else
+    a contiguous copy (a broadcast cotangent, stride 0, is copied too)."""
+    if t.stride(-1) == 1:
+        try:
+            _check_map("", t, _tma_plan(t.transpose(1, 2), t.shape[2], BWD_TILE))
+            return t
+        except ValueError:
+            pass
     return t.contiguous() if not t.is_contiguous() else t.clone()
 
 
-def _bwd_strides(q, k, v, do, ab) -> list[int]:
-    """The backward kernels' element strides: (batch, head, seq) of q, k, v,
-    do and ab (zeros without ab), 15 values."""
-    out = []
-    for t in (q, k, v, do, ab):
-        out += [0, 0, 0] if t is None else list(t.stride()[:3])
-    return out
+def _padded(n: int) -> int:
+    return -(-n // BWD_TILE) * BWD_TILE
 
 
 class BwdInputs(NamedTuple):
-    """What both backward kernels read, prepared once: the launch arguments
-    up to the outputs, the shape and flags after them, and what the
-    wrappers allocate from."""
-    pointers: tuple  # q, k, v, do, ab, l, m, di, q_seg, kv_seg
-    strides: ctypes.c_void_p
+    """What both backward kernels read, prepared once: the tensor maps,
+    encoded once and passed to both launches; the row stats the dQ kernel
+    writes and the dK/dV kernel reads; the launch arguments around them;
+    what the wrappers allocate from."""
+    maps: ctypes.Array  # q, k, v, do, o, ab: 6 encoded tensor maps of 128 bytes
+    stats: torch.Tensor  # (B, H, Sq_pad, 4) float32: m, 1/l, di, 0 a query row
+    pointers: tuple  # l, m, q_seg, kv_seg (the segment ids padded to BWD_TILE)
     shape: tuple  # B, H, Sq, Skv, hd, ab's element size, causal, sm_scale
-    keep: tuple  # the tensors the pointers point at, alive until the launches
+    keep: tuple  # the tensors the maps and pointers point at, alive until the launches
     device: torch.device
     ab_dtype: Optional[torch.dtype]
 
 
 def _bwd_inputs(q, k, v, ab, segment_ids: Optional[SegmentIds], o, l, m, do, causal: bool,
                 sm_scale: float) -> BwdInputs:
-    """The backward kernels' inputs: do as they read it, di = Σ o·do in
-    float32 (a torch reduction, as JAX computes it outside its kernels), the
-    segment ids as int32, the element strides."""
+    """The backward kernels' inputs: do as a map reads it, the maps of q, k,
+    v, do, o and ab encoded once, the segment ids as int32 padded to whole
+    BWD_TILE rows, and the stats buffer (m, 1/l and di a row: di = Σ o·do is
+    the dQ kernel's, as no torch reduction computes it). A view a map cannot
+    take raises here, before any launch."""
     B, H, sq, hd = q.shape
+    skv = k.shape[2]
+    if hd % 8 or hd > MAX_HD:
+        raise ValueError(f"flash_attention backward: unsupported hd={hd} (a multiple of 8, at "
+                         f"most {MAX_HD})")
     do = _bwd_operand(do)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if _bwd_operand(t) is not t:
-            raise ValueError(f"flash_attention backward: {name} must be 16-byte aligned with "
-                             f"(batch, head, seq) strides that are multiples of 8 elements, got "
-                             f"element strides {tuple(t.stride())}")
-    di = (o.float() * do.float()).sum(dim=-1)
+    plan = _bwd_plans(q, k, v, do, o, ab)
+    for i, (name, t) in enumerate((("q", q), ("k", k), ("v", v), ("do", do), ("o", o),
+                                   ("ab", ab))):
+        if t is not None:
+            _check_map(f"flash_attention backward: {name}", t, plan[11 * i:11 * (i + 1)])
     seg_q, seg_kv = _segments(segment_ids)
-    keep = (q, k, v, do, ab, l, m, di, seg_q, seg_kv)
-    return BwdInputs(tuple(_ptr(t) for t in keep), _longs(_bwd_strides(q, k, v, do, ab)),
-                     (B, H, sq, k.shape[2], hd, 0 if ab is None else ab.element_size(),
-                      int(causal), sm_scale),
-                     keep, q.device, None if ab is None else ab.dtype)
-
-
-def _launch_dkv(a: BwdInputs):
-    """The dK/dV kernel: (dk, dv), bf16 (B, H, Skv, hd)."""
-    global DKV_LAUNCHES
-    B, H, _, skv, hd = a.shape[:5]
-    lib = _bwd_library()
-    dk = torch.empty((B, H, skv, hd), dtype=torch.bfloat16, device=a.device)
-    dv = torch.empty_like(dk)
-    with torch.cuda.device(a.device):
-        err = lib.novic_flash_attention_bwd_dkv(*a.pointers, dk.data_ptr(), dv.data_ptr(),
-                                                a.strides, *a.shape,
-                                                torch.cuda.current_stream(a.device).cuda_stream)
+    if seg_q is not None:
+        seg_q = F.pad(seg_q, (0, _padded(sq) - sq))
+        seg_kv = F.pad(seg_kv, (0, _padded(skv) - skv))
+    stats = torch.empty((B, H, _padded(sq), 4), dtype=torch.float32, device=q.device)
+    ab_bytes = 0 if ab is None else ab.element_size()
+    maps = (ctypes.c_ubyte * (6 * 128))()
+    err = _bwd_library().novic_flash_attention_bwd_maps(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(), _ptr(ab),
+        _longs(plan), B, H, sq, skv, hd, ab_bytes, ctypes.addressof(maps))
     if err != 0:
-        raise RuntimeError(f"flash_attention dK/dV kernel launch failed: CUDA error {err}")
-    DKV_LAUNCHES += 1
-    return dk, dv
+        raise RuntimeError(f"flash_attention backward: tensor maps refused: CUDA error {err}")
+    keep = (q, k, v, do, o, ab, l, m, seg_q, seg_kv)
+    return BwdInputs(maps, stats, (_ptr(l), _ptr(m), _ptr(seg_q), _ptr(seg_kv)),
+                     (B, H, sq, skv, hd, ab_bytes, int(causal), sm_scale), keep, q.device,
+                     None if ab is None else ab.dtype)
 
 
 def _launch_dq(a: BwdInputs, need_dab: bool):
-    """The dQ kernel: (dq bf16 (B, H, Sq, hd), dab (B, H, Sq, Skv) in ab's
-    dtype where need_dab, else None)."""
+    """The dQ kernel, launched first: (dq bf16 (B, H, Sq, hd), dab (B, H, Sq,
+    Skv) in ab's dtype where need_dab, else None); it fills a.stats."""
     global DQ_LAUNCHES
     B, H, sq, skv, hd = a.shape[:5]
     lib = _bwd_library()
     dq = torch.empty((B, H, sq, hd), dtype=torch.bfloat16, device=a.device)
     dab = torch.empty((B, H, sq, skv), dtype=a.ab_dtype, device=a.device) if need_dab else None
     with torch.cuda.device(a.device):
-        err = lib.novic_flash_attention_bwd_dq(*a.pointers, dq.data_ptr(), _ptr(dab), a.strides,
-                                               *a.shape,
-                                               torch.cuda.current_stream(a.device).cuda_stream)
+        err = lib.novic_flash_attention_bwd_dq(
+            ctypes.addressof(a.maps), *a.pointers, a.stats.data_ptr(), dq.data_ptr(), _ptr(dab),
+            *a.shape, torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention dQ kernel launch failed: CUDA error {err}")
     DQ_LAUNCHES += 1
     return dq, dab
 
 
+def _launch_dkv(a: BwdInputs):
+    """The dK/dV kernel, launched after the dQ kernel (it reads the stats
+    that one writes): (dk, dv), bf16 (B, H, Skv, hd)."""
+    global DKV_LAUNCHES
+    B, H, _, skv, hd = a.shape[:5]
+    lib = _bwd_library()
+    dk = torch.empty((B, H, skv, hd), dtype=torch.bfloat16, device=a.device)
+    dv = torch.empty_like(dk)
+    with torch.cuda.device(a.device):
+        err = lib.novic_flash_attention_bwd_dkv(
+            ctypes.addressof(a.maps), a.stats.data_ptr(), *a.pointers[2:], dk.data_ptr(),
+            dv.data_ptr(), *a.shape, torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention dK/dV kernel launch failed: CUDA error {err}")
+    DKV_LAUNCHES += 1
+    return dk, dv
+
+
 def _launch_bwd(q, k, v, ab, segment_ids: Optional[SegmentIds], o, l, m, do, causal: bool,
                 sm_scale: float, need_dab: bool):
-    """The backward kernels: (dq, dk, dv, dab), dab None unless need_dab."""
+    """The backward kernels, dQ then dK/dV: (dq, dk, dv, dab), dab None
+    unless need_dab."""
     a = _bwd_inputs(q, k, v, ab, segment_ids, o, l, m, do, causal, sm_scale)
-    dk, dv = _launch_dkv(a)
     dq, dab = _launch_dq(a, need_dab)
+    dk, dv = _launch_dkv(a)
     return dq, dk, dv, dab
 
 
@@ -455,7 +497,7 @@ def _forward(q, k, v, ab, segment_ids, causal: bool, sm_scale: float, block_k, r
 class FlashAttentionFn(torch.autograd.Function):
     """flash_attention with JAX's VJP: the forward saves q, k, v, ab, the
     segment ids, o and the residuals l and m; the backward returns dq, dk,
-    dv and d`ab` (the plain versions on CPU tensors, the dK/dV and dQ kernels
+    dv and d`ab` (the plain versions on CPU tensors, the dQ and dK/dV kernels
     on CUDA ones)."""
 
     @staticmethod

@@ -37,17 +37,15 @@ from novic_tpu_torch.ops.attention_bf16 import _tma_plan, q_rows
 SHAPES = [("attn_variants", 256, 12, 256, 64, 196), ("dfn5b", 32, 16, 768, 80, 730)]
 
 
-def _parent_library(source: str) -> ctypes.CDLL:
-    dst = _build.BUILD_DIR / "variants" / "flash_attention_parent.cu"
+def _parent_library(source: str, stem: str = "flash_attention_parent") -> ctypes.CDLL:
+    """An earlier revision's source compiled beside the checkout's csrc/*.cuh
+    headers into build/novic_tpu_torch/ as libnovic_<stem>.so, loaded."""
+    dst = _build.BUILD_DIR / "variants" / f"{stem}.cu"
     dst.parent.mkdir(parents=True, exist_ok=True)
     shutil.copyfile(source, dst)
     for header in _build.CSRC.glob("*.cuh"):
         shutil.copyfile(header, dst.parent / header.name)
-    lib = ctypes.CDLL(str(_build.build(dst, force=True)))
-    lib.novic_flash_attention.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
-    lib.novic_flash_attention.restype = ctypes.c_int
-    return lib
+    return ctypes.CDLL(str(_build.build(dst, force=True)))
 
 
 def _ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -115,6 +113,9 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     parent = _parent_library(args.parent)
+    parent.novic_flash_attention.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    parent.novic_flash_attention.restype = ctypes.c_int
     for line in compare(parent, args.pairs, smi):
         print(json.dumps(line), flush=True)
     return 0

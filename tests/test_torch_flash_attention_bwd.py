@@ -314,29 +314,36 @@ def test_bf16_dense_grads_match_the_cpu_form():
 
 
 class _FakeLibrary:
-    """Records each launch's arguments (the forward's plan and the backward's
-    strides as the kernels would read them) and returns a CUDA error code."""
+    """Records each call's arguments (the forward's plan and the backward's
+    as the C entries would read them), in order, and returns a CUDA error
+    code; the maps entry writes a marker into the buffer it is given."""
 
     def __init__(self):
-        self.err = {"fwd": 0, "dkv": 0, "dq": 0}
-        self.calls = {"fwd": [], "dkv": [], "dq": []}
-        self.plans, self.strides = [], []
+        self.err = {"fwd": 0, "maps": 0, "dkv": 0, "dq": 0}
+        self.calls = {"fwd": [], "maps": [], "dkv": [], "dq": []}
+        self.order, self.plans, self.bwd_plans, self.maps_seen = [], [], [], []
 
-    def novic_flash_attention(self, *args):
-        self.calls["fwd"].append(args)
-        self.plans.append(list((ctypes.c_longlong * 44).from_address(args[9].value)))
-        return self.err["fwd"]
-
-    def _bwd(self, kind, args):
+    def _record(self, kind, args):
+        self.order.append(kind)
         self.calls[kind].append(args)
-        self.strides.append(list((ctypes.c_longlong * 15).from_address(args[12].value)))
         return self.err[kind]
 
+    def novic_flash_attention(self, *args):
+        self.plans.append(list((ctypes.c_longlong * 44).from_address(args[9].value)))
+        return self._record("fwd", args)
+
+    def novic_flash_attention_bwd_maps(self, *args):
+        self.bwd_plans.append(list((ctypes.c_longlong * 66).from_address(args[6].value)))
+        ctypes.memset(args[13], 0x5A, 6 * 128)
+        return self._record("maps", args)
+
     def novic_flash_attention_bwd_dkv(self, *args):
-        return self._bwd("dkv", args)
+        self.maps_seen.append(bytes((ctypes.c_ubyte * 768).from_address(args[0])))
+        return self._record("dkv", args)
 
     def novic_flash_attention_bwd_dq(self, *args):
-        return self._bwd("dq", args)
+        self.maps_seen.append(bytes((ctypes.c_ubyte * 768).from_address(args[0])))
+        return self._record("dq", args)
 
 
 @pytest.fixture
@@ -357,6 +364,18 @@ def fake_launch(monkeypatch):
     monkeypatch.setattr(port, "flash_attention_reference", plain)
     monkeypatch.setattr(port, "flash_attention_bwd_reference", plain)
     return lib
+
+
+class _TorchCalls(torch.overrides.TorchFunctionMode):
+    """The names of the torch functions and tensor methods called inside."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        self.names.append(getattr(func, "__name__", str(func)))
+        return func(*args, **(kwargs or {}))
 
 
 def _qkv(B=2, H=3, sq=100, skv=130, hd=80):
@@ -384,16 +403,21 @@ def test_residuals_only_under_grad(fake_launch):
     assert args[5] is not None and args[6] is not None and args[5] != args[6]
     assert port.LAUNCHES == launches + 3
     assert not fake_launch.calls["dkv"] and not fake_launch.calls["dq"]
+    assert not fake_launch.calls["maps"]
 
 
 @pytest.mark.parametrize("ab_dtype", [torch.float32, torch.bfloat16])
 def test_backward_launches_both_kernels(fake_launch, ab_dtype):
-    """out.backward launches the dK/dV kernel, then the dQ kernel, once each:
-    with the forward's inputs, its l and m, di, the segment ids (int32),
-    contiguous bf16 outputs (and dab in ab's dtype), the element strides of
-    q, k, v, do and ab, the shape, ab's element size, causal and the scale;
-    both are counted, and the gradients come back with their inputs' shapes
-    and dtypes."""
+    """out.backward encodes the backward's tensor maps once (q, k, v, do,
+    the forward's o and ab, from `_bwd_plans`), then launches the dQ kernel,
+    then the dK/dV kernel, once each: both get the same maps buffer (what
+    the maps entry wrote), the same stats buffer (the dQ kernel writes di
+    and each row's m and 1/l there, float32 (B, H, Sq padded to 64, 4); the
+    dK/dV kernel reads it), the int32 segment ids padded to 64-row tiles,
+    the shape, ab's element size, causal and the scale; dQ gets the
+    forward's l and m, dq and dab (in ab's dtype). No torch reduction
+    computes di. Both are counted, and the gradients come back with their
+    inputs' shapes and dtypes."""
     q, k, v = (t.requires_grad_() for t in _qkv())
     ab = torch.zeros((2, 3, 100, 136), dtype=ab_dtype)[..., :130].requires_grad_()
     segs = (torch.ones((2, 100), dtype=torch.int64), torch.ones((2, 130), dtype=torch.int64))
@@ -403,29 +427,59 @@ def test_backward_launches_both_kernels(fake_launch, ab_dtype):
     assert fake_launch.plans[0][33:] == port._tma_plans(q, k, v, ab)[33:]
     dkv, dq = port.DKV_LAUNCHES, port.DQ_LAUNCHES
     do = torch.zeros((2, 3, 100, 80), dtype=torch.bfloat16)
-    out.backward(do)
-    (a,), (b,) = fake_launch.calls["dkv"], fake_launch.calls["dq"]
-    assert a[:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), ab.data_ptr())
-    assert a[5:7] == fwd[5:7]  # the forward's l and m
-    assert a[:10] == b[:10] and a[8] is not None and a[9] is not None
-    assert a[13:20] == b[13:20] == (2, 3, 100, 130, 80, ab.element_size(), 1)
-    assert a[20] == b[20] == 0.25
-    assert None not in (a[10], a[11], b[10], b[11])  # dk, dv; dq, dab
-    assert fake_launch.strides == [port._bwd_strides(q, k, v, do, ab)] * 2
-    assert fake_launch.strides[0][12:] == [3 * 100 * 136, 100 * 136, 136]
+    calls = _TorchCalls()
+    with calls:
+        out.backward(do)
+    assert fake_launch.order == ["fwd", "maps", "dq", "dkv"]
+    (mp,), (a,), (b,) = (fake_launch.calls[kind] for kind in ("maps", "dq", "dkv"))
+    assert mp[:6] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), fwd[4],
+                      ab.data_ptr())  # o: the forward's output
+    assert mp[7:13] == (2, 3, 100, 130, 80, ab.element_size())
+    assert fake_launch.bwd_plans == [port._bwd_plans(q, k, v, do, out, ab)]
+    maps = mp[13]
+    assert a[0] == b[0] == maps and fake_launch.maps_seen == [b"Z" * 768] * 2
+    assert a[1:3] == fwd[5:7]  # the forward's l and m
+    assert a[3:5] == b[2:4] and None not in a[3:5]  # the segment ids, shared
+    assert a[5] == b[1] is not None  # the stats: written by dQ, read by dK/dV
+    assert None not in (a[6], a[7], b[4], b[5])  # dq, dab; dk, dv
+    assert a[8:15] == b[6:13] == (2, 3, 100, 130, 80, ab.element_size(), 1)
+    assert a[15] == b[13] == 0.25
+    assert not {"sum", "mul", "__mul__", "einsum", "float"} & set(calls.names), calls.names
     assert (q.grad.shape, k.grad.shape, ab.grad.shape) == (q.shape, k.shape, ab.shape)
     assert q.grad.dtype == torch.bfloat16 and ab.grad.dtype == ab_dtype
     assert (port.DKV_LAUNCHES, port.DQ_LAUNCHES) == (dkv + 1, dq + 1)
 
 
+def test_bwd_inputs_stats_and_padded_segments(fake_launch):
+    """The buffers the two launches share: the stats (B, H, Sq rounded up to
+    64, 4) float32 and the segment ids as int32, padded to whole 64-row
+    tiles with zeros; the maps are encoded once."""
+    q, k, v = _qkv(sq=100, skv=130)
+    o = torch.zeros_like(q)
+    l, m = torch.ones((2, 3, 100)), torch.zeros((2, 3, 100))
+    segs = port.SegmentIds(torch.full((2, 100), 3), torch.full((2, 130), 3))
+    a = port._bwd_inputs(q, k, v, None, segs, o, l, m, torch.zeros_like(q), False, 1.0)
+    assert a.stats.shape == (2, 3, 128, 4) and a.stats.dtype == torch.float32
+    seg_q, seg_kv = a.keep[8:10]
+    assert seg_q.dtype == seg_kv.dtype == torch.int32
+    assert seg_q.shape == (2, 128) and seg_kv.shape == (2, 192)
+    assert (seg_q[:, :100] == 3).all() and (seg_q[:, 100:] == 0).all()
+    assert (seg_kv[:, :130] == 3).all() and (seg_kv[:, 130:] == 0).all()
+    assert a.pointers == (l.data_ptr(), m.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr())
+    assert len(fake_launch.calls["maps"]) == 1 and not fake_launch.calls["dq"]
+    assert port.BWD_TILE == 64
+
+
 def test_no_dab_without_its_grad(fake_launch):
-    """An ab that does not require grad is read but gets no dab (null)."""
+    """An ab that does not require grad is read (its map) but gets no dab
+    (null)."""
     q, k, v = (t.requires_grad_() for t in _qkv())
     ab = torch.zeros((2, 3, 100, 136))[..., :130]
     port.flash_attention(q, k, v, ab).backward(torch.zeros((2, 3, 100, 80),
                                                            dtype=torch.bfloat16))
-    (b,) = fake_launch.calls["dq"]
-    assert b[4] == ab.data_ptr() and b[11] is None and ab.grad is None
+    (mp,), (a,) = fake_launch.calls["maps"], fake_launch.calls["dq"]
+    assert mp[5] == ab.data_ptr() and mp[12] == 4
+    assert a[7] is None and ab.grad is None
 
 
 @pytest.mark.parametrize("dtype,rows", [(torch.float32, 128), (torch.bfloat16, 128),
@@ -444,57 +498,135 @@ def test_ab_plan(dtype, rows):
                          128 // es, rows, 1, 1]
 
 
+def _plan(t, n):
+    """The expected plan of a (B, H, S, hd) bf16 view: dims (hd, S, H, B), its
+    byte strides of a row, a head and a batch, a box of 64 x 64."""
+    B, H, _, hd = t.shape
+    return [hd, n, H, B, 2 * t.stride(2), 2 * t.stride(1), 2 * t.stride(0), 64, 64, 1, 1]
+
+
+@pytest.mark.parametrize("case", ["contiguous", "harness_views", "ab_one_batch", "ab_row_slice"])
+def test_bwd_plans(case):
+    """The backward's maps of q, k, v, do, o and ab, one box shape for both
+    kernels: contiguous tensors; the harnesses' (B, H, Sp, hd) views of
+    their (B, Sp, H, hd) projections, read in place; an ab of one batch
+    (B = 1: its batch stride is never stepped and takes the span inside
+    it) and an ab row slice of a wider bias (its strides)."""
+    B = 1 if case == "ab_one_batch" else 2
+    if case == "harness_views":
+        q, k, v, do = (torch.zeros((B, n, 3, 80), dtype=torch.bfloat16).transpose(1, 2)
+                       for n in (100, 130, 130, 100))
+    else:
+        q, k, v = _qkv(B=B)
+        do = torch.zeros_like(q)
+    o = torch.zeros((B, 3, 100, 80), dtype=torch.bfloat16)
+    ab = None
+    if case == "ab_one_batch":
+        ab = torch.zeros((1, 3, 100, 132))
+    elif case == "ab_row_slice":
+        ab = torch.zeros((2, 3, 100, 136), dtype=torch.bfloat16)[..., :130]
+    plan = port._bwd_plans(q, k, v, do, o, ab)
+    want = []
+    for t, n in ((q, 100), (k, 130), (v, 130), (do, 100), (o, 100)):
+        want += _plan(t, n)
+    assert plan[:55] == want
+    if case == "harness_views":
+        assert plan[4:7] == [3 * 80 * 2, 80 * 2, 100 * 3 * 80 * 2]  # a row, a head, a batch
+    if ab is None:
+        assert plan[55:] == [0] * 11
+    elif case == "ab_one_batch":
+        assert plan[55:] == [132, 100, 3, 1, 132 * 4, 100 * 132 * 4, 3 * 100 * 132 * 4,
+                             32, 64, 1, 1]
+    else:
+        assert plan[55:] == [130, 100, 3, 2, 136 * 2, 100 * 136 * 2, 3 * 100 * 136 * 2,
+                             64, 64, 1, 1]
+    for i, t in enumerate((q, k, v, do, o) + ((ab,) if ab is not None else ())):
+        port._check_map("bwd", t, plan[11 * i:11 * (i + 1)])  # raises where a map cannot
+
+
 def test_do_plan():
-    """The backward kernels read q, k, v and do by 16-byte copies: a
-    contiguous cotangent, an aligned (B, S, H, hd) view and a broadcast one
-    (stride 0: every row read from the same place) are read in place, their
-    element strides passed; one with a seq stride off a multiple of 8
-    elements, or a base off 16 bytes, is copied to a contiguous tensor; a
-    size-1 dimension's stride is not checked."""
+    """A cotangent the backward's map can read is read in place: contiguous,
+    an aligned (B, S, H, hd) view, a size-1 dimension with any stride; one a
+    map cannot take is copied to a contiguous tensor: a seq stride off a
+    multiple of 16 bytes, a base off 16 bytes, and a broadcast one (stride
+    0, as a map's strides are positive)."""
     do = torch.zeros((2, 3, 100, 80), dtype=torch.bfloat16)
     assert port._bwd_operand(do) is do
     view = torch.zeros((2, 100, 3, 80), dtype=torch.bfloat16).transpose(1, 2)
     assert port._bwd_operand(view) is view
     q, k, v = _qkv()
-    assert port._bwd_strides(q, k, v, view, None) == [
-        3 * 100 * 80, 100 * 80, 80, 3 * 130 * 80, 130 * 80, 80, 3 * 130 * 80, 130 * 80, 80,
-        100 * 3 * 80, 80, 3 * 80, 0, 0, 0]
-    broadcast = torch.zeros((1, 1, 1, 80), dtype=torch.bfloat16).expand(2, 3, 100, 80)
-    assert port._bwd_operand(broadcast) is broadcast
-    flat = torch.zeros(2 * 3 * 100 * 80 + 8, dtype=torch.bfloat16)
-    for odd in (torch.zeros((2, 3, 100, 84), dtype=torch.bfloat16)[..., :80],
-                flat[(-flat.data_ptr() // 2) % 8 + 1:][:48000].view(2, 3, 100, 80)):
-        got = port._bwd_operand(odd)
-        assert got is not odd and got.is_contiguous() and torch.equal(got, odd)
+    assert port._bwd_plans(q, k, v, view, do)[33:44] == [80, 100, 3, 2, 3 * 80 * 2, 80 * 2,
+                                                         100 * 3 * 80 * 2, 64, 64, 1, 1]
     one = torch.zeros((1, 3, 100, 80), dtype=torch.bfloat16).as_strided(
         (1, 3, 100, 80), (5, 100 * 80, 80, 1))
     assert port._bwd_operand(one) is one
+    broadcast = torch.zeros((1, 1, 1, 80), dtype=torch.bfloat16).expand(2, 3, 100, 80)
+    flat = torch.zeros(2 * 3 * 100 * 80 + 8, dtype=torch.bfloat16)
+    for odd in (torch.zeros((2, 3, 100, 84), dtype=torch.bfloat16)[..., :80],
+                flat[(-flat.data_ptr() // 2) % 8 + 1:][:48000].view(2, 3, 100, 80), broadcast):
+        got = port._bwd_operand(odd)
+        assert got is not odd and got.is_contiguous() and torch.equal(got, odd)
 
 
-@pytest.mark.parametrize("bad", ["ab_row_stride", "ab_unaligned", "hd_136"])
+def test_backward_copies_an_unaligned_cotangent(fake_launch):
+    """The cotangent a map cannot take reaches the maps entry as a
+    contiguous copy; the launches follow."""
+    q, k, v = (t.requires_grad_() for t in _qkv())
+    out = port.flash_attention(q, k, v)
+    do = torch.zeros((2, 3, 100, 84), dtype=torch.bfloat16)[..., :80]
+    out.backward(do)
+    (mp,) = fake_launch.calls["maps"]
+    assert mp[3] != do.data_ptr()
+    assert fake_launch.bwd_plans[0][37:40] == [80 * 2, 100 * 80 * 2, 3 * 100 * 80 * 2]
+    assert fake_launch.order == ["fwd", "maps", "dq", "dkv"]
+
+
+@pytest.mark.parametrize("bad", ["ab_row_stride", "ab_unaligned", "hd_136", "ab_broadcast",
+                                 "bwd_q_view"])
 def test_refusals_raise_before_any_launch(fake_launch, bad):
     """What a tensor map cannot take is refused before any launch: a float32
     ab whose query stride is not a multiple of 16 bytes (Skv = 6), an ab
-    off a 16-byte boundary, an hd above 128."""
+    off a 16-byte boundary, an hd above 128, an ab broadcast over the batch
+    (stride 0); and, in the backward, a q view no map can read (its maps are
+    checked before the maps are encoded or a kernel launched)."""
     q, k, v = _qkv(sq=10, skv=6, hd=136 if bad == "hd_136" else 64)
     ab = None
     if bad == "ab_row_stride":
         ab = torch.zeros((2, 3, 10, 6))
     elif bad == "ab_unaligned":
         ab = torch.zeros(2 * 3 * 10 * 8 + 1)[1:].view(2, 3, 10, 8)[..., :6]
-    with pytest.raises(ValueError):
-        port.flash_attention(q, k, v, ab)
+    elif bad == "ab_broadcast":
+        ab = torch.zeros((1, 3, 10, 8)).expand(2, 3, 10, 8)
+        q, k, v = _qkv(sq=10, skv=8, hd=64)
+    if bad == "bwd_q_view":
+        q = torch.zeros((2, 3, 10, 68), dtype=torch.bfloat16)[..., :64]
+        o, l, m = torch.zeros_like(q), torch.ones((2, 3, 10)), torch.zeros((2, 3, 10))
+        with pytest.raises(ValueError):
+            port._launch_bwd(q, k, v, None, None, o, l, m, torch.zeros_like(o), False, 1.0,
+                             False)
+    else:
+        with pytest.raises(ValueError):
+            port.flash_attention(q, k, v, ab)
     assert not any(fake_launch.calls.values())
 
 
-@pytest.mark.parametrize("kind", ["dkv", "dq"])
+@pytest.mark.parametrize("kind", ["maps", "dq", "dkv"])
 def test_failed_backward_launch_raises_and_never_falls_back(fake_launch, kind):
-    """A backward launch the kernel refuses (a nonzero CUDA error) raises,
-    is not counted and never reaches the plain version."""
+    """A backward call the library refuses (a nonzero CUDA error) raises, is
+    not counted, stops the backward there (a refused encoding before either
+    launch, a refused dQ before dK/dV) and never reaches the plain version."""
     fake_launch.err[kind] = 1
     q, k, v = (t.requires_grad_() for t in _qkv())
     out = port.flash_attention(q, k, v)
     counts = port.DKV_LAUNCHES, port.DQ_LAUNCHES
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         out.backward(torch.zeros_like(out))
-    assert (port.DKV_LAUNCHES, port.DQ_LAUNCHES) == (counts[0] + (kind == "dq"), counts[1])
+    assert (port.DKV_LAUNCHES, port.DQ_LAUNCHES) == (counts[0], counts[1] + (kind == "dkv"))
+    assert fake_launch.order[-1] == kind
+
+
+def test_bwd_tile_is_the_sources_tile():
+    """BWD_TILE, the rows of the backward's boxes and the padding of Sq and
+    the segment ids, is the .cu's kTile."""
+    src = port.BWD_SOURCE.read_text()
+    assert f"constexpr int kTile = {port.BWD_TILE};" in src
