@@ -237,6 +237,20 @@ Phases, each printing JSON lines; any failure exits nonzero:
      and one data-parallel training step (phase 7's checkpoint and recipe,
      1024 x accum 8, dropout and noise on) equals the plain step (params
      within 1e-6; 400 K3' launches); "multi-card: not run (1 device)";
+  14. orbax: phase 7's FT0 checkpoint (params and AdamW moments) saved as an
+     .orbax directory by the port's own zarr v2, OCDBT and zstd code (no
+     orbax, tensorstore or zstandard; the host codec built from
+     train/csrc/zstd.cpp) and read back, every array bit-identical to the
+     .npz; seconds and MB/s each way beside the .npz's, the directory's size;
+     one chunk resumed through the CLI from the directory with
+     checkpoint_format=orbax against the same chunk from the .npz (losses and
+     params within 1e-6, K3' on; it writes an .orbax of its own); phase 4's
+     2 x 64 frames served through NOVICModel from the directory (the spec
+     from its novic_meta.json) and from the resumed chunk's, each against its
+     .npz (equal labels, logprobs within 1e-6, 12 K1 launches a forward);
+     tests/data/orbax_small.orbax, which real orbax wrote (zstd-compressed
+     chunks, a per-process store), read bit for bit as its .npz twin; K1 and
+     K3' launches under launches_by_phase["orbax"];
 then the kernels line and, last, {"ok": true, "device": {...}}.
 Exits nonzero without printing a result when CUDA is not available.
 """
@@ -4267,6 +4281,226 @@ def phase_serving_tools(workdir: str, frames: list, nouns: list, name: str, smi:
     return line
 
 
+ORBAX_ATOL = REFERENCE_ATOL   # resumed and served from .orbax vs .npz (phase 9's bar)
+ORBAX_FIXTURE = os.path.join(REPO, "tests", "data", "orbax_small.orbax")
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    """bfloat16 for ml_dtypes' and for the V2 an .npz gives it back as."""
+    return "bfloat16" if a.dtype.name == "bfloat16" or a.dtype.str.endswith("V2") else a.dtype.str
+
+
+def checkpoint_differences(a: dict, b: dict) -> list[str]:
+    """Arrays (params and optimizer leaves) of two loaded checkpoints that
+    differ in shape, dtype or any bit."""
+    from novic_tpu_torch.utils.misc import flatten_dict
+
+    pa, pb = flatten_dict(a["params"]), flatten_dict(b["params"])
+    oa, ob = list(a["opt_arrays"] or []), list(b["opt_arrays"] or [])
+    if sorted(pa) != sorted(pb) or len(oa) != len(ob):
+        return ["the array names or counts"]
+    pairs = [(f"params.{k}", pa[k], pb[k]) for k in pa] + [
+        (f"opt.{i}", x, y) for i, (x, y) in enumerate(zip(oa, ob))]
+    return [k for k, x, y in pairs if x.shape != y.shape or _dtype_name(x) != _dtype_name(y)
+            or x.tobytes() != y.tobytes()]
+
+
+def phase_orbax(workdir: str, frames: list, nouns: list, name: str, smi: str) -> dict:
+    """Phase 14: orbax checkpoints at full width without orbax, tensorstore or
+    zstandard. Phase 7's FT0 checkpoint saved as an .orbax directory (its
+    cfg_flat naming SPEC) and read back, bit for bit as the .npz; one chunk
+    resumed from it with checkpoint_format=orbax against the same chunk from
+    the .npz (K3'); phase 4's 2 x 64 frames served from the directory with the
+    spec from its novic_meta.json, and from the resumed chunk's .orbax,
+    against the .npz (K1); the committed fixture that real orbax wrote read
+    bit for bit as its .npz twin."""
+    import importlib.util
+
+    from novic_tpu_torch.cli.train import main as train_main
+    from novic_tpu_torch.infer import NOVICModel
+    from novic_tpu_torch.ops import attention, build, dropout
+    from novic_tpu_torch.text.simple import make_test_tokenizer
+    from novic_tpu_torch.train import zstd
+    from novic_tpu_torch.train.checkpoint import (load_checkpoint, save_checkpoint,
+                                                  save_checkpoint_orbax)
+    from novic_tpu_torch.utils.misc import flatten_dict
+
+    phase_t0 = time.perf_counter()
+    attention.LAUNCHES = dropout.LAUNCHES = 0
+    line = {"phase": "orbax", "device": name, "nvidia_smi": smi,
+            "zstandard_installed": importlib.util.find_spec("zstandard") is not None,
+            "orbax_installed": importlib.util.find_spec("orbax") is not None}
+    t0 = time.perf_counter()
+    build.build_host(zstd.SOURCE, force=True)
+    line["codec_build_s"] = time.perf_counter() - t0
+    odir = os.path.join(workdir, "orbax")
+    os.makedirs(odir)
+
+    # 1. Phase 7's checkpoint saved as an .orbax directory and read back; the
+    # .npz format beside it (the file cache is warm for every read)
+    base = sorted(glob.glob(os.path.join(workdir, "outputs", "ovod_*", "*.npz")))[-1]
+    t0 = time.perf_counter()
+    bck = load_checkpoint(base)
+    npz_load_s = time.perf_counter() - t0
+    chunk = bck["train_meta"]["loop_state"]["chunk_id"]
+    kw = dict(params=bck["params"], model_config=bck["model_config"],
+              target_config=bck["target_config"], data_config=bck["data_config"],
+              target_nouns=bck["target_nouns"],
+              num_invalid_target_nouns=bck["num_invalid_target_nouns"],
+              opt_state_arrays=bck["opt_arrays"], train_meta=bck["train_meta"],
+              cfg_flat={**bck["cfg_flat"], "embedder": SPEC})
+    path = os.path.join(odir, f"ovod_chunk{chunk - 1:04d}_ft0.orbax")
+    # The .orbax save flushes its data file and manifest to disk (os.fsync) and
+    # the .npz save does not: the fsyncs are timed apart, and the .npz is
+    # flushed after its save, so that the two compare like for like
+    fsync_s, real_fsync = [], os.fsync
+
+    def timed_fsync(fd):
+        t = time.perf_counter()
+        real_fsync(fd)
+        fsync_s.append(time.perf_counter() - t)
+
+    os.fsync = timed_fsync
+    try:
+        t0 = time.perf_counter()
+        save_checkpoint_orbax(path, **kw)
+        save_s = time.perf_counter() - t0
+    finally:
+        os.fsync = real_fsync
+    t0 = time.perf_counter()
+    ock = load_checkpoint(path)
+    load_s = time.perf_counter() - t0
+    twin = os.path.join(odir, "twin.npz")
+    t0 = time.perf_counter()
+    save_checkpoint(twin, **kw)
+    npz_save_s = time.perf_counter() - t0
+    with open(twin, "rb+") as f:
+        t0 = time.perf_counter()
+        os.fsync(f.fileno())
+        npz_fsync_s = time.perf_counter() - t0
+    nbytes = (sum(a.nbytes for a in flatten_dict(bck["params"]).values())
+              + sum(a.nbytes for a in bck["opt_arrays"]))
+    dir_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+    differ = checkpoint_differences(ock, bck)
+    meta_equal = ({k: v for k, v in ock["meta"].items() if k not in ("saved_unix_time", "cfg_flat")}
+                  == {k: v for k, v in bck["meta"].items()
+                      if k not in ("saved_unix_time", "cfg_flat")}
+                  and ock["cfg_flat"] == kw["cfg_flat"])
+    line.update(checkpoint={
+        "arrays": len(flatten_dict(bck["params"])) + len(bck["opt_arrays"]),
+        "params": sum(a.size for a in flatten_dict(bck["params"]).values()),
+        "array_mb": nbytes / 1e6, "dir_mb": dir_bytes / 1e6,
+        "save_s": save_s, "save_mb_per_s": nbytes / 1e6 / save_s,
+        "save_fsync_s": fsync_s, "save_without_fsync_s": save_s - sum(fsync_s),
+        "load_s": load_s, "load_mb_per_s": nbytes / 1e6 / load_s,
+        "npz_save_s": npz_save_s, "npz_fsync_s": npz_fsync_s,
+        "npz_load_s": npz_load_s, "file_cache": "warm",
+        "arrays_differing": differ, "meta_equal": meta_equal})
+    if differ or not meta_equal:
+        raise SystemExit(f"the .orbax directory reads back other arrays or meta: {differ}, "
+                         f"meta equal {meta_equal}")
+
+    # 2. One chunk resumed from the directory (checkpoint_format=orbax) and from
+    # the .npz, at phase 7's recipe with K3' on
+    resumed = {}
+    for label, src, fmt in (("orbax", path, "orbax"), ("npz", base, "npz")):
+        drops = dropout.LAUNCHES
+        t0 = time.perf_counter()
+        state, S, _ = train_main(ft0_train_args(
+            workdir, f"orbax_resume_{label}", f"load_model={src}", f"max_chunks={chunk}",
+            "save_every_max=1", f"checkpoint_format={fmt}"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        saved = sorted(glob.glob(os.path.join(workdir, f"orbax_resume_{label}", "ovod_*",
+                                              f"*.{fmt}")))[-1]
+        with open(os.path.join(os.path.dirname(saved), "metrics.jsonl")) as f:
+            metrics = [json.loads(x) for x in f]
+        live = {n: p.detach().cpu().numpy() for n, p in state.model.named_parameters()}
+        written = flatten_dict(load_checkpoint(saved)["params"])
+        resumed[label] = dict(step=state.step, chunk=S.chunk_id, seconds=seconds, path=saved,
+                              losses=[(m["chunk_loss"], m["loss"]) for m in metrics],
+                              params=live, written_equal=all(
+                                  np.array_equal(written[n], live[n]) for n in live),
+                              dropout_launches=dropout.LAUNCHES - drops)
+    ro, rn = resumed["orbax"], resumed["npz"]
+    loss_diff = max(abs(a - b) for x, y in zip(ro["losses"], rn["losses"]) for a, b in zip(x, y))
+    param_diff = max(float(np.abs(ro["params"][n] - rn["params"][n]).max()) for n in rn["params"])
+    line.update(resume_chunk=chunk, resume_steps=ro["step"], resume_losses=ro["losses"],
+                resume_loss_max_abs_diff=loss_diff, resume_param_max_abs_diff=param_diff,
+                resume_s={k: r["seconds"] for k, r in resumed.items()},
+                resume_saved=os.path.basename(ro["path"]),
+                resume_dropout_launches=[ro["dropout_launches"], rn["dropout_launches"]])
+    if (ro["step"], ro["chunk"]) != (rn["step"], rn["chunk"]) or ro["chunk"] != chunk + 1 \
+            or len(ro["losses"]) != 1 or len(rn["losses"]) != 1:
+        raise SystemExit(f"the resumed runs differ in steps or chunks: {ro['step']}/{ro['chunk']} "
+                         f"vs {rn['step']}/{rn['chunk']} (chunk {chunk})")
+    if loss_diff > ORBAX_ATOL or param_diff > ORBAX_ATOL:
+        raise SystemExit(f"resume from .orbax vs .npz: losses {loss_diff}, params {param_diff}")
+    if not (ro["path"].endswith(".orbax") and os.path.isdir(ro["path"]) and ro["written_equal"]
+            and rn["written_equal"]):
+        raise SystemExit(f"the resumed chunk's checkpoint: {ro['path']}, written equal "
+                         f"{ro['written_equal']} / {rn['written_equal']}")
+    new_steps = {label: r["dropout_launches"] // (DROPOUT_SITES * 2 * TRAIN_ACCUM)
+                 for label, r in resumed.items()}
+    for label, r in resumed.items():
+        if not r["dropout_launches"] or r["dropout_launches"] % (DROPOUT_SITES * 2 * TRAIN_ACCUM):
+            raise SystemExit(f"{label}: the resumed chunk launched dropout "
+                             f"{r['dropout_launches']} times")
+    line["resume_new_steps"] = new_steps
+
+    # 3. Serving: the directory (spec from its novic_meta.json) and the resumed
+    # chunk's directory, each against its .npz, over phase 4's frames
+    ekw = {"tokenizer": make_test_tokenizer(nouns), "seed": SEED}
+    gencfg = "beam_k10_vnone_gn_t1_a0"
+    forwards = math.ceil(len(frames) / BATCH)
+    if NOVICModel._peek_embedder_spec(path) != SPEC:
+        raise SystemExit(f"{path}: novic_meta.json names {NOVICModel._peek_embedder_spec(path)}")
+    served, k1 = {}, {}
+    for label, src, spec in (("orbax", path, None), ("npz", base, SPEC),
+                             ("resumed_orbax", ro["path"], SPEC),
+                             ("resumed_npz", rn["path"], SPEC)):
+        with NOVICModel(src, embedder_spec=spec, embedder_kwargs=ekw, gencfg=gencfg,
+                        batch_size=BATCH, device="cuda") as model:
+            if model.embedder.spec != SPEC:
+                raise SystemExit(f"{label}: served with {model.embedder.spec}")
+            before = attention.LAUNCHES
+            t0 = time.perf_counter()
+            out = model.classify_images(frames)
+            torch.cuda.synchronize()
+            served[label] = (out, time.perf_counter() - t0)
+            k1[label] = attention.LAUNCHES - before
+        check_output(out, len(frames), None)
+        if k1[label] != 12 * forwards:
+            raise SystemExit(f"{label}: fused_attention launched {k1[label]} times, expected "
+                             f"{12 * forwards}")
+    serve = {}
+    for a, b in (("orbax", "npz"), ("resumed_orbax", "resumed_npz")):
+        oa, ob = served[a][0], served[b][0]
+        serve[a] = {"labels_equal": oa.preds == ob.preds,
+                    "logprob_max_abs_diff": float(np.abs(np.asarray(oa.logprobs)
+                                                         - np.asarray(ob.logprobs)).max())}
+    line.update(images=len(frames), serve=serve, serve_s={k: v[1] for k, v in served.items()},
+                labels=[r[:3] for r in served["orbax"][0].preds[:2]], k1_by_step=k1)
+    bad = {k: v for k, v in serve.items()
+           if not v["labels_equal"] or v["logprob_max_abs_diff"] > ORBAX_ATOL}
+    if bad:
+        raise SystemExit(f".orbax and .npz serve apart: {bad}")
+
+    # 4. The committed fixture: real orbax bytes (zstd-compressed chunks, a
+    # per-process store), read by the port's own codec
+    t0 = time.perf_counter()
+    fx, twin = load_checkpoint(ORBAX_FIXTURE), load_checkpoint(ORBAX_FIXTURE[:-6] + ".npz")
+    fx_differ = checkpoint_differences(fx, twin)
+    line.update(fixture={"arrays": len(flatten_dict(fx["params"])) + len(fx["opt_arrays"]),
+                         "arrays_differing": fx_differ, "load_s": time.perf_counter() - t0})
+    if fx_differ or fx["cfg_flat"] != twin["cfg_flat"]:
+        raise SystemExit(f"the orbax fixture differs from its .npz twin: {fx_differ}")
+    line.update(k1_launches=attention.LAUNCHES, dropout_launches=dropout.LAUNCHES,
+                seconds=time.perf_counter() - phase_t0)
+    emit(line)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs a GPU", file=sys.stderr)
@@ -4479,6 +4713,8 @@ def main() -> int:
         towers = phase_towers(workdir, frames, list(nouns), name, smi)
         # 13. the demo server; set_mesh and the DP train step at world size 1
         serving = phase_serving_tools(workdir, frames, list(nouns), name, smi)
+        # 14. orbax checkpoints: phase 7's saved, read, resumed and served
+        orbax_line = phase_orbax(workdir, frames, list(nouns), name, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -4495,7 +4731,8 @@ def main() -> int:
                               "noun_data": noun_line["k1_launches"],
                               "eval": eval_line["k1_launches"],
                               "towers": sum(towers["launches"].values()),
-                              "serving_tools": serving["k1_launches"]},
+                              "serving_tools": serving["k1_launches"],
+                              "orbax": orbax_line["k1_launches"]},
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"]}, {
@@ -4508,7 +4745,8 @@ def main() -> int:
                               "noun_data": noun_line["dropout_launches"],
                               "eval": eval_line["dropout_launches"],
                               "towers": towers["dropout_launches"],
-                              "serving_tools": serving["dropout_launches"]},
+                              "serving_tools": serving["dropout_launches"],
+                              "orbax": orbax_line["dropout_launches"]},
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}, {

@@ -1,9 +1,10 @@
 """action=train (the counterpart of novic_tpu.cli.actions_train.action_train;
 reference train.py:977-1479): chunk math, mean shift + noise, training on one
 device, EWA metrics, the checkpoint policy, AdamW or AdamP, and resume from
-a native .npz checkpoint written by either package or from a reference torch
-.model/.train (params, loop state and AdamW moments);
-save_torch_checkpoints=true writes a reference .model beside each .npz.
+a native checkpoint written by either package (a .npz, or an .orbax directory:
+checkpoint_format=orbax writes those) or from a reference torch .model/.train
+(params, loop state and AdamW moments); save_torch_checkpoints=true writes a
+reference .model beside each checkpoint.
 embedding_dataset=NounDataset trains from text: batches come from the noun
 cache (noun_cache=true) or are embedded by the text tower on the card while
 training. action=fix_checkpoints retrofits target_nouns into checkpoints that
@@ -13,8 +14,6 @@ With data_parallel=true and more than one rank (torchrun --nproc_per_node N,
 or a process group the caller initialised), training is data-parallel over
 the ranks when batch_size divides by their number (else it warns and each
 rank trains alone); only rank 0 writes checkpoints, metrics and logs.
-
-Not ported: orbax checkpoints (a JAX library).
 """
 
 from __future__ import annotations
@@ -51,6 +50,7 @@ from novic_tpu_torch.train.checkpoint import (
     load_reference_checkpoint,
     read_reference_pickle,
     save_checkpoint,
+    save_checkpoint_orbax,
     save_reference_checkpoint,
 )
 from novic_tpu_torch.train.loop import TrainLoopConfig, TrainLoopState, compute_chunk_batches, train
@@ -65,11 +65,9 @@ def action_train(cfg, device="cuda"):
     if not main_rank:
         log.setLevel(logging.WARNING)
     ckpt_fmt = str(cfg.get("checkpoint_format", "npz") or "npz").lower()
-    if ckpt_fmt == "orbax":
-        raise NotImplementedError("checkpoint_format=orbax needs orbax, a JAX library: "
-                                  "not ported (npz)")
-    if ckpt_fmt != "npz":
+    if ckpt_fmt not in ("npz", "orbax"):
         raise ValueError(f"Unsupported checkpoint_format: {ckpt_fmt}")
+    save = save_checkpoint_orbax if ckpt_fmt == "orbax" else save_checkpoint
     mesh = None
     world = dist.get_world_size() if dist.is_initialized() else 1
     if cfg.data_parallel and world > 1:
@@ -163,9 +161,9 @@ def action_train(cfg, device="cuda"):
 
     def save_fn(chunk_id, state, loop_state):
         verify_unused(state.model, model_cfg)
-        path = os.path.join(run_dir, f"ovod_chunk{chunk_id:04d}_{stamp}.npz")
+        path = os.path.join(run_dir, f"ovod_chunk{chunk_id:04d}_{stamp}.{ckpt_fmt}")
         params = {k: v.detach().cpu().numpy() for k, v in state.model.state_dict().items()}
-        save_checkpoint(
+        save(
             path, params=params, cfg_flat=config_to_flat(cfg), model_config=model_cfg,
             target_config=embedder.target_config, data_config=dc.as_dict(),
             target_nouns=dataset.targets, num_invalid_target_nouns=dataset.num_invalid_targets,
@@ -174,7 +172,7 @@ def action_train(cfg, device="cuda"):
             train_meta={"loop_state": loop_state.as_dict(), "chunk_id": chunk_id})
         if cfg.save_torch_checkpoints:
             save_reference_checkpoint(
-                path[:-4] + ".model", params=params, model_config=model_cfg,
+                os.path.splitext(path)[0] + ".model", params=params, model_config=model_cfg,
                 target_config=embedder.target_config, target_nouns=dataset.targets,
                 num_invalid_target_nouns=dataset.num_invalid_targets,
                 cfg_flat=config_to_flat(cfg), data_config=dc.as_dict())

@@ -488,9 +488,9 @@ def load_guide_targets(target_tokenizer: TargetTokenizer, guide_targets: Sequenc
 def load_decoder_from_checkpoint(checkpoint_path: str, embedder: Embedder,
                                  device: Union[str, torch.device] = "cuda",
                                  model_override: Optional[str] = None) -> Decoder:
-    """Load a decoder checkpoint (native .npz, or a reference torch .model/.train,
-    read as float32) onto `device` and configure the embedder's target
-    tokenizer from it; `model_override` names another decoder
+    """Load a decoder checkpoint (native .npz or orbax directory, or a reference
+    torch .model/.train, read as float32) onto `device` and configure the
+    embedder's target tokenizer from it; `model_override` names another decoder
     class for the checkpoint's config (a DudDecoder is built, not loaded)."""
     from novic_tpu_torch.bridge import decoder_from_numpy
     from novic_tpu_torch.train.checkpoint import load_checkpoint, load_reference_checkpoint
@@ -580,17 +580,21 @@ class NOVICModel:
 
     @staticmethod
     def _peek_embedder_spec(checkpoint: str) -> Optional[str]:
-        """Read cfg_flat['embedder'] of a checkpoint: a .npz's metadata without
-        loading arrays, or a torch checkpoint through the restricted unpickler
-        (the path is user-supplied: never unrestricted pickle)."""
+        """Read cfg_flat['embedder'] of a checkpoint without loading arrays: an
+        orbax directory's novic_meta.json, a .npz's metadata, or a torch
+        checkpoint through the restricted unpickler (the path is user-supplied:
+        never unrestricted pickle)."""
         import json
 
         from novic_tpu_torch.train.checkpoint import read_reference_pickle
 
-        if not os.path.isfile(checkpoint):
+        if not os.path.isfile(checkpoint) and not os.path.isdir(checkpoint):
             raise FileNotFoundError(f"Checkpoint not found: {checkpoint}")
         try:
-            if checkpoint.endswith(".npz"):
+            if os.path.isdir(checkpoint):  # orbax directory checkpoint
+                with open(os.path.join(checkpoint, "novic_meta.json")) as f:
+                    cfg_flat = json.load(f)["cfg_flat"]
+            elif checkpoint.endswith(".npz"):
                 with np.load(checkpoint, allow_pickle=False) as data:
                     cfg_flat = json.loads(bytes(data["__meta__"]).decode())["cfg_flat"]
             else:
@@ -731,7 +735,8 @@ def main(argv: Optional[Sequence[str]] = None):
 
     parser = argparse.ArgumentParser(description="NOVIC inference: open-vocabulary image classification")
     parser.add_argument("--checkpoint", required=True,
-                        help="Decoder checkpoint: native .npz or reference torch .model/.train")
+                        help="Decoder checkpoint: native .npz, orbax directory or reference "
+                             "torch .model/.train")
     parser.add_argument("--image_dir", default=None,
                         help="Directory against which relative --images paths are resolved")
     parser.add_argument("--images", nargs="+", required=True, help="Image paths to classify")

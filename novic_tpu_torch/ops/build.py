@@ -7,6 +7,11 @@ through ctypes by its wrapper module. `build_all` starts one nvcc per source at
 once, so a cold start pays the slowest compile rather than the sum, and each
 nvcc splits its compilation over the host's cores (`-split-compile=0`): the
 backward flash kernels' 192 instances build in about half the time so.
+
+Host C++ (the checkpoint codecs under train/csrc/) takes `build_host`: the host
+compiler (g++, else c++) with -O2 -shared -fPIC, into the same directory, a
+temporary name renamed into place so that concurrent builds never load a
+half-written library.
 """
 
 from __future__ import annotations
@@ -79,3 +84,29 @@ def build_all(sources: list[Path], force: bool = False) -> list[Path]:
                 proc.kill()
                 proc.wait()
     return [library_path(s) for s in sources]
+
+
+def host_compiler() -> str:
+    for name in ("g++", "c++"):
+        path = shutil.which(name)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler (g++ or c++) found: the host library cannot be built")
+
+
+def build_host(source: Path, force: bool = False) -> Path:
+    """Compile one host C++ source (if its library is older, or `force`) into
+    build/novic_tpu_torch/libnovic_<stem>.so; raise with the compiler's output."""
+    out = library_path(source)
+    if not force and out.is_file() and out.stat().st_mtime >= source.stat().st_mtime:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [host_compiler(), "-std=c++17", "-O2", "-shared", "-fPIC", "-o", str(tmp), str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cmd[0]} failed on {source.name} ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out

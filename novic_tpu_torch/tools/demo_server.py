@@ -319,7 +319,7 @@ def main(argv: Optional[Sequence[str]] = None):
 
     p = argparse.ArgumentParser(description="NOVIC local live demo server")
     p.add_argument("--checkpoint", required=True,
-                   help="decoder checkpoint (native .npz or reference torch .model/.train)")
+                   help="decoder checkpoint (.npz/.train/orbax dir)")
     p.add_argument("--embedder_spec", default=None, help="override the checkpoint's embedder spec")
     p.add_argument("--gencfg", default="beam_k10_vnone_gn_t1_a0")
     p.add_argument("--guide_targets_file", default=None)

@@ -5,7 +5,13 @@ Native: one .npz holds the flattened `params.*` arrays, the optimizer state as
 `opt.*` arrays in the leaf order of the JAX package's optax state (bridge.py
 converts the port's optimizer state to and from it), and a `__meta__` JSON
 entry (format novic_tpu.checkpoint.v1). Either package reads what the other
-writes. The orbax directory format needs a JAX library and is not ported.
+writes.
+
+Orbax: a directory as `orbax.checkpoint.StandardCheckpointer` writes it (the
+tree {"params": ..., "opt": [leaves]}), with the same metadata in its
+novic_meta.json. The port reads and writes it with its own zarr v2, OCDBT and
+zstd code (orbax_format.py, ocdbt.py, zstd.py): either package reads what the
+other writes.
 
 Reference (reference train.py:1450-1473): a torch.save'd flat dict with keys
 cfg_flat, target_config, data_config, model_state_dict, target_nouns,
@@ -33,6 +39,7 @@ import torch
 
 from novic_tpu_torch.models.config import DecoderModelConfig
 from novic_tpu_torch.text.target import TargetConfig
+from novic_tpu_torch.train import orbax_format
 from novic_tpu_torch.train.loop import TrainLoopState
 from novic_tpu_torch.utils.logger import log
 from novic_tpu_torch.utils.misc import flatten_dict, unflatten_dict
@@ -55,11 +62,26 @@ def save_checkpoint(
 
     params: nested or dotted-flat dict of numpy arrays; opt_state_arrays: the
     optax leaf list (bridge.opt_state_to_leaves)."""
-    flat = flatten_dict(params) if any(isinstance(v, dict) for v in params.values()) else params
-    arrays = {f"params.{k}": np.asarray(v) for k, v in flat.items()}
+    arrays = {f"params.{k}": np.asarray(v) for k, v in _flat(params).items()}
     if opt_state_arrays is not None:
         arrays.update({f"opt.{i:05d}": np.asarray(v) for i, v in enumerate(opt_state_arrays)})
-    meta = {
+    meta = _meta(cfg_flat, model_config, target_config, data_config, target_nouns,
+                 num_invalid_target_nouns, train_meta)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8), **arrays)
+    os.replace(tmp, path)  # atomic commit
+    log.info(f"Saved checkpoint: {path}")
+
+
+def _flat(params: dict) -> dict:
+    """A nested or dotted-flat param dict, dotted-flat."""
+    return flatten_dict(params) if any(isinstance(v, dict) for v in params.values()) else params
+
+
+def _meta(cfg_flat, model_config, target_config, data_config, target_nouns,
+          num_invalid_target_nouns, train_meta) -> dict:
+    return {
         "format": "novic_tpu.checkpoint.v1",
         "cfg_flat": cfg_flat,
         "model_config": model_config.as_dict(),
@@ -70,27 +92,60 @@ def save_checkpoint(
         "train_meta": train_meta or {},
         "saved_unix_time": time.time(),
     }
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8), **arrays)
-    os.replace(tmp, path)  # atomic commit
-    log.info(f"Saved checkpoint: {path}")
 
 
 def load_checkpoint(path: str) -> dict:
-    """Load a native .npz checkpoint → dict with params (nested numpy tree) and meta."""
+    """Load a native checkpoint (.npz file or orbax directory) → dict with params
+    (nested numpy tree), the optimizer leaves and meta."""
     if os.path.isdir(path):
-        raise NotImplementedError("Orbax directory checkpoints need orbax, a JAX library: "
-                                  "not ported")
+        return load_checkpoint_orbax(path)
     with np.load(path, allow_pickle=False) as data:
         meta = json.loads(bytes(data["__meta__"]).decode())
         if meta.get("format") != "novic_tpu.checkpoint.v1":
             raise ValueError(f"Unsupported checkpoint format in {path}")
         params_flat = {k[len("params."):]: data[k] for k in data.files if k.startswith("params.")}
         opt_leaves = [data[k] for k in sorted(k for k in data.files if k.startswith("opt."))] or None
+    return _loaded(meta, unflatten_dict(params_flat), opt_leaves)
+
+
+# ---------------------------------------------------------------------------
+# Orbax directories
+# ---------------------------------------------------------------------------
+
+_ORBAX_META = "novic_meta.json"
+
+
+def save_checkpoint_orbax(path: str, *, params: dict, cfg_flat: dict,
+                          model_config: DecoderModelConfig, target_config: TargetConfig,
+                          data_config: dict, target_nouns: tuple,
+                          num_invalid_target_nouns: int,
+                          opt_state_arrays: Optional[list] = None,
+                          train_meta: Optional[dict] = None):
+    """Write an orbax directory checkpoint (the .npz format's schema): the tree
+    {"params": nested params, "opt": the optax leaf list} and novic_meta.json,
+    written under a temporary name and renamed into place."""
+    tree = {"params": unflatten_dict({k: np.asarray(v) for k, v in _flat(params).items()})}
+    if opt_state_arrays is not None:
+        tree["opt"] = [np.asarray(v) for v in opt_state_arrays]
+    meta = _meta(cfg_flat, model_config, target_config, data_config, target_nouns,
+                 num_invalid_target_nouns, train_meta)
+    orbax_format.write_tree(path, tree, {_ORBAX_META: json.dumps(meta).encode()})
+    log.info(f"Saved orbax checkpoint: {path}")
+
+
+def load_checkpoint_orbax(path: str) -> dict:
+    with open(os.path.join(path, _ORBAX_META)) as f:
+        meta = json.load(f)
+    if meta.get("format") != "novic_tpu.checkpoint.v1":
+        raise ValueError(f"Unsupported checkpoint format in {path}")
+    tree = orbax_format.read_tree(path)
+    return _loaded(meta, tree["params"], tree.get("opt"))
+
+
+def _loaded(meta: dict, params: dict, opt_leaves: Optional[list]) -> dict:
     return {
         "meta": meta,
-        "params": unflatten_dict(params_flat),
+        "params": params,
         "opt_arrays": opt_leaves,
         "model_config": DecoderModelConfig.from_dict(meta["model_config"]),
         "target_config": TargetConfig.from_jsonable(meta["target_config"]),

@@ -18,8 +18,11 @@ and cli.actions_eval; the eval slice's cli.actions_eval (every action),
 cli.actions_misc and utils.metrics; the tower-family slice's embedders.eva,
 embedders.align and embedders.structured; the tools-and-parallel slice's
 tools.* (demo server, caption and annotation tools, specificity), parallel.*
-and utils.debug) and chip_smoke. The hook also raises on openai and cv2, which
-the tools import only when they run.
+and utils.debug; the orbax slice's train.zstd, train.ocdbt and
+train.orbax_format) and chip_smoke. The hook also raises on openai and cv2,
+which the tools import only when they run, and on orbax, tensorstore and
+zstandard: the port reads and writes orbax checkpoints with its own code, and
+the committed orbax fixture loads with them blocked.
 """
 
 import os
@@ -36,7 +39,8 @@ REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 _GUARD = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "novic_tpu", "exp", "tabulate", "openai", "cv2")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "novic_tpu", "exp", "tabulate", "openai", "cv2",
+           "orbax", "tensorstore", "zstandard")
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -97,6 +101,8 @@ TOOLS_PARALLEL_SLICE_MODULES = [
     "novic_tpu_torch.tools.annotate_gui", "novic_tpu_torch.parallel",
     "novic_tpu_torch.parallel.mesh", "novic_tpu_torch.parallel.tp",
     "novic_tpu_torch.utils.debug"]
+ORBAX_SLICE_MODULES = ["novic_tpu_torch.train.zstd", "novic_tpu_torch.train.ocdbt",
+                       "novic_tpu_torch.train.orbax_format"]
 
 
 def test_port_imports_without_jax():
@@ -109,7 +115,33 @@ def test_port_imports_without_jax():
     assert set(TRAINING_MODULES + INT8_AND_TEXT_MODULES + DFN5B_SLICE_MODULES
                + FLASH_SLICE_MODULES + ALL_SLICE_MODULES + REFERENCE_SLICE_MODULES
                + NOUN_DATA_SLICE_MODULES + TOWER_FAMILY_SLICE_MODULES
-               + TOOLS_PARALLEL_SLICE_MODULES) <= set(lines[-2].split())
+               + TOOLS_PARALLEL_SLICE_MODULES + ORBAX_SLICE_MODULES) <= set(lines[-2].split())
+
+
+def test_orbax_fixture_loads_without_orbax_tensorstore_or_zstandard():
+    """The committed orbax checkpoint (real orbax bytes: zstd-compressed chunks,
+    per-process OCDBT stores) loads with the port's own code, bit for bit as its
+    .npz twin, with orbax, tensorstore, zstandard and JAX blocked."""
+    code = _GUARD.split("import novic_tpu_torch")[0] + (
+        "import numpy as np\n"
+        "from novic_tpu_torch.train.checkpoint import load_checkpoint\n"
+        "a = load_checkpoint('tests/data/orbax_small.orbax')\n"
+        "b = load_checkpoint('tests/data/orbax_small.npz')\n"
+        "from novic_tpu_torch.utils.misc import flatten_dict\n"
+        "pa, pb = flatten_dict(a['params']), flatten_dict(b['params'])\n"
+        "assert sorted(pa) == sorted(pb) and len(a['opt_arrays']) == len(b['opt_arrays'])\n"
+        "for x, y in list(zip([pa[k] for k in sorted(pa)], [pb[k] for k in sorted(pb)]))"
+        " + list(zip(a['opt_arrays'], b['opt_arrays'])):\n"
+        "    assert x.shape == y.shape and x.tobytes() == y.tobytes()\n"
+        "assert a['cfg_flat'] == b['cfg_flat'] and a['target_nouns'] == b['target_nouns']\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
+        "assert not leaked, leaked\n"
+        "print(len(pa) + len(a['opt_arrays']))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) == 11  # 8 params, 3 optimizer leaves
 
 
 def test_train_cli_runs_without_jax():

@@ -242,11 +242,15 @@ def test_jax_checkpoint_resumes_in_the_port(workdir):
 
 
 def test_not_ported_surfaces_raise(workdir, monkeypatch):
-    # What still raises: orbax checkpoints, CUDA absent. The CLIPA conversion,
-    # which raised before its towers were ported, converts a local CLIPA
-    # open_clip directory's state dict to novic_tpu's .npz
-    with pytest.raises(NotImplementedError, match="orbax"):
-        main(["action=train", "checkpoint_format=orbax", "--device=cpu"] + _args(workdir, "x"))
+    # What still raises: CUDA absent. checkpoint_format=orbax, which raised
+    # before the port had its own orbax code, writes .orbax directories; the
+    # CLIPA conversion, which raised before its towers were ported, converts a
+    # local CLIPA open_clip directory's state dict to novic_tpu's .npz
+    main(["action=train", "checkpoint_format=orbax", "max_chunks=1", "save_every_max=1",
+          "--device=cpu"] + _args(workdir, "orbax"))
+    (saved,) = glob.glob(f"{workdir}/orbax/ovod_*/ovod_chunk*")
+    assert saved.endswith(".orbax") and os.path.isdir(saved)
+    assert load_checkpoint(saved)["train_meta"]["chunk_id"] == 1
     from test_clipa import CTX, D, E, L, P, S, V, make_openclip_clipa_sd
 
     from novic_tpu.embedders.convert import convert_openclip_state_dict, save_params_npz
