@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from novic_tpu_torch.device import resolve
+from novic_tpu_torch.utils import trace
 
 
 def _host_tensor(x, pin: bool) -> torch.Tensor:
@@ -74,7 +75,8 @@ class BatchLoader:
                 for i in range(n):
                     if stop.is_set():
                         return
-                    batch = self._host(self.dataset[i])
+                    with trace.span("loader.produce", index=i):
+                        batch = self._host(self.dataset[i])
                     if stop.is_set():
                         return
                     q.put((False, batch))
@@ -86,7 +88,8 @@ class BatchLoader:
         thread.start()
         try:
             while True:
-                done, item = q.get()
+                with trace.span("loader.wait"):  # the consumer blocked on the producer
+                    done, item = q.get()
                 if done is None:
                     raise item
                 if done:

@@ -41,6 +41,7 @@ from novic_tpu_torch.parallel.tp import TPGroup, shard_tower, validate_tp_divisi
 from novic_tpu_torch.text.simple import SimpleWordTokenizer
 from novic_tpu_torch.text.target import TargetConfig, TargetTokenizer, create_target_config
 from novic_tpu_torch.text.tokenizer import TextTokenizer
+from novic_tpu_torch.utils import trace
 from novic_tpu_torch.utils.logger import log
 
 
@@ -508,9 +509,12 @@ class TorchEmbedder(Embedder):
     def inference_image(self, images: Union[np.ndarray, torch.Tensor]) -> np.ndarray:
         """Preprocessed (B,S,S,3) float32 images (numpy, or a tensor from
         get_image_transform) → unit-norm float32 embeddings (numpy)."""
-        if isinstance(images, np.ndarray):
-            images = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32))
-        return self.embed_image_tensor(images.to(self.device)).cpu().numpy()
+        with trace.span("embed.forward"):
+            if isinstance(images, np.ndarray):
+                images = torch.from_numpy(np.ascontiguousarray(images, dtype=np.float32))
+            e = self.embed_image_tensor(images.to(self.device))
+        with trace.span("embed.wait"):  # the host blocks until the tower's work ends
+            return e.cpu().numpy()
 
     def get_image_transform(self) -> Callable:
         """images → (B,S,S,3) float32 tensor on the embedder's device. uint8
@@ -521,10 +525,11 @@ class TorchEmbedder(Embedder):
         def transform(images):
             if not isinstance(images, (list, tuple)):
                 images = [images]
-            if is_final_size_batch(images, cfg):
-                frames = torch.from_numpy(np.stack(images)).to(self.device)
-                return preprocess_frames(frames, cfg)
-            return torch.from_numpy(preprocess_pil_host(images, cfg)).to(self.device)
+            with trace.span("embed.frames"):
+                if is_final_size_batch(images, cfg):
+                    frames = torch.from_numpy(np.stack(images)).to(self.device)
+                    return preprocess_frames(frames, cfg)
+                return torch.from_numpy(preprocess_pil_host(images, cfg)).to(self.device)
 
         return transform
 

@@ -45,6 +45,7 @@ from novic_tpu_torch.models.precompute_store import (
 from novic_tpu_torch.models.prefixed_iter import PrefixedIterDecoder
 from novic_tpu_torch.parallel.mesh import gather_rows, same_device, shard_rows
 from novic_tpu_torch.text.target import TargetConfig, TargetTokenizer
+from novic_tpu_torch.utils import trace
 from novic_tpu_torch.utils.logger import log
 from novic_tpu_torch.utils.misc import format_semifix
 
@@ -308,7 +309,8 @@ class GenerationTask:
         """generate on this device's decoder, batch as given."""
         g = self.gencfg
         model = self.decoder.model
-        e = torch.from_numpy(np.ascontiguousarray(embeds, dtype=np.float32)).to(model.device)
+        with trace.span("decode.h2d"):
+            e = torch.from_numpy(np.ascontiguousarray(embeds, dtype=np.float32)).to(model.device)
         if self.decoder.is_dud:
             if g.method == "greedy":
                 t, p, _, _, _, s = model.generate(e, calc_loss=True, temperature=g.temperature,
@@ -344,7 +346,8 @@ class GenerationTask:
                                     vocab_scaler=g.vocab_scaler, guide_targets=guide,
                                     guide_renorm=g.guide_renorm, guide_trie=g_trie,
                                     vocab_trie=v_trie)
-        return t.cpu().numpy(), p.cpu().numpy(), s.cpu().numpy()
+        with trace.span("decode.wait"):  # the host blocks on the queued steps
+            return t.cpu().numpy(), p.cpu().numpy(), s.cpu().numpy()
 
     def _targets(self, which: str) -> torch.Tensor:
         """The guide or vocab target ids on the device, moved once. When both sets
@@ -695,8 +698,11 @@ class NOVICModel:
 
     def embed_images(self, images: Sequence) -> np.ndarray:
         images = list(images)
-        batches = [self.embedder.inference_image(self.transform_images(images[i:i + self.batch_size]))
-                   for i in range(0, len(images), self.batch_size)]
+        batches = []
+        for i in range(0, len(images), self.batch_size):
+            chunk = images[i:i + self.batch_size]
+            with trace.span("embed", images=len(chunk)):
+                batches.append(self.embedder.inference_image(self.transform_images(chunk)))
         return np.concatenate(batches, axis=0)
 
     def classify_embeds(self, embeds: np.ndarray,
@@ -707,13 +713,18 @@ class NOVICModel:
             raise RuntimeError("NOVICModel must be entered before classification")
         task = self.task if gencfg is None else self.task_for(gencfg)
         task.clear()
-        preds, logprobs, types = [], [], []
+        preds, logprobs, probs, types = [], [], [], []
         for i in range(0, embeds.shape[0], self.batch_size):
-            task.process(embeds[i:i + self.batch_size])
-            preds.extend(task.target_str)
-            logprobs.extend(task.target_score)
-            types.extend([[RESULT_NAMES[r] for r in row] for row in task.result.tolist()])
-        probs = [[float(np.exp(lp)) for lp in row] for row in logprobs]
+            rows = embeds[i:i + self.batch_size]
+            with trace.span("decode", rows=len(rows), gencfg=task.gencfg.name):
+                t, p, s = task.generate(rows)
+                # Detokenization, statistics and outputs, with the device drained
+                with trace.span("decode.finish"):
+                    task.update(target=t, target_padding=p, target_score=s)
+                    preds.extend(task.target_str)
+                    logprobs.extend(task.target_score)
+                    probs.extend([[float(np.exp(lp)) for lp in row] for row in task.target_score])
+                    types.extend([[RESULT_NAMES[r] for r in row] for row in task.result.tolist()])
         return NOVICOutput(preds=preds, logprobs=logprobs, probs=probs, types=types)
 
     def classify_images(self, images: Sequence,

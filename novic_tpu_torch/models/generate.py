@@ -40,6 +40,7 @@ from novic_tpu_torch.models.guide_trie import build_guide_trie
 from novic_tpu_torch.models.layers import NEG_INF
 from novic_tpu_torch.models.prefixed_iter import cross_entropy_elems
 from novic_tpu_torch.ops.beam_reorder import beam_reorder_many
+from novic_tpu_torch.utils import trace
 
 INF = -NEG_INF
 
@@ -261,24 +262,25 @@ def generate_beam(
         if trie is not None and len(trie["child_tok"]) < G:
             raise ValueError(f"{name} depth {len(trie['child_tok'])} < decode steps {G}")
 
-    # Split caches: prefix slots prefilled once at B rows and shared; the G token
-    # slots live at B*H rows
-    logits1_base, pk, pv = model.prefill_split(embed)
-    tk, tv = model.init_token_cache(B * H)
-    logits_raw = logits1_base[:, None, :].expand(B, H, V)
-    if lazy:
-        # anc[b,c,g] = candidate-slot row holding candidate c's token from step g+1 (-1 = none)
-        anc = torch.full((B, H, G), -1, dtype=torch.int32, device=dev)
-    else:
-        # The reorder kernel is out of place: the second cache set it writes into
-        spare_k, spare_v = model.init_token_cache(B * H)
-        spare = spare_k + spare_v
+    with trace.span("decode.prefill"):
+        # Split caches: prefix slots prefilled once at B rows and shared; the G token
+        # slots live at B*H rows
+        logits1_base, pk, pv = model.prefill_split(embed)
+        tk, tv = model.init_token_cache(B * H)
+        logits_raw = logits1_base[:, None, :].expand(B, H, V)
+        if lazy:
+            # anc[b,c,g] = candidate-slot row holding candidate c's token from step g+1 (-1 = none)
+            anc = torch.full((B, H, G), -1, dtype=torch.int32, device=dev)
+        else:
+            # The reorder kernel is out of place: the second cache set it writes into
+            spare_k, spare_v = model.init_token_cache(B * H)
+            spare = spare_k + spare_v
 
-    target = torch.zeros((B, H, G), dtype=torch.int32, device=dev)
-    padding = torch.ones((B, H, G), dtype=torch.bool, device=dev)
-    padding[:, 0, 0] = False
-    score = torch.full((B, H), NEG_INF, dtype=torch.float32, device=dev)
-    score[:, 0] = 0.0
+        target = torch.zeros((B, H, G), dtype=torch.int32, device=dev)
+        padding = torch.ones((B, H, G), dtype=torch.bool, device=dev)
+        padding[:, 0, 0] = False
+        score = torch.full((B, H), NEG_INF, dtype=torch.float32, device=dev)
+        score[:, 0] = 0.0
     # Alive-set states: a trie node per candidate (root = node 1 at slot 0, dead
     # slots at node 0), or the full (B,H,W) / (B,H,Z) dead-row mask
 
@@ -380,96 +382,101 @@ def generate_beam(
         return torch.where(col_is_end & finished[:, :, None], 0.0, logs), v_rows
 
     for step in range(1, G + 1):
-        Cm = step - 1
-        finished = padding[:, :, Cm]  # (B,H)
-        logits = logits_raw / temperature
-        # Force finished candidates to predict end with score 0
-        logits = torch.where(~col_is_end & finished[:, :, None], NEG_INF, logits)
+        with trace.span("decode.step", step=step):
+            trace.count("decode.steps")
+            Cm = step - 1
+            finished = padding[:, :, Cm]  # (B,H)
+            logits = logits_raw / temperature
+            # Force finished candidates to predict end with score 0
+            logits = torch.where(~col_is_end & finished[:, :, None], NEG_INF, logits)
 
-        guide_score = guide_idx = g_rows = None
-        if g_trie is not None:
-            if Cm == 0:
-                # Root special case: every candidate is at the root (slot 0) or dead
-                root_ct = g_trie["child_tok"][0][1]
-                root_allowed = _scatter_allowed((1, V + 1), root_ct[None, :])[0, :V]
-                guide_score = torch.where(slot0, root_allowed[None, None, :], NEG_INF)
+            guide_score = guide_idx = g_rows = None
+            if g_trie is not None:
+                if Cm == 0:
+                    # Root special case: every candidate is at the root (slot 0) or dead
+                    root_ct = g_trie["child_tok"][0][1]
+                    root_allowed = _scatter_allowed((1, V + 1), root_ct[None, :])[0, :V]
+                    guide_score = torch.where(slot0, root_allowed[None, None, :], NEG_INF)
+                else:
+                    g_rows = trie_rows(g_trie, guide_state, Cm, counts=vocab_is_guide)
+                    guide_score = _scatter_allowed((B, H, V + 1), g_rows[0])[:, :, :V]
+            elif have_guide:
+                gcol = guide_targets[:, Cm]  # (W,)
+                guide_idx = torch.where(guide_state, V, gcol[None, None, :].expand(B, H, W))
+                guide_score = _scatter_allowed((B, H, V + 1), guide_idx)[:, :, :V]
+            if guide_score is not None:
+                guide_score = torch.where(col_is_end & finished[:, :, None], 0.0, guide_score)
+                if guide_renorm:
+                    logits = logits + guide_score
+
+            scores = torch.log_softmax(logits, dim=2)
+            v_rows = None
+            if use_vocab:
+                vocab_logs, v_rows = vocab_log_probs(Cm, g_rows, guide_idx, finished)
+                scores = scores - vocab_scaler * vocab_logs
+            scores = scores + score[:, :, None]
+            if step == 1:  # disallow end as the first generated token
+                scores = torch.where(col_is_end & slot0, NEG_INF, scores)
+            if have_guide and not guide_renorm:
+                scores = scores + guide_score
+
+            flat = scores.reshape(B, H * V)
+            if use_alpha:
+                scale = torch.pow(seq_len.clamp_min(1.0), -length_alpha)  # (B,H)
+                new_score_normed, top_idx = _top_k((scores * scale[:, :, None]).reshape(B, H * V),
+                                                   H)
+                new_score = torch.gather(flat, 1, top_idx)
             else:
-                g_rows = trie_rows(g_trie, guide_state, Cm, counts=vocab_is_guide)
-                guide_score = _scatter_allowed((B, H, V + 1), g_rows[0])[:, :, :V]
-        elif have_guide:
-            gcol = guide_targets[:, Cm]  # (W,)
-            guide_idx = torch.where(guide_state, V, gcol[None, None, :].expand(B, H, W))
-            guide_score = _scatter_allowed((B, H, V + 1), guide_idx)[:, :, :V]
-        if guide_score is not None:
-            guide_score = torch.where(col_is_end & finished[:, :, None], 0.0, guide_score)
-            if guide_renorm:
-                logits = logits + guide_score
+                new_score, top_idx = _top_k(flat, H)
+                new_score_normed = None
 
-        scores = torch.log_softmax(logits, dim=2)
-        v_rows = None
-        if use_vocab:
-            vocab_logs, v_rows = vocab_log_probs(Cm, g_rows, guide_idx, finished)
-            scores = scores - vocab_scaler * vocab_logs
-        scores = scores + score[:, :, None]
-        if step == 1:  # disallow end as the first generated token
-            scores = torch.where(col_is_end & slot0, NEG_INF, scores)
-        if have_guide and not guide_renorm:
-            scores = scores + guide_score
+            cand = top_idx // V  # (B,H)
+            tok = (top_idx % V).to(torch.int32)
 
-        flat = scores.reshape(B, H * V)
-        if use_alpha:
-            scale = torch.pow(seq_len.clamp_min(1.0), -length_alpha)  # (B,H)
-            new_score_normed, top_idx = _top_k((scores * scale[:, :, None]).reshape(B, H * V), H)
-            new_score = torch.gather(flat, 1, top_idx)
-        else:
-            new_score, top_idx = _top_k(flat, H)
-            new_score_normed = None
+            target = gather_h(target, cand)
+            target[:, :, Cm] = tok
+            padding = gather_h(padding, cand)
+            new_finished = (tok == 0) | padding[:, :, Cm]
+            if step < G:
+                padding[:, :, step] = new_finished
 
-        cand = top_idx // V  # (B,H)
-        tok = (top_idx % V).to(torch.int32)
+            if g_trie is not None:
+                guide_state = (trie_advance_root(g_trie, guide_state, cand, tok) if Cm == 0
+                               else trie_advance(g_rows[0], g_rows[1], cand, tok, packed=g_rows[4]))
+            elif have_guide:
+                guide_state = gather_h(guide_state, cand) | (tok[:, :, None] != gcol[None, None, :])
+            if vocab_state is not None:
+                if v_trie is not None:
+                    vocab_state = (trie_advance_root(v_trie, vocab_state, cand, tok) if Cm == 0
+                                   else trie_advance(v_rows[0], v_rows[1], cand, tok,
+                                                     packed=v_rows[4]))
+                else:
+                    zcol = vocab_targets[:, Cm]
+                    vocab_state = (gather_h(vocab_state, cand)
+                                   | (tok[:, :, None] != zcol[None, None, :]))
+            if use_alpha:
+                seq_len = gather_h(seq_len, cand) + (~new_finished).float()
 
-        target = gather_h(target, cand)
-        target[:, :, Cm] = tok
-        padding = gather_h(padding, cand)
-        new_finished = (tok == 0) | padding[:, :, Cm]
-        if step < G:
-            padding[:, :, step] = new_finished
-
-        if g_trie is not None:
-            guide_state = (trie_advance_root(g_trie, guide_state, cand, tok) if Cm == 0
-                           else trie_advance(g_rows[0], g_rows[1], cand, tok, packed=g_rows[4]))
-        elif have_guide:
-            guide_state = gather_h(guide_state, cand) | (tok[:, :, None] != gcol[None, None, :])
-        if vocab_state is not None:
-            if v_trie is not None:
-                vocab_state = (trie_advance_root(v_trie, vocab_state, cand, tok) if Cm == 0
-                               else trie_advance(v_rows[0], v_rows[1], cand, tok, packed=v_rows[4]))
+            if lazy:
+                # Thread the ancestry through the gather instead of the caches;
+                # attention selects each candidate's history with an additive bias
+                anc = gather_h(anc, cand)
+                anc[:, :, Cm] = h_range.to(torch.int32)[None, :]
+                allowed = anc[:, :, None, :] == h_range.to(torch.int32)[None, None, :, None]
+                anc_bias = torch.where(allowed.reshape(B, H, 1, H * G), 0.0, NEG_INF)
+                logits_next, tk, tv = model.decode_step_lazy(tok.reshape(-1).long(), step, pk, pv,
+                                                             tk, tv, anc_bias)
             else:
-                zcol = vocab_targets[:, Cm]
-                vocab_state = gather_h(vocab_state, cand) | (tok[:, :, None] != zcol[None, None, :])
-        if use_alpha:
-            seq_len = gather_h(seq_len, cand) + (~new_finished).float()
-
-        if lazy:
-            # Thread the ancestry through the gather instead of the caches;
-            # attention selects each candidate's history with an additive bias
-            anc = gather_h(anc, cand)
-            anc[:, :, Cm] = h_range.to(torch.int32)[None, :]
-            allowed = anc[:, :, None, :] == h_range.to(torch.int32)[None, None, :, None]
-            anc_bias = torch.where(allowed.reshape(B, H, 1, H * G), 0.0, NEG_INF)
-            logits_next, tk, tv = model.decode_step_lazy(tok.reshape(-1).long(), step, pk, pv,
-                                                         tk, tv, anc_bias)
-        else:
-            # Every candidate takes its parent's token-cache rows: one launch over
-            # all 2L caches into the spare set, which becomes the current one
-            L = len(tk)
-            current = tk + tv
-            beam_reorder_many(current, cand.contiguous(), out=spare)
-            tk, tv, spare = spare[:L], spare[L:], current
-            logits_next, tk, tv = model.decode_step_split(tok.reshape(-1).long(), step, pk, pv,
-                                                          tk, tv)
-        logits_raw = logits_next.reshape(B, H, V)
-        score = new_score  # raw cumulative score carries forward
+                # Every candidate takes its parent's token-cache rows: one launch over
+                # all 2L caches into the spare set, which becomes the current one
+                L = len(tk)
+                current = tk + tv
+                beam_reorder_many(current, cand.contiguous(), out=spare)
+                tk, tv, spare = spare[:L], spare[L:], current
+                logits_next, tk, tv = model.decode_step_split(tok.reshape(-1).long(), step, pk, pv,
+                                                              tk, tv)
+            logits_raw = logits_next.reshape(B, H, V)
+            score = new_score  # raw cumulative score carries forward
 
     target = torch.where(padding, 0, target)
     final_score = new_score_normed if use_alpha else score

@@ -12,7 +12,11 @@ The host loop does the bookkeeping: it groups `accum_size` loader batches
 into one accumulated optimizer step (train/step.py) and reads each step's
 metrics one step late, after the next step has been launched, so the card
 always has a step queued. `profile_dir` records a torch.profiler trace of the
-first trained chunk to <profile_dir>/trace.json.
+first trained chunk to <profile_dir>/trace.json. The trace carries the
+program's spans (utils/trace.py) as user annotations beside its operators
+and kernels: `train.step` around each call of the optimizer step,
+`loader.wait` where the loop waits for a batch, and the producer thread's
+`loader.produce`.
 
 Data parallelism (`mesh`, parallel/mesh.py): every rank iterates the same
 loader (same seed) and moves only its rows of each loader batch to its device
@@ -211,10 +215,14 @@ def train(
     stop_training = S.chunk_id >= C.max_chunks + 1
     profiler = None
     if profile_dir and not stop_training:
+        from torch._C._profiler import _ExperimentalConfig
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-        profiler = profile(activities=activities)
+        # profile_all_threads: the trace also follows the loader's producer,
+        # a thread started during the session
+        profiler = profile(activities=activities,
+                           experimental_config=_ExperimentalConfig(profile_all_threads=True))
         profiler.__enter__()
         log.info(f"Profiling chunk {S.chunk_id} to {profile_dir}")
     grad_norms: list[float] = []

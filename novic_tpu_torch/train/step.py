@@ -47,6 +47,7 @@ from novic_tpu_torch.data.noise import EmbeddingNoise, apply_mean_shift
 from novic_tpu_torch.models.layers import FastDropout
 from novic_tpu_torch.parallel.mesh import gather_rows, shard_rows
 from novic_tpu_torch.train.optim import clip_by_global_norm, global_norm
+from novic_tpu_torch.utils import trace
 
 METRIC_KEYS = ("loss_sum", "loss_basis", "correct", "tokens", "grad_norm")
 
@@ -187,13 +188,15 @@ def make_train_step(
         state.step += 1
         return torch.cat([sums, grad_norm.reshape(1)])
 
-    if steps_per_call <= 1:
-        return lambda batch, lr, rng: StepMetrics(step_fn(batch, lr, rng))
+    def single_step_fn(batch, lr: float, rng: TrainRng) -> StepMetrics:
+        with trace.span("train.step"):
+            return StepMetrics(step_fn(batch, lr, rng))
 
     def multi_step_fn(batches, lrs, rng: TrainRng) -> StepMetrics:
-        return StepMetrics(torch.stack([step_fn(b, lr, rng) for b, lr in zip(batches, lrs)]))
+        with trace.span("train.step", steps=len(batches)):
+            return StepMetrics(torch.stack([step_fn(b, lr, rng) for b, lr in zip(batches, lrs)]))
 
-    return multi_step_fn
+    return single_step_fn if steps_per_call <= 1 else multi_step_fn
 
 
 @dataclasses.dataclass
