@@ -6,7 +6,7 @@ Phases, each printing JSON lines; any failure exits nonzero:
   1. device: the card's name and its nvidia-smi name and power limit;
   2. build: compile every kernel (attention.cu, dropout.cu, int8_matmul.cu,
      beam_reorder.cu, attention_bf16.cu, tiled_matmul.cu, flash_attention.cu,
-     flash_attention_bwd.cu) from the checkout's sources, one nvcc each,
+     flash_attention_bwd.cu, layer_norm.cu) from the checkout's sources, one nvcc each,
      started together; count
      HGMMA / IGMMA (wgmma on bf16 / s8), UTMALDG / UTMASTG (TMA load /
      store) and SYNCS (mbarrier) instructions in the SASS of the Hopper
@@ -86,10 +86,20 @@ Phases, each printing JSON lines; any failure exits nonzero:
      maps' encoding and both launches: `_launch_bwd`) beside their bounds,
      the plain backward's ms and torch.autograd.grad through SDPA with the
      same mask;
+  3h. LayerNorm kernel: against its plain form (the towers' f32_layer_norm
+     before the kernel) at D 64, 77, 512, 768, 1024, 1280, 1792 and 2730,
+     float32 and bf16 in and out, on one row, 50,176 rows, class-token rows
+     read in place through their row stride and an unaligned base (float32
+     outputs within 8 ulps of what the order of two sums can move; bf16
+     outputs the kernel's own float32 rounded, and the plain form's but for
+     flips of one bf16 ulp and that bar in at most 1e-3 of the values); times at (50176, 768)
+     bf16 -> bf16 and (16448, 2730) float32 -> bf16 beside the bound, the
+     plain form's and F.layer_norm's;
   4. serving path: NOVICModel serving SigLIP-B/16 (random weights from a seed)
      + the FT0 decoder with beam k=10, unguided and guided over all 42,919
      nouns, 2 batches of 64 seeded 224x224 frames; checks the outputs and that
-     every kernel launched on this path (12 attention launches per tower forward);
+     every kernel launched on this path (12 attention and 26 LayerNorm
+     launches per tower forward);
   4b. int8 serving path: a TorchEmbedder with vision.quant="int8:pallas" (the
      same seeded weights) embeds the 2 x 64 frames, NOVICModel.classify_embeds
      labels them unguided and guided; 72 K2 launches (all of its wgmma
@@ -325,6 +335,20 @@ LM_RTOL = 1e-5
 # scores): both sides hold rounding residue, each within 2^-7 of the query
 # bias's gradient norm
 GRAD_COSINE_MIN = 0.9999
+# Phase 3h: the LayerNorm kernel at every tower width and a ragged one, on one
+# row, a SigLIP-B/16 batch's 256 x 196 token rows, the class-token rows read
+# in place and an unaligned base. Its bfloat16 outputs are its own float32
+# outputs rounded; against the plain form's, a value whose float32 sums
+# differ in the last bits rounds one bf16 ulp apart where it sits by a
+# rounding boundary: about one value in 2^16 per differing float32 ulp, so
+# this share bounds the flips with room (at least one flip is allowed)
+LN_WIDTHS = (64, 77, 512, 768, 1024, 1280, 1792, 2730)
+LN_ROWS = 256 * 196
+LN_EPS = 1e-6
+LN_BF16_FLIP_SHARE = 1e-3
+# Per SigLIP-B/16 forward: norm1 and norm2 in each of 12 blocks, the post-LN
+# and the MAP head's LN
+SIGLIP_LN_PER_FORWARD = 2 * 12 + 2
 # Phase 3f: bf16 and float32 products within this of a float64 product,
 # relative to the sum of |x*w| over the same terms (float32 sums of K terms)
 MATMUL_REL = 1e-5
@@ -1581,6 +1605,137 @@ def phase_flash_attention_bwd(fa) -> dict:
             raise SystemExit(f"flash_attention backward disagrees with its plain version, or "
                              f"its autograd path with the kernels ({label})")
         lines[label] = line
+    return lines
+
+
+def layer_norm_bound_ms(rows: int, D: int, in_bytes: int, out_bytes: int) -> tuple[float, str]:
+    """Least time: x read once, y written once and the float32 weight and bias
+    read once, over the HBM rate (a few float32 operations an element)."""
+    return (rows * D * (in_bytes + out_bytes) + 8 * D) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def f32_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One float32 ulp at |x| (24 significant bits; normal numbers)."""
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126))) - 23)
+
+
+def layer_norm_bar(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   y_plain: torch.Tensor) -> torch.Tensor:
+    """Elementwise bar of |kernel - plain| in float32 outputs. Both round at
+    the same points and differ in the order of their two sums alone: the mean
+    moves by a few ulps of mean |x| (times r |w| in y), the variance by a few
+    of its own (a relative move of y - b), and the last products and sums
+    round once each. 8 ulps of each."""
+    xd = x.double()
+    mean = xd.mean(-1, keepdim=True)
+    r = torch.rsqrt(((xd - mean) ** 2).mean(-1, keepdim=True) + LN_EPS)
+    shift = f32_ulp(xd.abs().mean(-1, keepdim=True)).double() * r * w.double().abs()
+    return 8 * (f32_ulp(y_plain) + f32_ulp(y_plain - b) + shift.float())
+
+
+def layer_norm_compare(layer_norm, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       out_dtype: torch.dtype) -> dict:
+    """One launch of the LayerNorm kernel against the plain form: float32
+    outputs within layer_norm_bar of the plain form's; bfloat16 outputs the
+    kernel's own float32 outputs rounded, and the plain form's but for flips,
+    each within one bf16 ulp plus that bar (two float32 values within the bar
+    round at most that far apart)."""
+    launches = layer_norm.LAUNCHES
+    y = layer_norm.layer_norm(x, w, b, LN_EPS, out_dtype)
+    one_launch = layer_norm.LAUNCHES == launches + 1
+    p32 = layer_norm.layer_norm_reference(x, w, b, LN_EPS, torch.float32)
+    p = p32.to(out_dtype)
+    bar = layer_norm_bar(x, w, b, p32)
+    err = (y.float() - p.float()).abs()
+    out = {"max_abs_err": err.max().item(), "one_launch": one_launch, "n": p.numel()}
+    if out_dtype == torch.float32:
+        out["bar_share"] = (err / bar).max().item()
+        out["ok"] = one_launch and out["bar_share"] <= 1
+    else:
+        own = layer_norm.layer_norm(x, w, b, LN_EPS, torch.float32).to(out_dtype)
+        flips = int((y != p).sum().item())
+        step = bf16_ulp(torch.maximum(y.float().abs(), p.float().abs())) + bar
+        out.update(own_rounding=torch.equal(y, own), flips=flips, flip_share=flips / p.numel(),
+                   flip_bar_share=(err / step).max().item())
+        out["ok"] = (one_launch and out["own_rounding"] and out["flip_bar_share"] <= 1
+                     and flips <= max(1, LN_BF16_FLIP_SHARE * p.numel()))
+    return out
+
+
+def phase_layer_norm(layer_norm) -> dict:
+    """Phase 3h: the LayerNorm kernel against its plain form (the towers'
+    f32_layer_norm before the kernel) at every width of LN_WIDTHS, float32
+    and bfloat16 in and out, on one row, LN_ROWS rows, the class-token rows
+    of a (256, 5, D) tensor read in place (a row stride of 5 D) and 4,096 rows
+    from a base one element past alignment (the element path); then its time
+    at SigLIP-B/16's (50176, 768) bf16 -> bf16 and EVA02-L/14's mlp_norm
+    (16448, 2730) float32 -> bf16, beside its bound, the plain form's and
+    F.layer_norm's (the library yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dtypes = (torch.float32, torch.bfloat16)
+    worst = {"max_abs_err_f32": 0.0, "bar_share_f32": 0.0, "max_abs_err_bf16": 0.0,
+             "flip_share_bf16": 0.0, "flip_bar_share_bf16": 0.0}
+    for D in LN_WIDTHS:
+        w = 1 + 0.1 * torch.randn(D, device="cuda", generator=gen)
+        b = 0.1 * torch.randn(D, device="cuda", generator=gen)
+        for dtype in dtypes:
+            rows = (torch.randn(LN_ROWS, D, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+            tokens = (torch.randn(256, 5, D, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+            flat = (torch.randn(4096 * D + 1, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+            layouts = {"one_row": rows[:1], "rows": rows, "class_token": tokens[:, 0, :],
+                       "unaligned": flat[1:].view(4096, D)}
+            for out_dtype in dtypes:
+                got = {k: layer_norm_compare(layer_norm, x, w, b, out_dtype)
+                       for k, x in layouts.items()}
+                line = {"phase": "kernel_layer_norm", "D": D, "dtype": str(dtype),
+                        "out_dtype": str(out_dtype), "layouts": got,
+                        "ok": all(g["ok"] for g in got.values())}
+                emit(line)
+                if not line["ok"]:
+                    raise SystemExit(f"layer_norm disagrees with its plain form at D={D}, "
+                                     f"{dtype} -> {out_dtype}")
+                key = "f32" if out_dtype == torch.float32 else "bf16"
+                for g in got.values():
+                    worst[f"max_abs_err_{key}"] = max(worst[f"max_abs_err_{key}"],
+                                                      g["max_abs_err"])
+                    if key == "f32":
+                        worst["bar_share_f32"] = max(worst["bar_share_f32"], g["bar_share"])
+                    else:
+                        worst["flip_share_bf16"] = max(worst["flip_share_bf16"],
+                                                       g["flip_share"])
+                        worst["flip_bar_share_bf16"] = max(worst["flip_bar_share_bf16"],
+                                                           g["flip_bar_share"])
+            del rows, tokens, flat, layouts
+    emit({"phase": "kernel_layer_norm_worst", **worst})
+
+    lines = {}
+    for label, R, D, dtype, out_dtype in (
+            ("siglip_b16", LN_ROWS, 768, torch.bfloat16, torch.bfloat16),
+            ("eva02_l14_mlp_norm", 64 * 257, 2730, torch.float32, torch.bfloat16)):
+        w = 1 + 0.1 * torch.randn(D, device="cuda", generator=gen)
+        b = 0.1 * torch.randn(D, device="cuda", generator=gen)
+        x = (torch.randn(R, D, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+        check = layer_norm_compare(layer_norm, x, w, b, out_dtype)
+        ms = device_ms(lambda: layer_norm.layer_norm(x, w, b, LN_EPS, out_dtype))
+        call_ms = cuda_ms(lambda: layer_norm.layer_norm(x, w, b, LN_EPS, out_dtype))
+        plain_ms = device_ms(lambda: layer_norm.layer_norm_reference(x, w, b, LN_EPS, out_dtype),
+                             iters=5)
+        wl, bl = w.to(dtype), b.to(dtype)
+        library_ms = device_ms(lambda: F.layer_norm(x, (D,), wl, bl, LN_EPS).to(out_dtype))
+        bound_ms, bound_by = layer_norm_bound_ms(R, D, x.element_size(), out_dtype.itemsize)
+        line = {"phase": "kernel", "name": "layer_norm", "case": label, "shape": [R, D],
+                "dtype": str(dtype), "out_dtype": str(out_dtype),
+                "max_abs_err": check["max_abs_err"], "flips": check.get("flips"),
+                "ok": check["ok"], "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "roofline": bound_ms / ms}
+        emit(line)
+        if not check["ok"]:
+            raise SystemExit(f"layer_norm disagrees with its plain form at {label}")
+        lines[label] = line
+    lines["worst"] = worst
     return lines
 
 
@@ -4508,7 +4663,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from novic_tpu_torch.infer import NOVICModel
     from novic_tpu_torch.ops import (attention, attention_bf16, beam_reorder, build, dropout,
-                                     flash_attention, int8_matmul, tiled_matmul)
+                                     flash_attention, int8_matmul, layer_norm, tiled_matmul)
     from novic_tpu_torch.text.simple import make_test_tokenizer
     from novic_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -4527,7 +4682,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = [attention.SOURCE, dropout.SOURCE, int8_matmul.SOURCE, beam_reorder.SOURCE,
                attention_bf16.SOURCE, tiled_matmul.SOURCE, flash_attention.SOURCE,
-               flash_attention.BWD_SOURCE]
+               flash_attention.BWD_SOURCE, layer_norm.SOURCE]
     libs = build.build_all(sources, force=True)
     # The Hopper designs (wgmma, TMA, mbarriers) are what was built
     hopper = (attention.SOURCE, attention_bf16.SOURCE, flash_attention.SOURCE,
@@ -4568,6 +4723,7 @@ def main() -> int:
     x3, x3_transpose = phase_tiled_matmul(tiled_matmul)
     x6 = phase_flash_attention(flash_attention, attention_bf16)
     x6b = phase_flash_attention_bwd(flash_attention)
+    ln = phase_layer_norm(layer_norm)
 
     # 4. main path
     ck = load_checkpoint(FT0)
@@ -4580,17 +4736,22 @@ def main() -> int:
                        gencfg="beam_k10_vnone_gn_t1_a0", batch_size=BATCH, device="cuda")
     guided_cfg = "beam_k10_vnone_gp_t1_a0"
     guide = set(nouns)
-    launches = 0
+    launches = ln_launches = 0
     with model:
         tower_forwards = math.ceil(len(frames) / BATCH)
         runs = {}
         for label, gencfg in (("unguided", None), ("guided", guided_cfg)):
-            attention.LAUNCHES = dropout.LAUNCHES = 0
+            attention.LAUNCHES = dropout.LAUNCHES = layer_norm.LAUNCHES = 0
             t0 = time.perf_counter()
             out = model.classify_images(frames, gencfg=gencfg)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             got = attention.LAUNCHES
+            ln_launches += layer_norm.LAUNCHES
+            if layer_norm.LAUNCHES != SIGLIP_LN_PER_FORWARD * tower_forwards:
+                raise SystemExit(f"{label}: layer_norm launched {layer_norm.LAUNCHES} times, "
+                                 f"expected {SIGLIP_LN_PER_FORWARD * tower_forwards} "
+                                 f"({SIGLIP_LN_PER_FORWARD} per tower forward)")
             if dropout.LAUNCHES:
                 raise SystemExit(f"{label}: serving launched the dropout kernel")
             launches += got
@@ -4601,6 +4762,7 @@ def main() -> int:
             runs[label] = out
             emit({"phase": "main_path", "gencfg": gencfg or model.gencfg.name, "images": len(frames),
                   "tower_forwards": tower_forwards, "fused_attention_launches": got,
+                  "layer_norm_launches": layer_norm.LAUNCHES,
                   "first_call_s": seconds, "labels": [r[:3] for r in out.preds[:3]],
                   "logprobs": [[round(x, 4) for x in r[:3]] for r in out.logprobs[:3]],
                   "types": out.types[0][:3]})
@@ -4750,6 +4912,14 @@ def main() -> int:
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}, {
+        # Replaces no TPU kernel: XLA fused the JAX package's LayerNorm. Times
+        # at the SigLIP-B/16 serving shape (phase 3h also times EVA02-L's mlp_norm)
+        "name": "layer_norm", "route": "cuda",
+        "source": "novic_tpu_torch/ops/csrc/layer_norm.cu", "replaces": None,
+        "launches": ln_launches, "launches_by_phase": {"main_path": ln_launches},
+        "max_abs_err": ln["worst"]["max_abs_err_f32"], "ms": ln["siglip_b16"]["ms"],
+        "plain_ms": ln["siglip_b16"]["plain_ms"], "bound_ms": ln["siglip_b16"]["bound_ms"],
+        "bound_by": ln["siglip_b16"]["bound_by"], "library_ms": ln["siglip_b16"]["library_ms"]}, {
         "name": "int8_matmul", "route": "cuda", "instance": "wgmma",
         "source": "novic_tpu_torch/ops/csrc/int8_matmul.cu", "engine": S8_ENGINE,
         "replaces": "novic_tpu/ops/int8_matmul.py:73",

@@ -9,7 +9,8 @@ Numerics follow the JAX towers:
   float32 with a float32 result, as jax's dot_general with
   preferred_element_type=float32 does. Products of bf16 values are exact in
   float32, so only the order of the sums differs; TF32 stays off.
-* Layer norms run in float32; the residual stream runs in the compute dtype.
+* Layer norms run in float32 (ops.layer_norm: the CUDA kernel on the card,
+  its plain version on the CPU); the residual stream runs in the compute dtype.
 * Self-attention always goes through ops.attention.fused_attention: the CUDA
   kernel on the card, its plain version on the CPU. The MAP head's 1-query
   cross-attention stays plain torch and, in bf16 compute, keeps its scores and
@@ -40,6 +41,7 @@ from torch import nn
 from novic_tpu_torch.device import dtype_of
 from novic_tpu_torch.ops.attention import fused_attention
 from novic_tpu_torch.ops.int8_matmul import int8_dense, quantize_rows, quantize_weight
+from novic_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
 from novic_tpu_torch.parallel.tp import row_parallel_finish
 
 _ACTS = {
@@ -187,11 +189,11 @@ def tower_dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
 
 def f32_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """LayerNorm computed in float32, emitted in out_dtype."""
-    x = x.float()
-    mean = x.mean(dim=-1, keepdim=True)
-    var = torch.square(x - mean).mean(dim=-1, keepdim=True)
-    return ((x - mean) * torch.rsqrt(var + eps) * weight + bias).to(out_dtype)
+    """LayerNorm computed in float32, emitted in out_dtype: the hand-written
+    kernel on the card (ops/layer_norm.py), its plain version elsewhere."""
+    if x.is_cuda:
+        return layer_norm(x, weight, bias, eps, out_dtype)
+    return layer_norm_reference(x, weight, bias, eps, out_dtype)
 
 
 def _param(*shape) -> nn.Parameter:
