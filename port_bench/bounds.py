@@ -4,12 +4,19 @@ from its shapes, and the FLOPs of the work the cells do.
 The peaks and `attention_bound_ms`, `dropout_bound_ms` and
 `all_decode_flops` are frozen copies of chip_smoke.py's (the functions it
 reports its rooflines with); the rest counts model FLOPs (two per
-multiply-add) of the towers and the decoder from their shapes.
+multiply-add) of the towers (each family's module counts its own) and the
+decoder from their shapes.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
+
+from port_bench.harness import family_module
+
+ROOT = Path(__file__).resolve().parents[1]   # the checkout this port_bench lies in
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -50,24 +57,14 @@ def all_decode_flops(E: int, FF: int, L: int, V: int, P: int, n_pos: np.ndarray)
 
 
 def tower_tokens(t: dict) -> int:
-    g = t["image_size"] // t["patch_size"]
-    return g * g + (1 if t["family"] == "eva02" else 0)
+    """Tokens of one image through the vision tower, as its family counts them."""
+    return family_module(t, ROOT).tokens(t)
 
 
 def tower_flops(t: dict) -> int:
-    """FLOP of one image through the vision tower (every product; the
-    attention's two S x S x hd products per head)."""
-    E, M, P, L = t["width"], t["mlp_dim"], t["patch_size"], t["layers"]
-    S = tower_tokens(t)
-    patch = 2 * (S - (1 if t["family"] == "eva02" else 0)) * P * P * 3 * E
-    attn = 2 * 4 * S * E * E + 2 * 2 * S * S * E
-    mlp = 2 * (3 if t["family"] == "eva02" else 2) * S * E * M
-    head = 0
-    if t["family"] == "siglip":   # MAP: k, v over S tokens, q, out and the MLP on one
-        head = 2 * 2 * S * E * E + 2 * 2 * E * E + 2 * 2 * S * E + 2 * 2 * E * M
-    elif t["family"] == "eva02":
-        head = 2 * E * t["embed_dim"]
-    return patch + L * (attn + mlp) + head
+    """FLOP of one image through the vision tower, as its family counts them
+    (every product; the attention's two S x S x hd products per head)."""
+    return family_module(t, ROOT).flops(t)
 
 
 def decoder_position_flops(d: dict, keys: int, logits: bool) -> int:

@@ -30,8 +30,9 @@ from the same start, batches and seeds (reference/train.py):
   wrote (the driver checks the loader stage by itself; limit 0).
 
 The control puts the reference in the program's place at the next lower
-precision: the tower through the program's own int8 path where the family
-has one (SigLIP), else the reference with float8 e4m3 operands; the
+precision: the tower as its family module's CONTROL says, through the
+program's own int8 path ("int8": SigLIP) or the reference with float8 e4m3
+operands ("fp8": EVA02); the
 decoder's products with TF32 operands. `control` returns its readings of
 embed_gap, score_gap and (exhaustive) missed_targets, or of a training
 cell's loss_gap, grad_gap and delta_gap; with `Run.control` the harness
@@ -43,8 +44,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from port_bench.harness import (check_entry, checkpoint_path, cosine_gap, free_device,
-                                reference_embeddings)
+from port_bench.harness import (CellError, check_entry, checkpoint_path, cosine_gap,
+                                family_module, free_device, reference_embeddings)
 from port_bench.reference.decoder import ReferenceDecoder, read_checkpoint
 
 
@@ -134,14 +135,17 @@ def control(run, inp: dict) -> dict:
     if inp.get("train"):
         return _train_readings(run, inp, tf32=True)
     ref_e = reference_embeddings(run, inp["frames"]).cpu()
-    if run.config["tower"]["family"] == "siglip":
+    kind = family_module(run.config["tower"], run.root).CONTROL
+    if kind == "int8":
         model = port_model(run, run.mix.get("batch", run.mix.get("model_batch_size")),
                            run.mix["gencfg"], quant="int8")
         ctl_e = model.embed_images(list(inp["frames"]))
         model.__exit__(None, None, None)
         del model
-    else:
+    elif kind == "fp8":
         ctl_e = reference_embeddings(run, inp["frames"], fp8=True).cpu()
+    else:
+        raise CellError(f"tower family {run.config['tower']['family']}: no control {kind!r}")
     free_device()
     out = {"embed_gap": cosine_gap(ctl_e, ref_e)}
     ckpt = str(checkpoint_path(run))

@@ -7,6 +7,11 @@ configuration, traffic mix or per-layer metric is new files and entries:
 
 * BENCHMARK.json (the checkout's root): the workload -> its config, traffic;
 * port_bench/configs/<config>.json: the tower and decoder as they are run;
+  a decoder with `"weights": "seed"` and its `embed_dim` is drawn from the
+  run's seed in the committed checkpoint's layout (seeded_decoder);
+* port_bench/reference/families/<family>.py: the tower family the config's
+  `tower.family` names: `shapes`, `forward`, `tokens`, `flops`, `stated`
+  and `CONTROL` (see reference/towers.py);
 * port_bench/mixes/<traffic>.json: the mix's parameters and its `driver`;
 * port_bench/drivers/<driver>.py: `setup`, `window`, `traced`, `release`
   and `check_inputs` for that kind of traffic (compare.py judges them);
@@ -23,8 +28,11 @@ import gc
 import hashlib
 import importlib.util
 import json
+import shutil
 import sys
+import tempfile
 import time
+import weakref
 from pathlib import Path
 from typing import Any, Optional
 
@@ -88,8 +96,9 @@ def load_cell(root: Path, workload: str) -> Cell:
     names = {m["name"] for m in e2e}
     per_layer = [m for m in manifest["per_layer"]
                  if (workload in m["workloads"] if "workloads" in m else m["moves"] in names)]
-    return Cell(workload=workload, entry=entry,
-                config=load_json(base / "configs" / f"{entry['config']}.json"),
+    config = load_json(base / "configs" / f"{entry['config']}.json")
+    family_module(config["tower"], root)
+    return Cell(workload=workload, entry=entry, config=config,
                 mix=load_json(base / "mixes" / f"{entry['traffic']}.json"),
                 limits=load_json(base / "limits" / f"{workload}.json"),
                 end_to_end=e2e, per_layer=per_layer)
@@ -121,6 +130,7 @@ class Run:
         self.traced: Optional[dict] = None
         self.control = False          # judge the lower-precision control in the program's place
         self.program_checks: dict = {}
+        self.decoder_file: Optional[Path] = None    # the seeded decoder, once written
 
     # -- inputs drawn from the seed ------------------------------------------------
 
@@ -263,8 +273,18 @@ def check_entry(value: float, limit: float) -> dict:
 
 # -- the program's serving model, built as the config states -------------------------
 
+def family_module(tower: dict, root: Path):
+    """The module of the tower's family: port_bench/reference/families/<family>.py
+    in the checkout at `root` (a missing one is a CellError)."""
+    return load_module(root / "port_bench" / "reference" / "families" / f"{tower['family']}.py")
+
+
 def checkpoint_path(run: Run) -> Path:
-    """The decoder checkpoint the config names, held to its recorded hash."""
+    """The decoder checkpoint the config names, held to its recorded hash;
+    for a decoder with `"weights": "seed"`, the file seeded_decoder wrote
+    from it (written once a run, on the first call, in set-up)."""
+    if run.decoder_file is not None:
+        return run.decoder_file
     d = run.config["decoder"]
     path = run.root / d["checkpoint"]
     if not path.is_file():
@@ -272,13 +292,56 @@ def checkpoint_path(run: Run) -> Path:
     digest = hashlib.sha256(path.read_bytes()).hexdigest()
     if digest != d["sha256"]:
         raise CellError(f"{path} is not the checkpoint the config records ({digest})")
-    return path
+    if "weights" not in d:
+        return path
+    if d["weights"] != "seed":
+        raise CellError(f"decoder weights {d['weights']!r}: only 'seed' is known")
+    workdir = tempfile.mkdtemp(prefix="port_bench_decoder_")
+    weakref.finalize(run, shutil.rmtree, workdir, True)
+    run.decoder_file = Path(workdir) / "decoder.npz"
+    seeded_decoder(run, path, run.decoder_file)
+    return run.decoder_file
 
 
-def tower_arch(tower: dict, reduced: list, quant: str = ""):
+def seeded_decoder(run: Run, committed: Path, out: Path, salt: int = 41) -> None:
+    """Write a decoder drawn from the run's seed to `out`, in the committed
+    checkpoint's .npz layout: its parameter names and order, its stored
+    dtype, its metadata (target nouns, target config, tokenizer) and every
+    width but the embedding's, which the config's `embed_dim` states
+    (`embed_mlp.linear1_weight` (P x hidden, embed_dim); the metadata's
+    model_config says the same). The values are drawn on the device in one
+    call, as draw_weights does: matrices N(0, 1/fan_in), norm scales 1 +
+    N(0, 0.05^2), the token table (`logits_weight`, tied) and positions
+    N(0, 0.02^2), as are biases, where a decoder has them."""
+    d = run.config["decoder"]
+    with np.load(committed, allow_pickle=False) as data:
+        meta = json.loads(bytes(data["__meta__"]).decode())
+        layout = {k: (data[k].shape, data[k].dtype) for k in data.files if k.startswith("params.")}
+        order = [k for k in data.files if k in layout or k == "__meta__"]
+    cfg = meta["model_config"]
+    (rows, width), dtype = layout["params.embed_mlp.linear1_weight"]
+    if cfg["mlp_hidden_layer"] != "none" or width != cfg["embed_dim"]:
+        raise CellError(f"{committed}: the embedding does not enter through one linear layer")
+    layout["params.embed_mlp.linear1_weight"] = (rows, d["embed_dim"]), dtype
+    for key in ("hidden_dim", "num_layers", "num_heads", "mlp_seq_len", "token_length",
+                "vocab_size"):
+        if cfg[key] != d[key]:
+            raise CellError(f"{committed}: {key} is {cfg[key]}, the config states {d[key]}")
+    cfg["embed_dim"] = d["embed_dim"]
+    drawn = draw_weights(run, {k[len("params."):]: s for k, (s, _) in layout.items()}, salt,
+                         small=("pos_embedding", "logits_weight"))
+    arrays = {f"params.{k}": v.cpu().numpy().astype(layout[f"params.{k}"][1])
+              for k, v in drawn.items()}
+    del drawn
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    np.savez(out, **{k: arrays[k] for k in order})
+
+
+def tower_arch(tower: dict, family, reduced: list, quant: str = ""):
     """The program's registered architecture for the tower's spec, with the
-    config's values; a value that differs from the registry where the config
-    does not list it as reduced is refused."""
+    config's values (the shared ones and the family module's `stated`); a
+    value that differs from the registry where the config does not list it
+    as reduced is refused."""
     from novic_tpu_torch.embedders.registry import lookup
 
     arch = lookup(tower["spec"])
@@ -287,11 +350,7 @@ def tower_arch(tower: dict, reduced: list, quant: str = ""):
               "width": tower["width"], "layers": tower["layers"], "heads": tower["heads"],
               "embed_dim": tower["embed_dim"], "layer_norm_eps": tower["layer_norm_eps"],
               "compute_dtype": tower["compute_dtype"]}
-    if tower["family"] == "siglip":
-        stated.update(mlp_ratio=tower["mlp_dim"] / tower["width"], act=tower["act"],
-                      pool=tower["pool"])
-    else:
-        stated.update(mlp_hidden=tower["mlp_dim"], ref_feat_shape=tower["rope_ref_grid"])
+    stated.update(family.stated(tower))
     for key, value in stated.items():
         if getattr(v, key) != value and key not in reduced:
             raise CellError(f"{tower['spec']}: the program runs {key}={getattr(v, key)}, "
@@ -304,16 +363,13 @@ def tower_arch(tower: dict, reduced: list, quant: str = ""):
     return dataclasses.replace(arch, vision=dataclasses.replace(v, **stated), preprocess=pre)
 
 
-def tower_weights(run: Run, salt: int = 7) -> dict:
-    """The tower's float32 weights, drawn on the device from the seed in one
-    call and cut into the parameters: matrices N(0, 1/fan_in), positions,
-    probe and class token N(0, 0.02^2), norm scales 1 + N(0, 0.05^2),
-    biases N(0, 0.02^2)."""
+def draw_weights(run: Run, shapes: dict, salt: int, small: tuple) -> dict:
+    """float32 tensors of the given shapes, drawn on the device from the
+    seed in one call and cut in the order given: leaves named in `small`
+    and biases N(0, 0.02^2), other vectors (norm scales) 1 + N(0, 0.05^2),
+    matrices N(0, 1/fan_in)."""
     import torch
 
-    from port_bench.reference.towers import SHAPES
-
-    shapes = SHAPES[run.config["tower"]["family"]](run.config["tower"])
     sizes = [int(np.prod(s)) for s in shapes.values()]
     flat = torch.randn(sum(sizes), device=run.device, generator=run.generator(salt))
     out, off = {}, 0
@@ -321,7 +377,7 @@ def tower_weights(run: Run, salt: int = 7) -> dict:
         z = flat[off:off + n].view(shape)
         off += n
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("pos_embedding", "class_embedding", "map_probe") or leaf.endswith("_bias"):
+        if leaf in small or leaf.endswith("_bias"):
             z.mul_(0.02)
         elif len(shape) == 1:
             z.mul_(0.05).add_(1.0)
@@ -329,6 +385,15 @@ def tower_weights(run: Run, salt: int = 7) -> dict:
             z.mul_(shape[-1] ** -0.5)
         out[name] = z
     return out
+
+
+def tower_weights(run: Run, salt: int = 7) -> dict:
+    """The tower's float32 weights in its family's layout, drawn by
+    draw_weights: positions, probe and class token N(0, 0.02^2) with the
+    biases, norm scales 1 + N(0, 0.05^2), matrices N(0, 1/fan_in)."""
+    tower = run.config["tower"]
+    return draw_weights(run, family_module(tower, run.root).shapes(tower), salt,
+                        small=("pos_embedding", "class_embedding", "map_probe"))
 
 
 def port_model(run: Run, batch_size: int, gencfg: str, quant: str = ""):
@@ -344,7 +409,7 @@ def port_model(run: Run, batch_size: int, gencfg: str, quant: str = ""):
     ckpt = checkpoint_path(run)
     _, meta = read_checkpoint(str(ckpt))
     nouns = meta["target_nouns"][meta["num_invalid_target_nouns"]:]
-    arch = tower_arch(tower, run.config.get("reduced", []), quant)
+    arch = tower_arch(tower, family_module(tower, run.root), run.config.get("reduced", []), quant)
     model = NOVICModel(str(ckpt), embedder_spec=tower["spec"], gencfg=gencfg,
                        batch_size=batch_size, device=run.device,
                        embedder_kwargs={"tokenizer": make_test_tokenizer(nouns)})
@@ -367,9 +432,10 @@ def reference_embeddings(run: Run, frames: np.ndarray, fp8: bool = False):
 
     from port_bench.reference.towers import embed
 
+    tower = run.config["tower"]
     weights = tower_weights(run)
-    out = embed(weights, run.config["tower"], torch.from_numpy(np.ascontiguousarray(frames))
-                .to(run.device), fp8=fp8)
+    out = embed(family_module(tower, run.root).forward, weights, tower,
+                torch.from_numpy(np.ascontiguousarray(frames)).to(run.device), fp8=fp8)
     del weights
     return out
 

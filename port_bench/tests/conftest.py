@@ -16,12 +16,17 @@ def pytest_configure(config):
     config.addinivalue_line("markers", "card: needs a CUDA card (runs on the chip only)")
 
 
-def tiny_cell(workload: str, **mix_overrides):
+# SigLIP-L/16-256's tower as the registry states it: an embedding 1024 wide
+SIGLIP_L = {"spec": "openclip:timm/ViT-L-16-SigLIP-256", "width": 1024, "heads": 16,
+            "mlp_dim": 4096, "embed_dim": 1024}
+
+
+def tiny_cell(workload: str, root: Path = ROOT, **mix_overrides):
     """The workload's cell with its tower cut to one layer and a small image
     and its mix to a few images: what a CPU run can hold."""
     from port_bench import harness
 
-    cell = harness.load_cell(ROOT, workload)
+    cell = harness.load_cell(root, workload)
     config = json.loads(json.dumps(cell.config))
     t = config["tower"]
     t.update(layers=1, image_size=2 * t["patch_size"])
@@ -34,6 +39,15 @@ def tiny_cell(workload: str, **mix_overrides):
     mix.update(mix_overrides)
     return harness.Cell(workload=workload, entry=cell.entry, config=config, mix=mix,
                         limits=cell.limits, end_to_end=cell.end_to_end, per_layer=cell.per_layer)
+
+
+def seeded_decoder_cell(workload: str, **mix_overrides):
+    """The workload's tiny cell on SigLIP-L/16-256's tower, with a decoder
+    drawn from the seed at its embedding width, 1024."""
+    cell = tiny_cell(workload, **mix_overrides)
+    cell.config["tower"].update(SIGLIP_L)
+    cell.config["decoder"].update(weights="seed", embed_dim=SIGLIP_L["embed_dim"])
+    return cell
 
 
 @pytest.fixture

@@ -1,6 +1,7 @@
 """Inputs from the seed, the window's arithmetic, the trace reduction and
 the frozen bound functions against hand-worked values."""
 
+import hashlib
 import importlib
 import math
 
@@ -24,6 +25,27 @@ def test_frames_and_weights_from_the_seed():
     w1, w3 = harness.tower_weights(r1), harness.tower_weights(r3)
     assert all(np.array_equal(w1[k].numpy(), harness.tower_weights(r2)[k].numpy()) for k in w1)
     assert not np.array_equal(w1["patch_weight"].numpy(), w3["patch_weight"].numpy())
+
+
+# Recorded before the tower families became modules of their own: blake2b of
+# the tiny tower's weight draw at seed 1,234,567,891,011 (each name, shape
+# and float32 bytes in order), and the shipped config's FLOP and tokens an image
+PINNED = {"siglip_b16_ft0.offline_b256_guided":
+          ("f8db8adcf0adabbf7603da32bf3eb260", 35_416_584_192, 196),
+          "eva02_l14_ft0.offline_b64_unguided":
+          ("44da76463a4d554dcd0020af775103b4", 162_000_273_408, 257)}
+
+
+@pytest.mark.parametrize("workload", sorted(PINNED))
+def test_tower_draw_and_counts_as_pinned(workload):
+    h = hashlib.blake2b(digest_size=16)
+    for name, w in harness.tower_weights(run_of(workload, 1_234_567_891_011)).items():
+        h.update(name.encode())
+        h.update(str(tuple(w.shape)).encode())
+        h.update(w.numpy().tobytes())
+    tower = harness.load_cell(ROOT, workload).config["tower"]
+    assert (h.hexdigest(), bounds.tower_flops(tower), bounds.tower_tokens(tower)) \
+        == PINNED[workload]
 
 
 def test_offline_rate_is_all_images_over_all_time(monkeypatch):

@@ -2,6 +2,9 @@
 towers (one layer, a 2 x 2 patch grid) from the same weights and frames,
 and the decoder's teacher-forced scores against the program's beam scores."""
 
+import gc
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -29,16 +32,51 @@ def test_tower_reference_matches_the_program(workload):
     assert harness.cosine_gap(fp8, ref) > 5 * gap
 
 
-@pytest.mark.parametrize("gencfg", ["beam_k10_vnone_gp_t1_a0", "beam_k10_vnone_gn_t1_a0"])
-def test_decoder_reference_matches_program_scores(gencfg):
+def seeded_decoder_run(embed_dim: int, seed: int = 3_900_000_001):
+    cell = tiny_cell("siglip_b16_ft0.offline_b256_guided")
+    cell.config["decoder"].update(weights="seed", embed_dim=embed_dim)
+    return harness.Run(ROOT, cell, seed, 1.0, False, device="cpu")
+
+
+def test_seeded_decoder_has_the_checkpoints_layout():
+    committed = ROOT / "assets" / "bench_ft0_decoder.npz"
+    run, same, another = (seeded_decoder_run(768), seeded_decoder_run(768),
+                          seeded_decoder_run(768, seed=3_900_000_002))
+    path = harness.checkpoint_path(run)
+    assert path != committed and harness.checkpoint_path(run) == path      # written once a run
+    again, other = harness.checkpoint_path(same), harness.checkpoint_path(another)
+    with np.load(committed) as a, np.load(path) as b, np.load(again) as c, np.load(other) as d:
+        assert a.files == b.files
+        assert [(a[k].shape, a[k].dtype) for k in a.files] == [(b[k].shape, b[k].dtype)
+                                                               for k in b.files]
+        meta = lambda f: json.loads(bytes(f["__meta__"]).decode())  # noqa: E731
+        assert meta(a) == meta(b)
+        params = [k for k in a.files if k.startswith("params.")]
+        assert all(np.array_equal(b[k], c[k]) for k in params)            # the seed decides
+        assert not any(np.array_equal(a[k], b[k]) or np.array_equal(b[k], d[k]) for k in params)
+    workdir = path.parent
+    del run
+    gc.collect()
+    assert not workdir.exists()                                           # removed with its run
+
+
+@pytest.mark.parametrize("gencfg,embed_dim", [
+    pytest.param("beam_k10_vnone_gp_t1_a0", 0, id="beam_k10_vnone_gp_t1_a0"),
+    pytest.param("beam_k10_vnone_gn_t1_a0", 0, id="beam_k10_vnone_gn_t1_a0"),
+    pytest.param("beam_k10_vnone_gp_t1_a0", 1024, id="seed1024-beam_k10_vnone_gp_t1_a0"),
+    pytest.param("beam_k10_vnone_gn_t1_a0", 1024, id="seed1024-beam_k10_vnone_gn_t1_a0")])
+def test_decoder_reference_matches_program_scores(gencfg, embed_dim):
+    """The committed decoder (embed_dim 0), or one drawn from the seed at that width."""
     from novic_tpu_torch.infer import NOVICModel
     from novic_tpu_torch.text.simple import make_test_tokenizer
 
-    ckpt = str(ROOT / "assets" / "bench_ft0_decoder.npz")
+    run = seeded_decoder_run(embed_dim) if embed_dim else None
+    ckpt = str(harness.checkpoint_path(run) if embed_dim else ROOT / "assets" / "bench_ft0_decoder.npz")
+    F = embed_dim or 768
     ref = ReferenceDecoder(ckpt, "cpu")
-    model = NOVICModel(ckpt, embedder_spec="test:768", gencfg=gencfg, batch_size=3, device="cpu",
+    model = NOVICModel(ckpt, embedder_spec=f"test:{F}", gencfg=gencfg, batch_size=3, device="cpu",
                        embedder_kwargs={"tokenizer": make_test_tokenizer(ref.labels.nouns)})
-    e = np.random.default_rng(5).standard_normal((3, 768)).astype(np.float32)
+    e = np.random.default_rng(5).standard_normal((3, F)).astype(np.float32)
     with model:
         out = model.classify_embeds(e)
         ids, pad = model.task.target, model.task.target_padding

@@ -2,6 +2,7 @@
 result line's schema, the checks that decide `correct`, the control judged
 in the program's place, the faults a serving cell can have, and the modules the run loads."""
 
+import contextlib
 import json
 import os
 import subprocess
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import ROOT, tiny_cell
+from conftest import ROOT, seeded_decoder_cell, tiny_cell
 from port_bench import compare, faults, harness
 
 WL = "siglip_b16_ft0.offline_b256_guided"
@@ -86,6 +87,18 @@ def test_a_broken_timed_path_is_not_correct(fault):
     assert any(c["value"] > c["limit"] for c in result["checks"].values())
 
 
+@pytest.mark.parametrize("side", ["program", "control", *sorted(faults.SERVING)])
+def test_cell_with_a_seeded_decoder(side):
+    """SigLIP-L/16-256's tower with a decoder drawn from the seed at 1024:
+    correct as the program runs it, not correct with the control in its
+    place or with a fault in its timed path."""
+    run = harness.Run(ROOT, seeded_decoder_cell(WL), 2_222_222_229, 0.5, False, device="cpu")
+    run.control = side == "control"
+    with faults.SERVING[side]() if side in faults.SERVING else contextlib.nullcontext():
+        result = harness.execute(run)
+    assert result["correct"] is (side == "program"), result["checks"]
+
+
 def test_run_loads_no_jax_and_reference_loads_no_program():
     code = ("import sys; sys.path.insert(0, %r); sys.path.insert(0, %r)\n"
             "from conftest import tiny_cell\nfrom port_bench import harness\n"
@@ -96,10 +109,15 @@ def test_run_loads_no_jax_and_reference_loads_no_program():
                          env={k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"})
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "[]"
+    families = sorted((ROOT / "port_bench" / "reference" / "families").glob("*.py"))
+    assert {f.stem for f in families} >= {"siglip", "eva02"}
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import port_bench.reference.decoder, port_bench.reference.towers\n"
+            "from port_bench.harness import load_module\n"
+            "for f in %r: load_module(__import__('pathlib').Path(f))\n"
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
-            "{'jax', 'jaxlib', 'flax', 'novic_tpu', 'novic_tpu_torch'}))" % str(ROOT))
+            "{'jax', 'jaxlib', 'flax', 'novic_tpu', 'novic_tpu_torch'}))"
+            % (str(ROOT), [str(f) for f in families]))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "[]", out.stderr[-2000:]
 
