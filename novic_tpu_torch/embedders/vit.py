@@ -43,6 +43,7 @@ from novic_tpu_torch.ops.attention import fused_attention
 from novic_tpu_torch.ops.int8_matmul import int8_dense, quantize_rows, quantize_weight
 from novic_tpu_torch.ops.layer_norm import layer_norm, layer_norm_reference
 from novic_tpu_torch.parallel.tp import row_parallel_finish
+from novic_tpu_torch.utils import trace
 
 _ACTS = {
     "gelu": lambda x: F.gelu(x),
@@ -168,11 +169,16 @@ def tower_dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     order differs.
 
     quant="int8[:impl]": W8A8 through int8_dense, w quantized per call as in
-    the JAX package (the towers' blocks keep theirs quantized instead)."""
+    the JAX package (the towers' blocks keep theirs quantized instead).
+
+    A bf16 call counts `tower.dense` in the program's trace (one GEMM)
+    while a profiler session runs."""
     if quant:
         check_quant(quant)
         return int8_dense(x, *quantize_weight(w), b)
     dt = dtype_of(compute_dtype)
+    if dt == torch.bfloat16:
+        trace.count("tower.dense")
     if dt == torch.bfloat16 and x.is_cuda:
         x2 = x.reshape(-1, x.shape[-1])
         if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):

@@ -4,6 +4,9 @@
   nothing; under torch.profiler a span has its parent, thread and sequence
   id, a thread's spans are kept apart from another's, threads lose no count
   or span, the bound drops and counts, and a new session starts empty.
+* A CLIP tower's forward at bf16 compute counts `tower.dense` once a bf16
+  product (6 a block and the patch embedding; its float32 projection not),
+  under a session only.
 * NOVICModel classifying under the profiler (a small SigLIP-shaped tower,
   the FT0 decoder) records one `embed` and one `decode` per batch,
   `decode.steps` = token_length - 1 a decode, and children that cover the
@@ -27,6 +30,7 @@ from torch.profiler import ProfilerActivity, profile
 from novic_tpu_torch.data.loader import BatchLoader
 from novic_tpu_torch.embedders import registry
 from novic_tpu_torch.embedders.base import TorchEmbedder
+from novic_tpu_torch.embedders.vit import VisionTransformer
 from novic_tpu_torch.infer import NOVICModel
 from novic_tpu_torch.models.base import create_decoder
 from novic_tpu_torch.models.config import DecoderModelConfig
@@ -232,6 +236,25 @@ def test_classify_records_a_span_tree_per_batch(nouns, gencfg):
     for d in decodes:
         steps = [r for r in names["decode.step"] if r["parent"] == d["id"]]
         assert [s["attrs"]["step"] for s in steps] == list(range(1, G + 1))
+
+
+@pytest.mark.parametrize("layers", [1, 3])
+def test_clip_tower_counts_its_bf16_products(layers):
+    """DFN5B's registered CLIP arch, cut small, at bf16 compute: 6 * layers + 1
+    `tower.dense` a forward under a session (the float32 projection is not
+    a bf16 GEMM), nothing without one."""
+    v = registry.REGISTRY["openclip:apple/DFN5B-CLIP-ViT-H-14-378"].vision
+    cfg = dataclasses.replace(v, image_size=28, width=32, layers=layers, heads=2, embed_dim=16)
+    assert (cfg.compute_dtype, cfg.pool, cfg.use_class_token) == ("bfloat16", "cls", True)
+    tower = VisionTransformer(cfg).init_random(torch.Generator().manual_seed(0))
+    x = torch.randn(2, 28, 28, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        tower(x)
+        assert trace.counters() == {}
+        with cpu_profile():
+            out = tower(x)
+            assert trace.counters() == {"tower.dense": 6 * layers + 1}
+    assert out.shape == (2, 16) and out.dtype == torch.float32
 
 
 class _Rows:
