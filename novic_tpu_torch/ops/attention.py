@@ -28,8 +28,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
@@ -42,8 +40,9 @@ LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 SOURCE = _build.CSRC / "attention.cu"
 BUILD_DIR = _build.BUILD_DIR
 MAX_HD = 128  # the largest hd the kernel takes (a multiple of 8)
-_lib = None
-_lib_lock = threading.Lock()
+_library = _build.Library(SOURCE, {"novic_attention": (
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int],
+    ctypes.c_int)})
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,24 +64,6 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attn = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", attn.to(torch.bfloat16).float(),
                         v.to(torch.bfloat16).float())
-
-
-def build(force: bool = False) -> Path:
-    """Compile csrc/attention.cu into the build directory (if stale); return the .so path."""
-    return _build.build(SOURCE, force=force)
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.novic_attention.argtypes = (
-                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int])
-            lib.novic_attention.restype = ctypes.c_int
-            _lib = lib
-    return _lib
 
 
 def _tma_plans(scratch: torch.Tensor) -> list[int]:
@@ -120,15 +101,10 @@ def _launch(q, k, v, bias, key_bias=None):
                          f"{MAX_HD})")
     out = torch.empty_like(q)
     scratch = torch.empty((3, B, S, H, hd), dtype=torch.bfloat16, device=q.device)
-    plan = ctypes.cast((ctypes.c_longlong * 33)(*_tma_plans(scratch)), ctypes.c_void_p)
-    with torch.cuda.device(q.device):
-        err = lib.novic_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
-                                  out.data_ptr(), scratch.data_ptr(), plan, B, S, H, hd,
-                                  1.0 / math.sqrt(hd),
-                                  torch.cuda.current_stream(q.device).cuda_stream,
-                                  int(key_bias is not None))
-    if err != 0:
-        raise RuntimeError(f"fused_attention kernel launch failed: CUDA error {err}")
+    plan = _build.longs(_tma_plans(scratch))
+    _build.launch("fused_attention", q.device, lambda stream: lib.novic_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(), scratch.data_ptr(),
+        plan, B, S, H, hd, 1.0 / math.sqrt(hd), stream, int(key_bias is not None)))
     LAUNCHES += 1
     return out
 

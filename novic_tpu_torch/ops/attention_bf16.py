@@ -34,8 +34,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
@@ -48,8 +46,9 @@ LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 SOURCE = _build.CSRC / "attention_bf16.cu"
 MAX_HD = 128  # the largest hd the kernel takes (a multiple of 8)
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
-_lib = None
-_lib_lock = threading.Lock()
+_library = _build.Library(SOURCE, {"novic_attention_bf16": (
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    ctypes.c_int)})
 
 
 def attention_bf16_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,24 +65,6 @@ def attention_bf16_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = (e / e.sum(dim=-1, keepdim=True)).to(torch.bfloat16).float()
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(out_dtype)
-
-
-def build(force: bool = False) -> Path:
-    """Compile csrc/attention_bf16.cu into the build directory (if stale); return the .so path."""
-    return _build.build(SOURCE, force=force)
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.novic_attention_bf16.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
-                                                              ctypes.c_void_p])
-            lib.novic_attention_bf16.restype = ctypes.c_int
-            _lib = lib
-    return _lib
 
 
 def _check(q, k, v, s_valid: int, out_dtype: torch.dtype) -> None:
@@ -152,16 +133,10 @@ def _launch(q, k, v, s_valid: int, scale: float, out_dtype: torch.dtype) -> torc
     lib = _library()
     out = torch.empty((B, s_valid, H, hd), dtype=out_dtype, device=q.device)
     ostrides = [out.stride(0), out.stride(1), out.stride(2)]
-    with torch.cuda.device(q.device):
-        err = lib.novic_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                       ctypes.cast((ctypes.c_longlong * 33)(*plan),
-                                                   ctypes.c_void_p),
-                                       ctypes.cast((ctypes.c_longlong * 3)(*ostrides),
-                                                   ctypes.c_void_p),
-                                       B, H, s_valid, hd, scale, int(out_dtype == torch.bfloat16),
-                                       torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"attention_bf16 kernel launch failed: CUDA error {err}")
+    _build.launch("attention_bf16", q.device, lambda stream: lib.novic_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.longs(plan),
+        _build.longs(ostrides), B, H, s_valid, hd, scale, int(out_dtype == torch.bfloat16),
+        stream))
     LAUNCHES += 1
     return out
 

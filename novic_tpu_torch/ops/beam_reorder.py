@@ -24,8 +24,6 @@ sm_90a at first use into build/novic_tpu_torch/ and loaded through ctypes.
 from __future__ import annotations
 
 import ctypes
-import threading
-from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
@@ -36,8 +34,9 @@ LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
 SOURCE = _build.CSRC / "beam_reorder.cu"
 MAX_CACHES_PER_LAUNCH = 64  # kMaxCaches in the source
-_lib = None
-_lib_lock = threading.Lock()
+_library = _build.Library(SOURCE, {"novic_beam_reorder": (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p], ctypes.c_int)})
 
 
 def reorder_reference(x: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
@@ -46,24 +45,6 @@ def reorder_reference(x: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     B, H = cand.shape
     onehot = (cand[:, :, None] == torch.arange(H, device=cand.device)).to(x.dtype)
     return torch.bmm(onehot, x.reshape(B, H, -1)).reshape(x.shape)
-
-
-def build(force: bool = False) -> Path:
-    """Compile csrc/beam_reorder.cu into the build directory (if stale); return the .so path."""
-    return _build.build(SOURCE, force=force)
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.novic_beam_reorder.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
-            lib.novic_beam_reorder.restype = ctypes.c_int
-            _lib = lib
-    return _lib
 
 
 def _check(xs: Sequence[torch.Tensor], cand: torch.Tensor,
@@ -117,12 +98,9 @@ def _launch(xs: Sequence[torch.Tensor], cand: torch.Tensor,
     src = (ctypes.c_void_p * n)(*[x.data_ptr() for x in xs])
     dst = (ctypes.c_void_p * n)(*[o.data_ptr() for o in out])
     row_bytes = xs[0].numel() // rows * xs[0].element_size()
-    with torch.cuda.device(dev):
-        err = lib.novic_beam_reorder(src, dst, n, cand.data_ptr(), int(cand.dtype == torch.int64),
-                                     rows, cand.shape[1], row_bytes,
-                                     torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"beam_reorder kernel launch failed: CUDA error {err}")
+    _build.launch("beam_reorder", dev, lambda stream: lib.novic_beam_reorder(
+        src, dst, n, cand.data_ptr(), int(cand.dtype == torch.int64), rows, cand.shape[1],
+        row_bytes, stream))
     LAUNCHES += -(-n // MAX_CACHES_PER_LAUNCH)
     return list(out)
 

@@ -1,25 +1,37 @@
-"""Compile the port's CUDA sources with nvcc into shared libraries.
+"""Compile the port's CUDA sources with nvcc into shared libraries, and bind
+them: the one place that decides how a library is built and loaded, how its C
+entries are typed, and on which device and stream a kernel launches.
 
 Each source in ops/csrc/ has a plain C interface (device helpers shared between
 sources live in csrc/*.cuh headers) and is built for sm_90a into
 build/novic_tpu_torch/ at the root of the checkout at first use, then loaded
-through ctypes by its wrapper module. `build_all` starts one nvcc per source at
-once, so a cold start pays the slowest compile rather than the sum, and each
-nvcc splits its compilation over the host's cores (`-split-compile=0`): the
-backward flash kernels' 192 instances build in about half the time so.
+through ctypes by its wrapper module's `Library` handle. `build_all` starts one
+nvcc per source at once, so a cold start pays the slowest compile rather than
+the sum, and each nvcc splits its compilation over the host's cores
+(`-split-compile=0`): the backward flash kernels' 192 instances build in about
+half the time so.
 
 Host C++ (the checkpoint codecs under train/csrc/) takes `build_host`: the host
 compiler (g++, else c++) with -O2 -shared -fPIC, into the same directory, a
 temporary name renamed into place so that concurrent builds never load a
 half-written library.
+
+`launch` runs one C entry that launches kernels: on the tensors' device, on
+that device's current stream as of the call, raising on a nonzero CUDA error.
+`longs` passes a list of ints as a C int64 array (the tensor-map plans).
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
+from typing import Callable, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "novic_tpu_torch"
@@ -110,3 +122,47 @@ def build_host(source: Path, force: bool = False) -> Path:
                            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
     return out
+
+
+class Library:
+    """A lazy handle on the library of one source: calling it builds the
+    library if stale (`build_host` where `host`, else nvcc's `build`) and
+    loads it at the first call, once per process under the handle's lock,
+    with each C entry of `entries` ({name: (argtypes, restype)}) typed; every
+    call returns that ctypes.CDLL. Nothing is built or loaded at import."""
+
+    def __init__(self, source: Path, entries: dict[str, tuple[list, object]],
+                 host: bool = False):
+        self.source, self.entries, self.host = source, entries, host
+        self._lib: ctypes.CDLL | None = None
+        self._lock = threading.Lock()
+
+    def __call__(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(str((build_host if self.host else build)(self.source)))
+                for name, (argtypes, restype) in self.entries.items():
+                    entry = getattr(lib, name)
+                    entry.argtypes, entry.restype = argtypes, restype
+                self._lib = lib
+        return self._lib
+
+
+def launch(kernel: str, device: torch.device, call: Callable[[int], int],
+           detail: str = "") -> None:
+    """`call(stream)` (a C entry that launches `kernel` on `stream` and returns
+    a CUDA error) with `device` current and `stream` that device's current
+    stream, looked up at this call and never kept: a launch under CUDA graph
+    capture lands on the capturing stream. A nonzero return raises
+    RuntimeError naming the kernel, the error and `detail` where given."""
+    with torch.cuda.device(device):
+        err = call(torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        detail = f" ({detail})" if detail else ""
+        raise RuntimeError(f"{kernel} kernel launch failed{detail}: CUDA error {err}")
+
+
+def longs(values: Sequence[int]) -> ctypes.c_void_p:
+    """`values` as a C int64 array, passed by pointer; the pointer keeps the
+    array alive."""
+    return ctypes.cast((ctypes.c_longlong * len(values))(*values), ctypes.c_void_p)

@@ -29,8 +29,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
-from pathlib import Path
 
 import torch
 
@@ -43,8 +41,10 @@ _DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-_lib = None
-_lib_lock = threading.Lock()
+_library = _build.Library(SOURCE, {"novic_dropout": (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+     ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p],
+    ctypes.c_int)})
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,25 +105,6 @@ def dropout_reference(x: torch.Tensor, seed: tuple[int, int], rate: float,
     return torch.where(keep, y, torch.zeros((), dtype=y.dtype, device=y.device)).to(x.dtype)
 
 
-def build(force: bool = False) -> Path:
-    """Compile csrc/dropout.cu into the build directory (if stale); return the .so path."""
-    return _build.build(SOURCE, force=force)
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.novic_dropout.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                                          ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
-                                          ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
-                                          ctypes.c_void_p]
-            lib.novic_dropout.restype = ctypes.c_int
-            _lib = lib
-    return _lib
-
-
 def _launch(x: torch.Tensor, seed: tuple[int, int], rate: float, offset: int) -> torch.Tensor:
     global LAUNCHES
     if x.dtype not in _DTYPE_IDS:
@@ -137,11 +118,9 @@ def _launch(x: torch.Tensor, seed: tuple[int, int], rate: float, offset: int) ->
     if x.device.index != torch.cuda.current_device():
         raise ValueError(f"dropout kernel: x is on {x.device}, the current device is "
                          f"cuda:{torch.cuda.current_device()}")
-    err = lib.novic_dropout(x.data_ptr(), y.data_ptr(), x.numel(), offset, _DTYPE_IDS[x.dtype],
-                            seed[0] & _MASK32, seed[1] & _MASK32, keep_threshold(rate),
-                            inv_keep(rate, x.dtype), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dropout kernel launch failed: CUDA error {err}")
+    _build.launch("dropout", x.device, lambda stream: lib.novic_dropout(
+        x.data_ptr(), y.data_ptr(), x.numel(), offset, _DTYPE_IDS[x.dtype], seed[0] & _MASK32,
+        seed[1] & _MASK32, keep_threshold(rate), inv_keep(rate, x.dtype), stream))
     LAUNCHES += 1
     return y
 

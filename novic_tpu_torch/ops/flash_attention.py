@@ -56,8 +56,6 @@ and the dQ kernel's launches.
 from __future__ import annotations
 
 import ctypes
-import threading
-from pathlib import Path
 from typing import NamedTuple, Optional
 
 import torch
@@ -79,9 +77,18 @@ CAUSAL_BLOCK = 128   # JAX's default block_q and block_k_major: the causal skip'
 MAX_HD = 128  # the largest hd the kernels take (a multiple of 8)
 BWD_TILE = 64  # the backward's tiles: rows of every map's box; Sq and the segment ids pad to it
 _AB_DTYPES = (torch.float32, torch.bfloat16)
-_lib = None
-_bwd_lib = None
-_lib_lock = threading.Lock()
+_library = _build.Library(SOURCE, {"novic_flash_attention": (
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+    ctypes.c_int)})
+_bwd_library = _build.Library(BWD_SOURCE, {
+    "novic_flash_attention_bwd_maps": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p], ctypes.c_int),
+    "novic_flash_attention_bwd_dq": (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+        ctypes.c_int),
+    "novic_flash_attention_bwd_dkv": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+        ctypes.c_int)})
 
 
 class SegmentIds(NamedTuple):
@@ -212,46 +219,6 @@ def flash_attention_bwd_reference(q, k, v, ab, segment_ids, o, l, m, do, causal:
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dab
 
 
-def build(force: bool = False) -> Path:
-    """Compile csrc/flash_attention.cu into the build directory (if stale); return the .so path."""
-    return _build.build(SOURCE, force=force)
-
-
-def build_bwd(force: bool = False) -> Path:
-    """Compile csrc/flash_attention_bwd.cu (if stale); return the .so path."""
-    return _build.build(BWD_SOURCE, force=force)
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.novic_flash_attention.argtypes = (
-                [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
-            lib.novic_flash_attention.restype = ctypes.c_int
-            _lib = lib
-    return _lib
-
-
-def _bwd_library():
-    global _bwd_lib
-    with _lib_lock:
-        if _bwd_lib is None:
-            lib = ctypes.CDLL(str(build_bwd()))
-            lib.novic_flash_attention_bwd_maps.argtypes = (
-                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-            lib.novic_flash_attention_bwd_dq.argtypes = (
-                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
-            lib.novic_flash_attention_bwd_dkv.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
-            for fn in (lib.novic_flash_attention_bwd_maps, lib.novic_flash_attention_bwd_dq,
-                       lib.novic_flash_attention_bwd_dkv):
-                fn.restype = ctypes.c_int
-            _bwd_lib = lib
-    return _bwd_lib
-
-
 def _check(q, k, v, ab, segment_ids: Optional[SegmentIds]) -> None:
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
@@ -313,10 +280,6 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _longs(values) -> ctypes.c_void_p:
-    return ctypes.cast((ctypes.c_longlong * len(values))(*values), ctypes.c_void_p)
-
-
 def _launch(q, k, v, ab, segment_ids: Optional[SegmentIds], causal: bool, sm_scale: float,
             residuals: bool = False):
     """The forward kernel: (o, l, m), l and m float32 (B, H, Sq) when
@@ -338,14 +301,10 @@ def _launch(q, k, v, ab, segment_ids: Optional[SegmentIds], causal: bool, sm_sca
     if residuals:
         l, m = (torch.empty((B, H, sq), dtype=torch.float32, device=q.device) for _ in range(2))
     ab_bytes = 0 if ab is None else ab.element_size()
-    with torch.cuda.device(q.device):
-        err = lib.novic_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ab), out.data_ptr(), _ptr(l), _ptr(m),
-            _ptr(seg_q), _ptr(seg_kv), _longs(plan), _longs(out.stride()[:3]),
-            B, H, sq, skv, hd, ab_bytes, int(causal), sm_scale,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    _build.launch("flash_attention", q.device, lambda stream: lib.novic_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ab), out.data_ptr(), _ptr(l), _ptr(m),
+        _ptr(seg_q), _ptr(seg_kv), _build.longs(plan), _build.longs(out.stride()[:3]),
+        B, H, sq, skv, hd, ab_bytes, int(causal), sm_scale, stream))
     LAUNCHES += 1
     return out, l, m
 
@@ -428,7 +387,7 @@ def _bwd_inputs(q, k, v, ab, segment_ids: Optional[SegmentIds], o, l, m, do, cau
     maps = (ctypes.c_ubyte * (6 * 128))()
     err = _bwd_library().novic_flash_attention_bwd_maps(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(), _ptr(ab),
-        _longs(plan), B, H, sq, skv, hd, ab_bytes, ctypes.addressof(maps))
+        _build.longs(plan), B, H, sq, skv, hd, ab_bytes, ctypes.addressof(maps))
     if err != 0:
         raise RuntimeError(f"flash_attention backward: tensor maps refused: CUDA error {err}")
     keep = (q, k, v, do, o, ab, l, m, seg_q, seg_kv)
@@ -445,12 +404,9 @@ def _launch_dq(a: BwdInputs, need_dab: bool):
     lib = _bwd_library()
     dq = torch.empty((B, H, sq, hd), dtype=torch.bfloat16, device=a.device)
     dab = torch.empty((B, H, sq, skv), dtype=a.ab_dtype, device=a.device) if need_dab else None
-    with torch.cuda.device(a.device):
-        err = lib.novic_flash_attention_bwd_dq(
-            ctypes.addressof(a.maps), *a.pointers, a.stats.data_ptr(), dq.data_ptr(), _ptr(dab),
-            *a.shape, torch.cuda.current_stream(a.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention dQ kernel launch failed: CUDA error {err}")
+    _build.launch("flash_attention dQ", a.device, lambda stream: lib.novic_flash_attention_bwd_dq(
+        ctypes.addressof(a.maps), *a.pointers, a.stats.data_ptr(), dq.data_ptr(), _ptr(dab),
+        *a.shape, stream))
     DQ_LAUNCHES += 1
     return dq, dab
 
@@ -463,12 +419,10 @@ def _launch_dkv(a: BwdInputs):
     lib = _bwd_library()
     dk = torch.empty((B, H, skv, hd), dtype=torch.bfloat16, device=a.device)
     dv = torch.empty_like(dk)
-    with torch.cuda.device(a.device):
-        err = lib.novic_flash_attention_bwd_dkv(
-            ctypes.addressof(a.maps), a.stats.data_ptr(), *a.pointers[2:], dk.data_ptr(),
-            dv.data_ptr(), *a.shape, torch.cuda.current_stream(a.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention dK/dV kernel launch failed: CUDA error {err}")
+    _build.launch("flash_attention dK/dV", a.device,
+                  lambda stream: lib.novic_flash_attention_bwd_dkv(
+                      ctypes.addressof(a.maps), a.stats.data_ptr(), *a.pointers[2:],
+                      dk.data_ptr(), dv.data_ptr(), *a.shape, stream))
     DKV_LAUNCHES += 1
     return dk, dv
 

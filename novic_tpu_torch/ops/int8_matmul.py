@@ -42,8 +42,6 @@ launches, and `INSTANCE_LAUNCHES` each instance's.
 from __future__ import annotations
 
 import ctypes
-import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
@@ -55,8 +53,8 @@ INSTANCE_LAUNCHES = {"wgmma": 0, "mma_sync": 0}  # the same, by instance
 
 SOURCE = _build.CSRC / "int8_matmul.cu"
 _EPILOGUES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
-_lib = None
-_lib_lock = threading.Lock()
+_library = _build.Library(SOURCE, {"novic_int8_matmul": (
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int)})
 
 
 def _quantize(x: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -99,23 +97,6 @@ def int8_matmul_dequant_reference(xq: torch.Tensor, sx: torch.Tensor, wq: torch.
     if bias is not None:
         y = y + bias
     return y.to(out_dtype)
-
-
-def build(force: bool = False) -> Path:
-    """Compile csrc/int8_matmul.cu into the build directory (if stale); return the .so path."""
-    return _build.build(SOURCE, force=force)
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.novic_int8_matmul.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                                              + [ctypes.c_void_p])
-            lib.novic_int8_matmul.restype = ctypes.c_int
-            _lib = lib
-    return _lib
 
 
 def _check_operands(xq: torch.Tensor, wq: torch.Tensor) -> tuple[int, int, int]:
@@ -180,16 +161,12 @@ def _launch(xq, wq, sx, sw, bias, out_dtype: torch.dtype) -> torch.Tensor:
     instance = _instance(xq, wq)
     plan = None
     if instance == "wgmma":
-        plan = ctypes.cast((ctypes.c_longlong * 10)(*_tma_plan(xq, wq)), ctypes.c_void_p)
+        plan = _build.longs(_tma_plan(xq, wq))
     lib = _library()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(dev):
-        err = lib.novic_int8_matmul(xq.data_ptr(), wq.data_ptr(), plan, ptr(sx), ptr(sw),
-                                    ptr(bias), out.data_ptr(), M, N, K, _EPILOGUES[out_dtype],
-                                    torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"int8_matmul kernel launch failed ({instance} instance): "
-                           f"CUDA error {err}")
+    _build.launch("int8_matmul", dev, lambda stream: lib.novic_int8_matmul(
+        xq.data_ptr(), wq.data_ptr(), plan, ptr(sx), ptr(sw), ptr(bias), out.data_ptr(), M, N, K,
+        _EPILOGUES[out_dtype], stream), detail=f"{instance} instance")
     LAUNCHES += 1
     INSTANCE_LAUNCHES[instance] += 1
     return out

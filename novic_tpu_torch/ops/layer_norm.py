@@ -27,8 +27,6 @@ launches; each launch also adds one to the program's counter
 from __future__ import annotations
 
 import ctypes
-import threading
-from pathlib import Path
 
 import torch
 
@@ -40,8 +38,9 @@ LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 SOURCE = _build.CSRC / "layer_norm.cu"
 MAX_D = 16384  # the widest row the kernel takes (kMaxD in the source)
 _DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
-_lib_lock = threading.Lock()
+_library = _build.Library(SOURCE, {"novic_layer_norm": (
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_float]
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int)})
 
 
 def layer_norm_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
@@ -92,25 +91,6 @@ def _vector(x2: torch.Tensor, *others: torch.Tensor) -> bool:
             and all(t.data_ptr() % 16 == 0 for t in (x2, *others)))
 
 
-def build(force: bool = False) -> Path:
-    """Compile csrc/layer_norm.cu into the build directory (if stale); return the .so path."""
-    return _build.build(SOURCE, force=force)
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.novic_layer_norm.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                                             ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
-                                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            lib.novic_layer_norm.restype = ctypes.c_int
-            _lib = lib
-    return _lib
-
-
 def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
             out_dtype: torch.dtype) -> torch.Tensor:
     global LAUNCHES
@@ -126,14 +106,9 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: floa
     rows, D = x2.shape
     vector = _vector(x2, y, weight, bias)
     lib = _library()
-    dev = x.device
-    with torch.cuda.device(dev):
-        err = lib.novic_layer_norm(x2.data_ptr(), y.data_ptr(), weight.data_ptr(),
-                                   bias.data_ptr(), rows, D, x2.stride(0), eps,
-                                   _DTYPE_IDS[x.dtype], _DTYPE_IDS[out_dtype], int(vector),
-                                   torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"layer_norm kernel launch failed: CUDA error {err}")
+    _build.launch("layer_norm", x.device, lambda stream: lib.novic_layer_norm(
+        x2.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(), rows, D, x2.stride(0),
+        eps, _DTYPE_IDS[x.dtype], _DTYPE_IDS[out_dtype], int(vector), stream))
     LAUNCHES += 1
     trace.count("tower.layer_norm")
     return y

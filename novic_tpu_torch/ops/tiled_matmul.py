@@ -37,8 +37,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
@@ -52,8 +50,11 @@ TRANSPOSE_LAUNCHES = 0  # transpose_s8 launches
 SOURCE = _build.CSRC / "tiled_matmul.cu"
 _KINDS = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 _INSTANCES = {torch.int8: "s8_wgmma", torch.bfloat16: "bf16_wgmma", torch.float32: "f32_fma"}
-_lib = None
-_lib_lock = threading.Lock()
+_library = _build.Library(SOURCE, {
+    "novic_tiled_matmul": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+                           ctypes.c_int),
+    "novic_transpose_s8": ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+                           ctypes.c_int)})
 
 
 def out_dtype(in_dtype: torch.dtype) -> torch.dtype:
@@ -81,26 +82,6 @@ def tiled_matmul_reference(x: torch.Tensor, w: torch.Tensor, bn: Optional[int] =
 def transpose_s8_reference(w: torch.Tensor) -> torch.Tensor:
     """Plain version of the transpose: w (K, N) → wᵀ (N, K), contiguous."""
     return w.t().contiguous()
-
-
-def build(force: bool = False) -> Path:
-    """Compile csrc/tiled_matmul.cu into the build directory (if stale); return the .so path."""
-    return _build.build(SOURCE, force=force)
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.novic_tiled_matmul.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                                               + [ctypes.c_void_p])
-            lib.novic_tiled_matmul.restype = ctypes.c_int
-            lib.novic_transpose_s8.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
-                ctypes.c_void_p]
-            lib.novic_transpose_s8.restype = ctypes.c_int
-            _lib = lib
-    return _lib
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, bn: Optional[int]) -> None:
@@ -157,11 +138,7 @@ def _plan_arg(values: tuple) -> ctypes.c_void_p:
     """A plan as the library reads it, kept per distinct plan: the probe loops
     call one shape many times, and building the array is a few µs of host
     time a call, which small shapes wait for."""
-    return ctypes.cast((ctypes.c_longlong * len(values))(*values), ctypes.c_void_p)
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return _build.longs(values)
 
 
 def _launch_transpose(w: torch.Tensor) -> torch.Tensor:
@@ -171,10 +148,8 @@ def _launch_transpose(w: torch.Tensor) -> torch.Tensor:
     K, N = w.shape
     wt = torch.empty((N, K), dtype=torch.int8, device=w.device)
     lib = _library()
-    with torch.cuda.device(w.device):
-        err = lib.novic_transpose_s8(w.data_ptr(), wt.data_ptr(), K, N, _stream(w))
-    if err != 0:
-        raise RuntimeError(f"transpose_s8 kernel launch failed: CUDA error {err}")
+    _build.launch("transpose_s8", w.device,
+                  lambda stream: lib.novic_transpose_s8(w.data_ptr(), wt.data_ptr(), K, N, stream))
     TRANSPOSE_LAUNCHES += 1
     return wt
 
@@ -204,13 +179,10 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bn: Optional[int]) -> torch.Tensor
         values = _tma_plan(x, w)
     plan = _plan_arg(tuple(values))
     out = torch.empty((M, N // bn) if bn else (M, N), dtype=out_dtype(x.dtype), device=x.device)
-    # The entry point makes x's card current for the call itself
-    err = _library().novic_tiled_matmul(x.data_ptr(), w.data_ptr(),
-                                        None if wt is None else wt.data_ptr(), plan,
-                                        out.data_ptr(), M, N, K, _KINDS[x.dtype], bn or 0,
-                                        x.device.index, _stream(x))
-    if err != 0:
-        raise RuntimeError(f"tiled_matmul kernel launch failed: CUDA error {err}")
+    lib = _library()
+    _build.launch("tiled_matmul", x.device, lambda stream: lib.novic_tiled_matmul(
+        x.data_ptr(), w.data_ptr(), None if wt is None else wt.data_ptr(), plan, out.data_ptr(),
+        M, N, K, _KINDS[x.dtype], bn or 0, x.device.index, stream))
     LAUNCHES += 1
     INSTANCE_LAUNCHES[_INSTANCES[x.dtype]] += 1
     if wt is not None:

@@ -10,14 +10,14 @@ decoder reads. A truncated or corrupt input raises ValueError.
 
 The library is compiled at first use with the host C++ compiler
 (`ops.build.build_host`, -O2 -shared -fPIC) into build/novic_tpu_torch/ and
-bound through ctypes. Without a compiler, or when the build fails, it raises
+bound through ctypes (`library`, an `ops.build.Library`), rebuilt where it is
+missing or older than its source. Without a compiler, or when the build fails, it raises
 with the compiler's output: there is no other implementation.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 
 import numpy as np
@@ -28,34 +28,15 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "zstd.cpp"
 _ERRORS = {-2: "corrupt data", -3: "output larger than expected", -4: "truncated input",
            -5: "content checksum mismatch", -6: "frame needs a dictionary",
            -7: "out of memory", -8: "content size differs from the frame header's"}
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def library() -> ctypes.CDLL:
-    """The codec's library, built if it is missing or older than its source."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(_build.build_host(SOURCE)))
-            u8p, size, i64 = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int64
-            lib.novic_zstd_decompress.argtypes = [u8p, size, u8p, size]
-            lib.novic_zstd_decompress.restype = i64
-            lib.novic_zstd_decompress_alloc.argtypes = [u8p, size, size,
-                                                        ctypes.POINTER(ctypes.c_void_p)]
-            lib.novic_zstd_decompress_alloc.restype = i64
-            lib.novic_zstd_free.argtypes = [u8p]
-            lib.novic_zstd_free.restype = None
-            lib.novic_zstd_content_size.argtypes = [u8p, size]
-            lib.novic_zstd_content_size.restype = i64
-            lib.novic_zstd_raw_bound.argtypes = [size]
-            lib.novic_zstd_raw_bound.restype = size
-            lib.novic_zstd_compress_raw.argtypes = [u8p, size, u8p, size]
-            lib.novic_zstd_compress_raw.restype = i64
-            lib.novic_crc32c.argtypes = [ctypes.c_uint32, u8p, size]
-            lib.novic_crc32c.restype = ctypes.c_uint32
-            _lib = lib
-        return _lib
+_U8P, _SIZE, _I64 = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int64
+library = _build.Library(SOURCE, {
+    "novic_zstd_decompress": ([_U8P, _SIZE, _U8P, _SIZE], _I64),
+    "novic_zstd_decompress_alloc": ([_U8P, _SIZE, _SIZE, ctypes.POINTER(ctypes.c_void_p)], _I64),
+    "novic_zstd_free": ([_U8P], None),
+    "novic_zstd_content_size": ([_U8P, _SIZE], _I64),
+    "novic_zstd_raw_bound": ([_SIZE], _SIZE),
+    "novic_zstd_compress_raw": ([_U8P, _SIZE, _U8P, _SIZE], _I64),
+    "novic_crc32c": ([ctypes.c_uint32, _U8P, _SIZE], ctypes.c_uint32)}, host=True)
 
 
 def _view(data) -> np.ndarray:

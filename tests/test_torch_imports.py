@@ -78,8 +78,7 @@ DFN5B_SLICE_MODULES = ["novic_tpu_torch.ops.attention_bf16", "novic_tpu_torch.op
                        "novic_tpu_torch.exp.attn_v2", "novic_tpu_torch.exp.int8_matmul_probe"]
 FLASH_SLICE_MODULES = ["novic_tpu_torch.ops.flash_attention", "novic_tpu_torch.exp.attn_variants",
                        "novic_tpu_torch.text.clip_bpe", "novic_tpu_torch.text.sentencepiece",
-                       "novic_tpu_torch.text.wordpiece", "novic_tpu_torch.tools.flash_forward_ab",
-                       "novic_tpu_torch.tools.flash_backward_ab"]
+                       "novic_tpu_torch.text.wordpiece"]
 ALL_SLICE_MODULES = ["novic_tpu_torch.models.generate", "novic_tpu_torch.models.precompute_store",
                      "novic_tpu_torch.models.dud", "novic_tpu_torch.infer"]
 REFERENCE_SLICE_MODULES = ["novic_tpu_torch.embedders.convert",
